@@ -1,0 +1,44 @@
+"""Config registry: ``get_arch(name)`` / ``ARCHS``.
+
+Only the dense-attention architectures that the port runs are
+registered. The others exist in the JAX package and raise here until
+their block kinds are ported.
+"""
+from __future__ import annotations
+
+import importlib
+
+from repro_torch.configs.base import ArchConfig, reduced
+
+_ARCH_MODULES = {
+    "tinyllama-1.1b": "repro_torch.configs.tinyllama_1_1b",
+    "stablelm-12b": "repro_torch.configs.stablelm_12b",
+    "granite-34b": "repro_torch.configs.granite_34b",
+    "gemma3-27b": "repro_torch.configs.gemma3_27b",
+}
+
+# Architectures of the JAX package that need block kinds or frontends
+# the port does not have yet, with the ROADMAP item that ports them.
+_NOT_PORTED = {
+    "mixtral-8x22b": "ROADMAP A13 (MoE per-expert nodes)",
+    "qwen3-moe-30b-a3b": "ROADMAP A13 (MoE per-expert nodes)",
+    "xlstm-1.3b": "ROADMAP A13 (mLSTM/sLSTM blocks)",
+    "recurrentgemma-2b": "ROADMAP A13 (RG-LRU blocks)",
+    "musicgen-large": "ROADMAP A13 (models/frontends.py)",
+    "internvl2-76b": "ROADMAP A13 (models/frontends.py)",
+}
+
+ARCHS = tuple(_ARCH_MODULES)
+
+
+def get_arch(name: str) -> ArchConfig:
+    if name in _NOT_PORTED:
+        raise NotImplementedError(
+            f"arch {name!r} is not ported to repro_torch yet: "
+            f"{_NOT_PORTED[name]}")
+    if name not in _ARCH_MODULES:
+        raise KeyError(f"unknown arch {name!r}; known: {sorted(_ARCH_MODULES)}")
+    return importlib.import_module(_ARCH_MODULES[name]).CONFIG
+
+
+__all__ = ["ArchConfig", "ARCHS", "get_arch", "reduced"]

@@ -1,0 +1,47 @@
+"""SketchNode — the per-node unit of sketch state (counterpart of
+``repro.sketches.node``).
+
+One node is one monitored activation tensor: its EMA triple (x, y, z)
+and its interaction weights ``psi``. A node may carry leading stack dims
+(one entry per layer), as in the reference.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+Tensor = torch.Tensor
+
+
+@dataclasses.dataclass
+class SketchNode:
+    """EMA triple + psi: x/y/z (..., d, k_max), psi (..., k_max)."""
+
+    x: Tensor
+    y: Tensor
+    z: Tensor
+    psi: Tensor
+
+    @property
+    def k_max(self) -> int:
+        return self.y.shape[-1]
+
+    @property
+    def width(self) -> int:
+        return self.y.shape[-2]
+
+
+def init_paper_node(gen: torch.Generator, width: int, k_max: int,
+                    layers: int | None = None,
+                    dtype=torch.float32) -> SketchNode:
+    """Zero triple + fresh N(0, 1) psi on the generator's device."""
+    lead = () if layers is None else (int(layers),)
+    shape = lead + (width, k_max)
+    dev = gen.device
+    return SketchNode(
+        x=torch.zeros(shape, dtype=dtype, device=dev),
+        y=torch.zeros(shape, dtype=dtype, device=dev),
+        z=torch.zeros(shape, dtype=dtype, device=dev),
+        psi=torch.randn(lead + (k_max,), generator=gen, device=dev).to(dtype),
+    )
