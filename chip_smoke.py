@@ -6,9 +6,8 @@
 Run from a checkout of the repository on a machine with a CUDA device,
 nvcc and nvidia-smi. Phases, each of which raises on failure:
 
-1. build every CUDA kernel of the path from ``src/repro_torch/csrc`` (one
-   nvcc per source, started together) and print the card's name and
-   power limit;
+1. build the CUDA kernel of the path from ``src/repro_torch/csrc`` and
+   print the card's name and power limit;
 2. hold each kernel against its plain PyTorch version on the card at the
    shapes the main path gives it (rtol 1e-4, atol 1e-4 * max|plain|: the
    sums run in another order), then time it (device time from
@@ -18,7 +17,8 @@ nvcc and nvidia-smi. Phases, each of which raises on failure:
    full width with random weights (8 prompts of 128 tokens, 32 new tokens,
    then one refill of a 64-token prompt), with every kernel launch count
    set to 0 just before and read just after; tokens must equal the
-   unmonitored engine's, and sketches and logits must be finite;
+   unmonitored engine's, and sketches and logits must be finite; then
+   prefill is timed on both engines, alternating, median of five;
 4. the same engine on reduced tinyllama in f32 on the card and on the CPU,
    from the same weights and monitor state: equal tokens, and logits and
    sketches within rtol 1e-4, atol 1e-4;
@@ -32,6 +32,7 @@ repository's sources beside it. Measurements also go to
 from __future__ import annotations
 
 import json
+import statistics
 import subprocess
 import sys
 import time
@@ -40,11 +41,13 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 OUT_DIR = ROOT / "chiprun_out"
 
-# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, f32 FLOP/s outside the
-# tensor cores (the kernel's FMAs run there)
+# H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, bf16 tensor-core
+# FLOP/s, f32 FLOP/s outside the tensor cores
 PEAK_BYTES_S = 3.35e12
+PEAK_BF16_FLOP_S = 989e12
 PEAK_F32_FLOP_S = 67e12
 TOL = 1e-4
+PREFILL_SAMPLES = 5
 
 # (label, T, d, k, A dtype): the serving path's shapes at tinyllama's
 # d=2048 and k=9 (prefill T=B*S0=1024, decode T=B=8, refill T=S0=64),
@@ -104,10 +107,16 @@ def time_ms(fn, iters: int, warmup: int = 10) -> tuple[float, float]:
 
 def sketch_update_bound(T: int, d: int, k: int, a_bytes: int):
     """(bound_ms, bound_by): each input read once, each output written
-    once, and 6*T*d*k flops for the three products plus the epilogue."""
+    once. The three products (6*T*d*k flops) run at the bf16 tensor-core
+    rate with each f32 operand split into a bf16 high and low part, which
+    keeps the sums within the 1e-4 tolerance: two bf16 products per
+    product for bf16 A, three for f32 A. The epilogue's 10*d*k flops run
+    at the f32 rate."""
     nbytes = T * d * a_bytes + 3 * T * k * 4 + k * 4 + 6 * d * k * 4
-    flops = 6 * T * d * k + 10 * d * k
-    t_bytes, t_ops = nbytes / PEAK_BYTES_S, flops / PEAK_F32_FLOP_S
+    passes = 2 if a_bytes == 2 else 3
+    t_bytes = nbytes / PEAK_BYTES_S
+    t_ops = (passes * 6 * T * d * k / PEAK_BF16_FLOP_S
+             + 10 * d * k / PEAK_F32_FLOP_S)
     if t_bytes >= t_ops:
         return t_bytes * 1e3, "bytes"
     return t_ops * 1e3, "operations"
@@ -195,13 +204,14 @@ def phase_serve(dev, cfg, batch: int, prompt_len: int, new_tokens: int,
     tpath = OUT_DIR / "chip_smoke_serve.jsonl"
     with TelemetryLog(str(tpath)) as tlog:
         eng = engine(True, tlog)
-        sketch_update.launches = 0
+        sketch_update.launches = sketch_update.kernel_launches = 0
         toks = eng.generate(prompts, new_tokens)
         t0 = time.perf_counter()
         eng.refill(1, refill_prompt)
         torch.cuda.synchronize()
         refill_ms = (time.perf_counter() - t0) * 1e3
         launches = {"sketch_update": sketch_update.launches}
+        kernel_launches = sketch_update.kernel_launches
         tlog.append(eng.telemetry_record())
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
 
@@ -229,17 +239,31 @@ def phase_serve(dev, cfg, batch: int, prompt_len: int, new_tokens: int,
     if len(recs) != 2 or len(recs[-1].nodes) != cfg.num_layers:
         raise AssertionError("telemetry did not round-trip through JSONL")
 
+    # prefill on the host's clock: one more warm-up of each engine, then
+    # PREFILL_SAMPLES prefills each, alternating on and off; the median
+    prefill = {True: [], False: []}
+    for rep in range(PREFILL_SAMPLES + 1):
+        for on, e in ((True, eng), (False, off)):
+            torch.cuda.synchronize()
+            before = e.spans["prefill"]
+            e.start(prompts)
+            if rep:
+                prefill[on].append((e.spans["prefill"] - before) * 1e3)
+
     decode_steps = new_tokens - 1
     out = dict(
         arch=cfg.name, batch=batch, prompt_len=prompt_len,
         new_tokens=new_tokens, refill_len=refill_len,
-        prefill_ms=eng.spans["prefill"] * 1e3,
+        prefill_ms=statistics.median(prefill[True]),
+        prefill_ms_monitor_off=statistics.median(prefill[False]),
+        prefill_ms_samples=prefill[True],
+        prefill_ms_samples_monitor_off=prefill[False],
         decode_tok_s=batch * decode_steps / eng.spans["decode"],
         decode_ms_per_step=eng.spans["decode"] * 1e3 / decode_steps,
         refill_ms=refill_ms, peak_mem_gib=peak_gib,
         decode_tok_s_monitor_off=batch * decode_steps / off.spans["decode"],
-        prefill_ms_monitor_off=off.spans["prefill"] * 1e3,
-        launches=launches, flags=recs[-1].flags)
+        launches=launches, kernel_launches=kernel_launches,
+        flags=recs[-1].flags)
     log("serve: " + json.dumps(out))
     return out
 
@@ -311,8 +335,7 @@ def main() -> int:
     from repro_torch.kernels import _build
 
     t0 = time.perf_counter()
-    for name, text in _build.build_all().items():
-        log(f"nvcc {name}:\n{text}")
+    log("nvcc sketch_update:\n" + _build.build("sketch_update"))
     build_s = time.perf_counter() - t0
     card = gpu_line()
     print(card, flush=True)
@@ -331,6 +354,7 @@ def main() -> int:
         source="src/repro_torch/csrc/sketch_update.cu",
         replaces="src/repro/kernels/sketch_update.py:60",
         launches=serve["launches"]["sketch_update"],
+        kernel_launches=serve["kernel_launches"],
         max_abs_err=max(r["max_abs_err"] for r in kernel_rows),
         ms=main_row["ms"], plain_ms=main_row["plain_ms"],
         bound_ms=main_row["bound_ms"], bound_by=main_row["bound_by"],

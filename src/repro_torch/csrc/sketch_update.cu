@@ -12,13 +12,16 @@
 // accumulated in f32; everything else is f32. k <= 64 (checked by the
 // Python wrapper, src/repro_torch/kernels/sketch_update.py).
 //
-// Bound on an H100 SXM (3.35 TB/s, 67 TFLOP/s f32 outside the tensor
-// cores). The call moves T*d*|A| + 3*T*k*4 + 6*d*k*4 bytes and does
-// 6*T*d*k flops. At the serving prefill shape (T=1024, d=2048, k=9, bf16
-// A) that is 4.7 MB (1.4 us) and 113 MFLOP (1.7 us on the f32 FMA units):
-// the two are close, and the tensor cores would make it memory-bound by a
-// wide margin. At decode (T=8) it is 0.48 MB (0.14 us), far under the
-// launch latency, so at decode the launch is the cost.
+// Bound on an H100 SXM (3.35 TB/s; 989 TFLOP/s bf16 on the tensor cores).
+// The call moves T*d*|A| + 3*T*k*4 + 6*d*k*4 bytes and does 6*T*d*k
+// flops. At the serving prefill shape (T=1024, d=2048, k=9, bf16 A) that
+// is 4.75 MB (1.42 us) and 113 MFLOP, which the tensor cores do in 0.23 us
+// even with each f32 projection split into bf16 high and low parts (as the
+// 1e-4 tolerance needs): the bound is set by bytes, by a wide margin. At
+// k=33 it is 6.22 MB (1.86 us). At decode (T=8) it is 0.48 MB (0.14 us),
+// far under the launch latency, so at decode the launch is the cost. This
+// kernel runs its products on the f32 FMA units (67 TFLOP/s, 1.7 us for
+// the prefill products), which alone keeps it above that bound.
 //
 // Design. The TPU kernel pads k to 128 lanes and T, d to its block grid,
 // and carries each (d_blk, k) output across the T axis because the TPU

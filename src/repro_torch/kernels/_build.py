@@ -1,9 +1,9 @@
-"""Builds the port's CUDA sources into shared libraries and loads them.
+"""Builds a CUDA source of the port into a shared library and loads it.
 
-Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
+``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 ``nvcc`` for Hopper (``sm_90a``) into ``_build/lib<name>-<hash>.so``
 beside the package (the directory is git-ignored), at first use, from
-the repository's sources alone. The hash covers the sources and flags,
+the repository's sources alone. The hash covers the source and flags,
 so an edited source is rebuilt. Libraries are bound with ``ctypes``:
 compiling against PyTorch's headers would take minutes per build.
 """
@@ -18,7 +18,6 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
-SOURCES = ("sketch_update",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -36,46 +35,33 @@ def nvcc() -> str:
 
 def lib_path(name: str) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
-        h.update(src.read_bytes())
+    h.update((CSRC / f"{name}.cu").read_bytes())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
-def build_all(names=SOURCES) -> dict[str, str]:
-    """Compile every library of ``names`` that is not built yet, one
-    ``nvcc`` per source, all started together. Returns each compiler
-    log (with ``-Xptxas -v``: registers, shared memory, spills); raises
-    if a build fails."""
-    jobs = {}
-    for name in names:
-        out = lib_path(name)
-        if out.exists():
-            continue
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        jobs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                       stderr=subprocess.STDOUT, text=True),
-                      tmp, out)
-    logs = {}
-    failed = []
-    for name, (proc, tmp, out) in jobs.items():
-        logs[name], _ = proc.communicate()
-        if proc.returncode:
-            failed.append(name)
-        else:
-            os.replace(tmp, out)       # atomic: a reader never sees half
-    if failed:
-        raise RuntimeError("nvcc failed for " + ", ".join(failed) + ":\n"
-                           + "\n".join(logs[n] for n in failed))
-    return logs
+def build(name: str) -> str:
+    """Compile ``csrc/<name>.cu`` unless it is built already. Returns
+    nvcc's log (with ``-Xptxas -v``: registers, shared memory, spills),
+    empty when nothing was compiled; raises if the build fails."""
+    out = lib_path(name)
+    if out.exists():
+        return ""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    proc = subprocess.run(
+        [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if proc.returncode:
+        raise RuntimeError(f"nvcc failed for {name}:\n{proc.stdout}")
+    os.replace(tmp, out)           # atomic: a reader never sees half
+    return proc.stdout
 
 
 def load(name: str, bind) -> ctypes.CDLL:
     """The loaded library ``name``, built first if needed; ``bind(lib)``
     declares its functions' argument and return types once, on load."""
     if name not in _LIBS:
-        build_all((name,))
+        build(name)
         lib = ctypes.CDLL(str(lib_path(name)))
         bind(lib)
         _LIBS[name] = lib

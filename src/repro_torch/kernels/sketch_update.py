@@ -8,16 +8,22 @@ through ``ctypes``.
 
 Bound on an H100 SXM: a call moves T*d*|A| + 3*T*k*4 + 6*d*k*4 bytes
 and does 6*T*d*k flops. At the serving prefill shape (T=1024, d=2048,
-k=9, bf16 A) that is 4.7 MB, 1.4 us at 3.35 TB/s, and 113 MFLOP, 1.7 us
-on the f32 FMA units (67 TFLOP/s); at decode (T=8) 0.48 MB, 0.14 us,
-far under the launch latency. The kernel reads A once for all three
-products, masks the ragged T/d/k edges itself instead of padding in
-device memory, and splits T across blocks so the 64 d-tiles of d=2048
-still fill the card (the source file has the details).
+k=9, bf16 A) that is 4.75 MB, 1.42 us at 3.35 TB/s; the 113 MFLOP
+take 0.23 us on the bf16 tensor cores (989 TFLOP/s) even with the f32
+projections split into bf16 high and low parts, which the tolerance
+needs, so the bound is set by bytes. At k=33 it is 6.22 MB, 1.86 us;
+at decode (T=8) 0.48 MB, 0.14 us, far under the launch latency. The
+kernel reads A once for all three products, masks the ragged T/d/k
+edges itself instead of padding in device memory, and splits T across
+blocks so the 64 d-tiles of d=2048 still fill the card (the source file
+has the details).
 
 ``sketch_update`` takes the plain version for CPU tensors and only for
 them; for CUDA tensors it launches the kernel or raises.
-``sketch_update.launches`` counts kernel launches.
+``sketch_update.launches`` counts the calls that launched on the card;
+``sketch_update.kernel_launches`` counts the kernels those calls
+enqueued: two for a call whose T is split (a second pass sums the
+splits), one otherwise.
 """
 from __future__ import annotations
 
@@ -138,7 +144,9 @@ def sketch_update(a, x_s, y_s, z_s, ups, omg, phi, psi, *, beta: float):
             f"sketch_update kernel launch failed: "
             f"{lib.sketch_update_error_string(err).decode()} ({err})")
     sketch_update.launches += 1
+    sketch_update.kernel_launches += 1 if splits == 1 else 2
     return tuple(outs)
 
 
 sketch_update.launches = 0
+sketch_update.kernel_launches = 0
