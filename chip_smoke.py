@@ -1,29 +1,44 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path on one NVIDIA GPU and check it.
+"""Drive the PyTorch/CUDA port's paths on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
 Run from a checkout of the repository on a machine with a CUDA device,
 nvcc and nvidia-smi. Phases, each of which raises on failure:
 
-1. build the CUDA kernel of the path from ``src/repro_torch/csrc`` and
-   print the card's name and power limit;
+1. build the CUDA kernels from ``src/repro_torch/csrc`` (one nvcc per
+   source, started together) and print the card's name and power limit;
 2. hold each kernel against its plain PyTorch version on the card at the
-   shapes the main path gives it (rtol 1e-4, atol 1e-4 * max|plain|: the
-   sums run in another order), then time it (device time from
-   torch.profiler, per-call time from CUDA events) beside its bound, its
-   plain version and one PyTorch library call;
-3. the main path: ``ServeEngine(monitor=True)`` serving tinyllama-1.1b at
-   full width with random weights (8 prompts of 128 tokens, 32 new tokens,
-   then one refill of a 64-token prompt), with every kernel launch count
-   set to 0 just before and read just after; tokens must equal the
-   unmonitored engine's, and sketches and logits must be finite; then
-   prefill is timed on both engines, alternating, median of five;
-4. the same engine on reduced tinyllama in f32 on the card and on the CPU,
-   from the same weights and monitor state: equal tokens, and logits and
-   sketches within rtol 1e-4, atol 1e-4;
-5. print ``{"kernels": [...]}``, the nvidia-smi line, and last
+   shapes the paths give it (rtol 1e-4, atol 1e-4 * max|plain|: the sums
+   run in another order), then time it (device time from torch.profiler,
+   per-call time from CUDA events) beside its bound, its plain version
+   and one torch.matmul of A^T against the (T, 3k) projections;
+3. serving: ``ServeEngine(monitor=True)`` on tinyllama-1.1b at full width
+   with random weights (8 prompts of 128 tokens, 32 new tokens, then one
+   refill of a 64-token prompt); tokens must equal the unmonitored
+   engine's, sketches and logits must be finite; prefill is timed on both
+   engines, alternating, median of five. Then the same serve with psparse
+   monitor projections (``monitor_proj_kind="psparse"``), tokens equal;
+4. the serving engine on reduced tinyllama in f32 on the card and on the
+   CPU, from the same weights and monitor state: equal tokens, and logits
+   and sketches within rtol 1e-4, atol 1e-4;
+5. training: MNIST_MLP (784 -> 512 x3 -> 10) for 100 steps in each of
+   standard, monitor, sketched_fixed and sketched_adaptive, with Gaussian
+   and with psparse projections; then the 16-layer monitoring pair
+   (MONITOR_HEALTHY, MONITOR_PROBLEMATIC) for 120 steps, psparse, whose
+   pathology flags are printed. Losses finite, the sketched variants
+   learn (mean of the last 10 losses below the first 10's), monitor's
+   parameters equal standard's;
+6. a reduced MLP in f32: one sketched_fixed step (gradients, new tree)
+   and the reconstruction of a node, on the card and on the CPU, with
+   each projection kind (tree within 1e-4; gradients and reconstruction
+   factors within 1e-3, as the k x k solves amplify rounding);
+7. print ``{"kernels": [...]}``, the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
+
+Every run of a path (3, 5) sets the kernels' launch counts to 0 just
+before it and checks them just after: each monitored token step or
+train step launches one kernel per sketched node, the projection kind's.
 
 Exits non-zero, printing no result, without a CUDA device or without the
 repository's sources beside it. Measurements also go to
@@ -31,7 +46,9 @@ repository's sources beside it. Measurements also go to
 """
 from __future__ import annotations
 
+import concurrent.futures
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -49,10 +66,12 @@ PEAK_F32_FLOP_S = 67e12
 TOL = 1e-4
 PREFILL_SAMPLES = 5
 
-# (label, T, d, k, A dtype): the serving path's shapes at tinyllama's
-# d=2048 and k=9 (prefill T=B*S0=1024, decode T=B=8, refill T=S0=64),
-# plus a ragged case and the paper's largest k=33
-KERNEL_CASES = [
+# (label, T, d, k, A dtype). sketch_update: the serving path's shapes at
+# tinyllama's d=2048 and k=9 (prefill T=B*S0=1024, decode T=B=8, refill
+# T=S0=64), a ragged case, the paper's largest k=33, and the trainer's
+# nodes (MNIST_MLP: T=128, d=512, k=33; the 16-layer monitoring pair:
+# T=128, d=1024, k=17; f32 A)
+SKETCH_UPDATE_CASES = [
     ("prefill", 1024, 2048, 9, "bfloat16"),
     ("prefill", 1024, 2048, 9, "float32"),
     ("decode", 8, 2048, 9, "bfloat16"),
@@ -60,7 +79,33 @@ KERNEL_CASES = [
     ("refill", 64, 2048, 9, "bfloat16"),
     ("ragged", 37, 50, 9, "float32"),
     ("k33", 1024, 2048, 33, "bfloat16"),
+    ("mnist_mlp", 128, 512, 33, "float32"),
+    ("monitor16", 128, 1024, 17, "float32"),
 ]
+# psparse_update at density 0.1: the trainer's nodes, the psparse serving
+# prefill and a ragged case (m = clamp(round(0.1 T), k, T) support rows)
+PSPARSE_CASES = [
+    ("mnist_mlp", 128, 512, 33, "float32"),
+    ("monitor16", 128, 1024, 17, "float32"),
+    ("prefill", 1024, 2048, 9, "bfloat16"),
+    ("ragged", 37, 50, 9, "float32"),
+]
+DENSITY = 0.1
+KERNELS = ("sketch_update", "psparse_update")
+
+# the trainer's path: MNIST_MLP as benchmarks/bench_mnist.py runs it, the
+# 16-layer monitoring pair as examples/gradient_monitoring.py runs it
+MNIST_STEPS = 100
+MNIST_EPOCH = 10            # steps per adaptive-rank epoch
+MNIST_NOISE = 1.2
+MONITOR_STEPS = 120
+MONITOR_NOISE = 2.0
+VARIANTS = ("standard", "monitor", "sketched_fixed", "sketched_adaptive")
+PROJ_KINDS = ("gaussian", "psparse")
+# device against CPU: the k x k solves and pinv of the reconstruction
+# amplify f32 rounding by up to cond(Y^T Y); a QR column of the other
+# sign moves A~ by O(1)
+RECON_TOL = 1e-3
 
 
 def log(msg: str) -> None:
@@ -122,51 +167,121 @@ def sketch_update_bound(T: int, d: int, k: int, a_bytes: int):
     return t_ops * 1e3, "operations"
 
 
-def phase_kernels(dev) -> list[dict]:
-    """Each kernel case against the plain version, then timed."""
+def psparse_update_bound(rows_read: int, m: int, d: int, k: int,
+                        a_bytes: int):
+    """(bound_ms, bound_by) of one psparse update: the distinct support
+    rows of A that this call's coefficients select (each read once), psi
+    and the 12 coefficients, the sketches read and written; its 6*m*d*k
+    flops as in ``sketch_update_bound``."""
+    nbytes = rows_read * d * a_bytes + k * 4 + 48 + 6 * d * k * 4
+    passes = 2 if a_bytes == 2 else 3
+    t_bytes = nbytes / PEAK_BYTES_S
+    t_ops = (passes * 6 * m * d * k / PEAK_BF16_FLOP_S
+             + 10 * d * k / PEAK_F32_FLOP_S)
+    if t_bytes >= t_ops:
+        return t_bytes * 1e3, "bytes"
+    return t_ops * 1e3, "operations"
+
+
+def measure(name: str, case: dict, kernel, plain, library, bound) -> dict:
+    """Hold ``kernel()`` against ``plain()`` (rtol TOL, atol TOL *
+    max|plain|), then time the kernel, the plain version and the
+    library call."""
     import torch
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    err = 0.0
+    for g, w in zip(got, want):
+        scale = float(w.abs().max())
+        torch.testing.assert_close(g, w, rtol=TOL, atol=TOL * scale)
+        err = max(err, float((g - w).abs().max()))
+    ms, call_ms = time_ms(kernel, 200)
+    plain_ms, plain_call_ms = time_ms(plain, 200)
+    lib_ms, lib_call_ms = time_ms(library, 200)
+    bound_ms, bound_by = bound
+    row = dict(case, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+               library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by,
+               call_ms=call_ms, plain_call_ms=plain_call_ms,
+               library_call_ms=lib_call_ms)
+    log(f"{name} {case}: max_abs_err {err:.3e}  device us: kernel "
+        f"{ms * 1e3:.2f} plain {plain_ms * 1e3:.2f} matmul "
+        f"{lib_ms * 1e3:.2f} bound {bound_ms * 1e3:.3f} ({bound_by}); per "
+        f"call us: kernel {call_ms * 1e3:.2f} plain {plain_call_ms * 1e3:.2f} "
+        f"matmul {lib_call_ms * 1e3:.2f}")
+    return row
+
+
+def phase_kernels(dev) -> dict[str, list[dict]]:
+    """Each kernel at each case against its plain version, then timed
+    beside one torch.matmul of A^T against the (T, 3k) projections."""
+    import torch
+    from repro_torch.kernels.psparse_update import (
+        psparse_dense, psparse_dim, psparse_hash_params, psparse_rows,
+        psparse_update, psparse_update_ref,
+    )
     from repro_torch.kernels.sketch_update import (
         sketch_update, sketch_update_ref,
     )
     gen = torch.Generator(device=dev).manual_seed(1)
-    rows = []
-    for label, T, d, k, a_dtype in KERNEL_CASES:
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    rows = {"sketch_update": [], "psparse_update": []}
+    for label, T, d, k, a_dtype in SKETCH_UPDATE_CASES:
         dtype = getattr(torch, a_dtype)
-
-        def rand(*shape):
-            return torch.randn(shape, generator=gen, device=dev)
-
         a = rand(T, d).to(dtype)
         x, y, z = rand(d, k), rand(d, k), rand(d, k)
         ups, omg, phi, psi = rand(T, k), rand(T, k), rand(T, k), rand(k)
         args = (a, x, y, z, ups, omg, phi, psi)
-        got = sketch_update(*args, beta=0.9)
-        want = sketch_update_ref(*args, 0.9)
-        torch.cuda.synchronize()
-        err = 0.0
-        for g, w in zip(got, want):
-            scale = float(w.abs().max())
-            torch.testing.assert_close(g, w, rtol=TOL, atol=TOL * scale)
-            err = max(err, float((g - w).abs().max()))
         pcat = torch.cat([ups, omg, phi], dim=1).to(dtype)
-        ms, call_ms = time_ms(lambda: sketch_update(*args, beta=0.9), 200)
-        plain_ms, plain_call_ms = time_ms(
-            lambda: sketch_update_ref(*args, 0.9), 200)
-        lib_ms, lib_call_ms = time_ms(lambda: torch.matmul(a.t(), pcat), 200)
-        bound_ms, bound_by = sketch_update_bound(T, d, k, a.element_size())
-        rows.append(dict(case=label, T=T, d=d, k=k, a_dtype=a_dtype,
-                         max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                         library_ms=lib_ms, bound_ms=bound_ms,
-                         bound_by=bound_by, call_ms=call_ms,
-                         plain_call_ms=plain_call_ms,
-                         library_call_ms=lib_call_ms))
-        log(f"sketch_update {label} T={T} d={d} k={k} {a_dtype}: "
-            f"max_abs_err {err:.3e}  device us: kernel {ms * 1e3:.2f} "
-            f"plain {plain_ms * 1e3:.2f} matmul {lib_ms * 1e3:.2f} "
-            f"bound {bound_ms * 1e3:.3f} ({bound_by}); per call us: kernel "
-            f"{call_ms * 1e3:.2f} plain {plain_call_ms * 1e3:.2f} matmul "
-            f"{lib_call_ms * 1e3:.2f}")
+        rows["sketch_update"].append(measure(
+            "sketch_update", dict(case=label, T=T, d=d, k=k, a_dtype=a_dtype),
+            lambda: sketch_update(*args, beta=0.9),
+            lambda: sketch_update_ref(*args, 0.9),
+            lambda: torch.matmul(a.t(), pcat),
+            sketch_update_bound(T, d, k, a.element_size())))
+    for label, T, d, k, a_dtype in PSPARSE_CASES:
+        dtype = getattr(torch, a_dtype)
+        m = psparse_dim(T, k, DENSITY)
+        a = rand(T, d).to(dtype)
+        x, y, z, psi = rand(d, k), rand(d, k), rand(d, k), rand(k)
+        coeffs = psparse_hash_params(gen)
+        dense = psparse_dense(coeffs, T, k, m, dev)
+        pcat = torch.cat([dense[n] for n in ("upsilon", "omega", "phi")],
+                         dim=1).to(dtype)
+        read = len(set().union(*(psparse_rows(c, m, T).tolist()
+                                 for c in coeffs)))
+        rows["psparse_update"].append(measure(
+            "psparse_update",
+            dict(case=label, T=T, d=d, k=k, m=m, rows_read=read,
+                 a_dtype=a_dtype),
+            lambda: psparse_update(a, x, y, z, coeffs, psi, beta=0.9, m=m),
+            lambda: psparse_update_ref(a, x, y, z, coeffs, psi, beta=0.9,
+                                       m=m),
+            lambda: torch.matmul(a.t(), pcat),
+            psparse_update_bound(read, m, d, k, a.element_size())))
     return rows
+
+
+def reset_counts() -> None:
+    """Every kernel's launch counts to 0."""
+    from repro_torch.kernels.psparse_update import psparse_update
+    from repro_torch.kernels.sketch_update import sketch_update
+    sketch_update.launches = sketch_update.kernel_launches = 0
+    psparse_update.launches = 0
+
+
+def read_counts() -> dict[str, int]:
+    from repro_torch.kernels.psparse_update import psparse_update
+    from repro_torch.kernels.sketch_update import sketch_update
+    return {"sketch_update": sketch_update.launches,
+            "psparse_update": psparse_update.launches}
+
+
+def check_counts(what: str, got: dict, want: dict) -> None:
+    if got != want:
+        raise AssertionError(f"{what}: kernel launches {got}, expected {want}")
 
 
 def _finite_tree(tree) -> bool:
@@ -177,8 +292,10 @@ def _finite_tree(tree) -> bool:
 
 def phase_serve(dev, cfg, batch: int, prompt_len: int, new_tokens: int,
                 refill_len: int, max_context: int) -> dict:
-    """The main path: monitored serving, counted, against monitor off."""
+    """The serving path: monitored serving, counted, against monitor off;
+    then the same with psparse monitor projections, counted too."""
     import torch
+    from repro_torch.kernels.psparse_update import psparse_update
     from repro_torch.kernels.sketch_update import sketch_update
     from repro_torch.models.transformer import init_params
     from repro_torch.serve import ServeEngine
@@ -191,12 +308,14 @@ def phase_serve(dev, cfg, batch: int, prompt_len: int, new_tokens: int,
     refill_prompt = torch.randint(0, cfg.vocab_size, (refill_len,),
                                   generator=gen, device=dev)
 
-    def engine(monitor, tlog=None):
+    def engine(monitor, tlog=None, proj_kind="gaussian"):
         return ServeEngine(cfg=cfg, params=params, max_context=max_context,
-                           monitor=monitor, device=dev, telemetry_log=tlog)
+                           monitor=monitor, device=dev, telemetry_log=tlog,
+                           monitor_proj_kind=proj_kind)
 
-    # warm-up: library handles and the kernel's first load
+    # warm-up: library handles and the kernels' first load
     engine(True).generate(prompts, 2)
+    engine(True, proj_kind="psparse").generate(prompts, 2)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
@@ -204,22 +323,20 @@ def phase_serve(dev, cfg, batch: int, prompt_len: int, new_tokens: int,
     tpath = OUT_DIR / "chip_smoke_serve.jsonl"
     with TelemetryLog(str(tpath)) as tlog:
         eng = engine(True, tlog)
-        sketch_update.launches = sketch_update.kernel_launches = 0
+        reset_counts()
         toks = eng.generate(prompts, new_tokens)
         t0 = time.perf_counter()
         eng.refill(1, refill_prompt)
         torch.cuda.synchronize()
         refill_ms = (time.perf_counter() - t0) * 1e3
-        launches = {"sketch_update": sketch_update.launches}
+        launches = read_counts()
         kernel_launches = sketch_update.kernel_launches
         tlog.append(eng.telemetry_record())
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
 
     want = cfg.num_layers * (1 + (new_tokens - 1) + 1)
-    if launches["sketch_update"] != want:
-        raise AssertionError(f"sketch_update launched "
-                             f"{launches['sketch_update']} times on the main "
-                             f"path, expected {want}")
+    check_counts("serve (gaussian monitor)", launches,
+                 {"sketch_update": want, "psparse_update": 0})
     mon = eng._slots["mon"]
     if not _finite_tree(mon.tree):
         raise AssertionError("non-finite monitor sketches")
@@ -231,13 +348,30 @@ def phase_serve(dev, cfg, batch: int, prompt_len: int, new_tokens: int,
     off = engine(False)
     toks_off = off.generate(prompts, new_tokens)
     off.refill(1, refill_prompt)
+    tok_off = off._slots["tok"].clone()
     if not torch.equal(toks, toks_off) or \
-            not torch.equal(eng._slots["tok"], off._slots["tok"]):
+            not torch.equal(eng._slots["tok"], tok_off):
         raise AssertionError("monitor on/off changed the generated tokens")
 
     _, recs = read_jsonl(str(tpath))
     if len(recs) != 2 or len(recs[-1].nodes) != cfg.num_layers:
         raise AssertionError("telemetry did not round-trip through JSONL")
+
+    # the psparse monitor: same prompts, its own kernel, same tokens
+    ps_eng = engine(True, proj_kind="psparse")
+    reset_counts()
+    ps_toks = ps_eng.generate(prompts, new_tokens)
+    ps_eng.refill(1, refill_prompt)
+    torch.cuda.synchronize()
+    ps_launches = read_counts()
+    check_counts("serve (psparse monitor)", ps_launches,
+                 {"sketch_update": 0, "psparse_update": want})
+    if not _finite_tree(ps_eng._slots["mon"].tree):
+        raise AssertionError("non-finite psparse monitor sketches")
+    if not torch.equal(ps_toks, toks_off) or \
+            not torch.equal(ps_eng._slots["tok"], tok_off):
+        raise AssertionError("the psparse monitor changed the tokens")
+    ps_flags = ps_eng.telemetry_record().flags
 
     # prefill on the host's clock: one more warm-up of each engine, then
     # PREFILL_SAMPLES prefills each, alternating on and off; the median
@@ -262,9 +396,254 @@ def phase_serve(dev, cfg, batch: int, prompt_len: int, new_tokens: int,
         decode_ms_per_step=eng.spans["decode"] * 1e3 / decode_steps,
         refill_ms=refill_ms, peak_mem_gib=peak_gib,
         decode_tok_s_monitor_off=batch * decode_steps / off.spans["decode"],
+        decode_tok_s_psparse=batch * decode_steps / ps_eng.spans["decode"],
         launches=launches, kernel_launches=kernel_launches,
-        flags=recs[-1].flags)
+        psparse_launches=ps_launches, flags=recs[-1].flags,
+        psparse_flags=ps_flags)
     log("serve: " + json.dumps(out))
+    return out
+
+
+def train_run(dev, cfg, scfg, variant: str, steps: int, batches, *,
+              eval_batch=None, epoch: int = 0) -> dict:
+    """One counted, timed run of ``train``: launch counts from 0, per-step
+    host time (each step ends in the loss's device sync), peak memory."""
+    import torch
+    from repro_torch.core.adaptive import AdaptiveConfig
+    from repro_torch.models.mlp import mlp_init
+    from repro_torch.train.paper_trainer import accuracy, train
+
+    stamps = []
+
+    def batch_fn(s):
+        stamps.append(time.perf_counter())
+        return batches[s]
+
+    eval_fn = None
+    if eval_batch is not None:
+        def eval_fn(params):
+            return {"test_acc": accuracy(params, cfg, *eval_batch)}
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = mlp_init(gen, cfg)          # one init for every variant
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    res = train(cfg, scfg, variant, steps=steps, batch_fn=batch_fn,
+                eval_fn=eval_fn, steps_per_epoch=epoch or steps,
+                adaptive=AdaptiveConfig(r0=scfg.rank, r_max=scfg.max_rank),
+                params=params, device=dev)
+    torch.cuda.synchronize()
+    stamps.append(time.perf_counter())
+    launches = read_counts()
+    step_ms = [(b - a) * 1e3 for a, b in zip(stamps[:-1], stamps[1:])]
+    losses = [h["loss"] for h in res.history]
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"{cfg.name} {variant}: non-finite loss")
+    return dict(res=res, launches=launches, losses=losses,
+                ranks=[h["rank"] for h in res.history],
+                step_ms=statistics.median(step_ms[1:]),
+                peak_mem_mib=torch.cuda.max_memory_allocated() / 2**20)
+
+
+def _kernel_of(proj_kind: str) -> str:
+    return "psparse_update" if proj_kind == "psparse" else "sketch_update"
+
+
+def _expected_counts(variant: str, proj_kind: str, total: int) -> dict:
+    want = {"sketch_update": 0, "psparse_update": 0}
+    if variant != "standard":
+        want[_kernel_of(proj_kind)] = total
+    return want
+
+
+def phase_train_mnist(dev) -> dict:
+    """MNIST_MLP (784 -> 512 x3 -> 10, tanh, batch 128) in every ported
+    variant with each projection kind, counted: 3 sketch updates a step
+    for the sketch-keeping variants, all through the kernel of the
+    projection kind. The sketched variants must learn, and the monitor
+    variant must leave the parameters equal to standard's."""
+    import torch
+    from repro_torch.configs.paper import MNIST_MLP
+    from repro_torch.core.sketch import SketchConfig
+    from repro_torch.data.synthetic import (
+        class_prototypes, classification_batch,
+    )
+
+    cfg = MNIST_MLP
+    gen = torch.Generator(device=dev).manual_seed(100)
+    protos = class_prototypes(gen, cfg.d_out, cfg.d_in)
+    test = classification_batch(gen, protos, 2048, MNIST_NOISE)
+    batches = [classification_batch(gen, protos, cfg.batch_size, MNIST_NOISE)
+               for _ in range(MNIST_STEPS)]
+    out = {}
+    for proj_kind in PROJ_KINDS:
+        scfg = SketchConfig(rank=2, max_rank=16, beta=0.95,
+                            batch_size=cfg.batch_size, recon_mode="fast",
+                            proj_kind=proj_kind, proj_density=DENSITY)
+        # warm-up: the kernels' load and the solver libraries' handles
+        train_run(dev, cfg, scfg, "sketched_fixed", 3, batches)
+        runs = {}
+        for variant in VARIANTS:
+            r = train_run(dev, cfg, scfg, variant, MNIST_STEPS, batches,
+                          eval_batch=test, epoch=MNIST_EPOCH)
+            check_counts(f"mnist_mlp {variant} {proj_kind}", r["launches"],
+                         _expected_counts(variant, proj_kind,
+                                          cfg.num_hidden_layers * MNIST_STEPS))
+            if variant.startswith("sketched"):
+                first = statistics.mean(r["losses"][:10])
+                last = statistics.mean(r["losses"][-10:])
+                if not last < first:
+                    raise AssertionError(
+                        f"mnist_mlp {variant} {proj_kind} did not learn: "
+                        f"mean loss {first:.4f} -> {last:.4f}")
+            runs[variant] = r
+        for a, b in zip(runs["standard"]["res"].params,
+                        runs["monitor"]["res"].params):
+            for key in a:
+                torch.testing.assert_close(a[key], b[key], rtol=0, atol=1e-6)
+        for variant, r in runs.items():
+            acc = r["res"].history[-1].get("test_acc")
+            out[f"{variant}/{proj_kind}"] = dict(
+                step_ms=r["step_ms"], peak_mem_mib=r["peak_mem_mib"],
+                launches=r["launches"], loss_first10=statistics.mean(
+                    r["losses"][:10]),
+                loss_last10=statistics.mean(r["losses"][-10:]),
+                test_acc=acc, final_rank=r["ranks"][-1],
+                ranks_seen=sorted(set(r["ranks"])))
+            log(f"mnist_mlp {variant} {proj_kind}: " + json.dumps(
+                out[f"{variant}/{proj_kind}"]))
+    return out
+
+
+def phase_monitor_pair(dev) -> dict:
+    """MONITOR_HEALTHY and MONITOR_PROBLEMATIC (784 -> 1024 x15 -> 10,
+    relu) in the monitor variant with psparse projections, counted: 15
+    psparse updates a step. Prints each run's pathology flags."""
+    import torch
+    from repro_torch.configs.paper import MONITOR_HEALTHY, MONITOR_PROBLEMATIC
+    from repro_torch.core.monitor import detect_pathologies
+    from repro_torch.core.sketch import SketchConfig
+    from repro_torch.data.synthetic import (
+        class_prototypes, classification_batch,
+    )
+    from repro_torch.sketches import node_paths
+    from repro_torch.telemetry import flag_paths
+
+    out = {}
+    for cfg in (MONITOR_HEALTHY, MONITOR_PROBLEMATIC):
+        gen = torch.Generator(device=dev).manual_seed(11)
+        protos = class_prototypes(gen, cfg.d_out, cfg.d_in)
+        batches = [classification_batch(gen, protos, cfg.batch_size,
+                                        MONITOR_NOISE)
+                   for _ in range(MONITOR_STEPS)]
+        scfg = SketchConfig(rank=4, max_rank=8, beta=0.9,
+                            batch_size=cfg.batch_size, proj_kind="psparse",
+                            proj_density=DENSITY)
+        train_run(dev, cfg, scfg, "monitor", 3, batches)       # warm-up
+        r = train_run(dev, cfg, scfg, "monitor", MONITOR_STEPS, batches)
+        check_counts(f"{cfg.name} monitor psparse", r["launches"],
+                     {"sketch_update": 0, "psparse_update":
+                      cfg.num_hidden_layers * MONITOR_STEPS})
+        res = r["res"]
+        k = 2 * int(res.sketch.rank) + 1
+        flags = flag_paths(detect_pathologies(res.monitor, k),
+                           node_paths(res.sketch))
+        out[cfg.name] = dict(
+            step_ms=r["step_ms"], peak_mem_mib=r["peak_mem_mib"],
+            launches=r["launches"], loss_first=r["losses"][0],
+            loss_last=r["losses"][-1],
+            flags={n: len(p) for n, p in sorted(flags.items())})
+        print(f"{cfg.name} pathology flags (layers of "
+              f"{cfg.num_hidden_layers}): {json.dumps(out[cfg.name]['flags'])}",
+              flush=True)
+        log(f"{cfg.name}: " + json.dumps(out[cfg.name]))
+    return out
+
+
+def _well_posed_psparse(cfg, scfg):
+    """psparse projections whose three implicit matrices have full rank
+    over the active columns, and the seed that drew them. The reference's
+    multiply-shift signs are rank-deficient there for most draws, and a
+    rank-deficient sketch leaves the reconstruction to rounding, which no
+    two devices share."""
+    import torch
+    from repro_torch.sketches import init_psparse_projections
+    k_active = scfg.k0
+    for seed in range(10_000):
+        gen = torch.Generator().manual_seed(seed)
+        proj = init_psparse_projections(gen, cfg.batch_size, scfg.k_max,
+                                        scfg.proj_density)
+        if all(int(torch.linalg.matrix_rank(proj[n][:, :k_active]))
+               == k_active for n in ("upsilon", "omega", "phi")):
+            return proj, seed
+    raise AssertionError("no well-posed psparse projections in 10000 draws")
+
+
+def phase_train_device_vs_cpu(dev) -> dict:
+    """A reduced MLP in f32: one sketched_fixed step's gradients and new
+    tree, and the reconstruction of its first node in both modes, on the
+    card and on the CPU from the same weights, tree and batch, with each
+    projection kind. Tree within TOL; gradients and reconstruction
+    factors within RECON_TOL (rtol, and atol times max|CPU|)."""
+    import dataclasses
+    import torch
+    from repro_torch.configs.paper import MLPConfig
+    from repro_torch.core.reconstruct import reconstruct
+    from repro_torch.core.sketch import SketchConfig
+    from repro_torch.sketches import tree_to
+    from repro_torch.models.mlp import mlp_init
+    from repro_torch.train.paper_trainer import (
+        ce_loss, init_mlp_sketch, sketched_forward,
+    )
+
+    cfg = MLPConfig(name="reduced", d_in=64, d_hidden=96, d_out=10,
+                    num_hidden_layers=3, batch_size=64)
+    out = {}
+    for proj_kind in PROJ_KINDS:
+        scfg = SketchConfig(rank=3, max_rank=6, beta=0.9, batch_size=64,
+                            recon_mode="fast", proj_kind=proj_kind)
+        gen = torch.Generator().manual_seed(5)
+        params = mlp_init(gen, cfg)
+        tree = init_mlp_sketch(gen, cfg, scfg, "sketched_fixed")
+        seed = None
+        if proj_kind == "psparse":
+            proj, seed = _well_posed_psparse(cfg, scfg)
+            tree = dataclasses.replace(tree, proj=proj)
+        x = torch.randn((cfg.batch_size, cfg.d_in), generator=gen)
+        y = torch.randint(0, cfg.d_out, (cfg.batch_size,), generator=gen)
+
+        def drive(device):
+            live = [{k: v.detach().to(device).requires_grad_(True)
+                     for k, v in p.items()} for p in params]
+            sk = tree_to(tree, device)
+            logits, new = sketched_forward(live, x.to(device), sk, cfg, scfg,
+                                           "sketched_fixed")
+            loss = ce_loss(logits, y.to(device))
+            grads = torch.autograd.grad(
+                loss, [p[k] for p in live for k in sorted(p)])
+            node = new.nodes["hidden"]
+            recs = [reconstruct(node.x[0], node.y[0], node.z[0],
+                                new.proj["omega"], new.k_active, mode=mode)
+                    for mode in ("fast", "faithful")]
+            return ([t.detach().cpu() for t in grads],
+                    [t.cpu() for t in (node.x, node.y, node.z)],
+                    [t.cpu() for r in recs for t in (r.left, r.right)])
+
+        grads_d, tree_d, rec_d = drive(dev)
+        grads_c, tree_c, rec_c = drive("cpu")
+        errs = {}
+        for what, got, want, tol in (("tree", tree_d, tree_c, TOL),
+                                     ("grads", grads_d, grads_c, RECON_TOL),
+                                     ("reconstruct", rec_d, rec_c,
+                                      RECON_TOL)):
+            err = 0.0
+            for g, w in zip(got, want):
+                scale = float(w.abs().max())
+                torch.testing.assert_close(g, w, rtol=tol, atol=tol * scale)
+                err = max(err, float((g - w).abs().max()) / max(scale, 1e-30))
+            errs[what] = err
+        out[proj_kind] = dict(max_rel_err=errs, psparse_seed=seed)
+        log(f"train device vs cpu ({proj_kind}): " + json.dumps(out[proj_kind]))
     return out
 
 
@@ -334,9 +713,13 @@ def main() -> int:
     from repro_torch.configs import get_arch
     from repro_torch.kernels import _build
 
+    # one nvcc per source, all started together
     t0 = time.perf_counter()
-    log("nvcc sketch_update:\n" + _build.build("sketch_update"))
+    with concurrent.futures.ThreadPoolExecutor(len(KERNELS)) as pool:
+        logs = dict(zip(KERNELS, pool.map(_build.build, KERNELS)))
     build_s = time.perf_counter() - t0
+    for name, text in logs.items():
+        log(f"nvcc {name}:\n{text}")
     card = gpu_line()
     print(card, flush=True)
     log(f"built in {build_s:.1f}s; torch {torch.__version__}, "
@@ -347,23 +730,42 @@ def main() -> int:
                         prompt_len=128, new_tokens=32, refill_len=64,
                         max_context=256)
     dvc = phase_device_vs_cpu(dev)
+    mnist = phase_train_mnist(dev)
+    pair = phase_monitor_pair(dev)
+    train_dvc = phase_train_device_vs_cpu(dev)
 
-    main_row = kernel_rows[0]           # prefill shape, bf16 A
-    kernels = [dict(
-        name="sketch_update", route="cuda",
-        source="src/repro_torch/csrc/sketch_update.cu",
-        replaces="src/repro/kernels/sketch_update.py:60",
-        launches=serve["launches"]["sketch_update"],
-        kernel_launches=serve["kernel_launches"],
-        max_abs_err=max(r["max_abs_err"] for r in kernel_rows),
-        ms=main_row["ms"], plain_ms=main_row["plain_ms"],
-        bound_ms=main_row["bound_ms"], bound_by=main_row["bound_by"],
-        library_ms=main_row["library_ms"], by_shape=kernel_rows)]
+    # launches on every counted run of the paths, and per path
+    by_path = {"serve/gaussian": serve["launches"],
+               "serve/psparse": serve["psparse_launches"],
+               **{f"mnist_mlp/{k}": v["launches"] for k, v in mnist.items()},
+               **{k: v["launches"] for k, v in pair.items()}}
+    sources = {"sketch_update": ("src/repro_torch/csrc/sketch_update.cu",
+                                 "src/repro/kernels/sketch_update.py:60",
+                                 "prefill"),
+               "psparse_update": ("src/repro_torch/csrc/psparse_update.cu",
+                                  "src/repro/kernels/psparse_update.py:249",
+                                  "mnist_mlp")}
+    kernels = []
+    for name, (source, replaces, main_case) in sources.items():
+        rows = kernel_rows[name]
+        main_row = next(r for r in rows if r["case"] == main_case)
+        kernels.append(dict(
+            name=name, route="cuda", source=source, replaces=replaces,
+            launches=sum(c[name] for c in by_path.values()),
+            launches_by_path={p: c[name] for p, c in by_path.items()
+                              if c[name]},
+            max_abs_err=max(r["max_abs_err"] for r in rows),
+            ms=main_row["ms"], plain_ms=main_row["plain_ms"],
+            bound_ms=main_row["bound_ms"], bound_by=main_row["bound_by"],
+            library_ms=main_row["library_ms"], main_case=main_row,
+            by_shape=rows))
+    kernels[0]["kernel_launches"] = serve["kernel_launches"]
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(dict(
         card=card, build_s=build_s, torch=torch.__version__,
         cuda=torch.version.cuda, kernels=kernels, serve=serve,
-        device_vs_cpu=dvc), indent=1))
+        device_vs_cpu=dvc, mnist_mlp=mnist, monitor_pair=pair,
+        train_device_vs_cpu=train_dvc), indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,1 +1,2 @@
-"""Sketch-based monitoring (counterpart of ``repro.core``)."""
+"""Sketch configuration, reconstruction, adaptive rank and monitoring
+(counterpart of ``repro.core``)."""

@@ -1,0 +1,91 @@
+"""Activation reconstruction from the EMA sketches, paper §4.2, Eqs. 6-7
+(counterpart of ``repro.core.reconstruct``).
+
+    Y_s = Q_Y R_Y ;  X_s = Q_X R_X            (QR, d x k)
+    C_inter = Q_Y^T Z_s
+    X_s^T   = P_X R'_X                        (QR, k x k)
+    C       = P_X^T C_inter^T
+    A~      = Omega Y_s^+ Q_Y C Q_X^T         (N_b x d)
+
+A~ is rank-k, so it is kept factored: A~ = left @ right^T with
+left = Omega (Y^+ Q_Y) C (N_b x k) and right = Q_X (d x k); no d x d
+matrix is formed. Columns >= k_active are exactly zero throughout.
+
+All of this is k-thin work on (d, k) and (k, k) matrices through
+``torch.linalg``; no TPU kernel does it. A~ depends on the column signs
+of the QR factors, so it matches the reference only where both QRs take
+the same (LAPACK) sign convention.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch.sketches.update import mask_columns
+
+Tensor = torch.Tensor
+
+
+@dataclasses.dataclass
+class Reconstruction:
+    """A~ ~ left @ right.T   with left (N_b, k), right (d, k)."""
+
+    left: Tensor
+    right: Tensor
+
+    def dense(self) -> Tensor:
+        return self.left @ self.right.T
+
+
+def masked_qr(a: Tensor, k_active) -> Tensor:
+    """Reduced QR's Q with columns >= k_active zeroed."""
+    q, _ = torch.linalg.qr(a)
+    return mask_columns(q, k_active)
+
+
+def _pinv_apply(y_s: Tensor, rhs: Tensor, mode: str, ridge: float) -> Tensor:
+    """Y^+ @ rhs: SVD pinv ("faithful"), or the ridge-regularised normal
+    equations ("fast"), with the ridge RELATIVE to trace(Y^T Y)/k. The
+    pinv cut-off is the reference's (``jnp.linalg.pinv``): singular
+    values at most 10 * max(d, k) * eps * sigma_max are dropped."""
+    if mode == "faithful":
+        rtol = 10.0 * max(y_s.shape) * torch.finfo(y_s.dtype).eps
+        return torch.linalg.pinv(y_s, rtol=rtol) @ rhs
+    g = y_s.T @ y_s                              # (k, k)
+    k = g.shape[0]
+    lam = ridge * (torch.trace(g) / k + 1e-30)
+    eye = torch.eye(k, dtype=g.dtype, device=g.device)
+    return torch.linalg.solve(g + lam * eye, y_s.T @ rhs)
+
+
+def _factors(x_s, y_s, z_s, omega, k_active):
+    dt = torch.promote_types(x_s.dtype, torch.float32)
+    x_s, y_s, z_s, omega = (mask_columns(t.to(dt), k_active)
+                            for t in (x_s, y_s, z_s, omega))
+    q_y = masked_qr(y_s, k_active)               # (d, k)
+    c_inter = q_y.T @ z_s                        # (k, s)
+    p_x = masked_qr(x_s.T, k_active)             # (k, k)
+    c = p_x.T @ c_inter.T                        # (k, k)  [s = k]
+    q_x = masked_qr(x_s, k_active)               # (d, k)
+    return y_s, omega, q_y, c, q_x
+
+
+def reconstruct(x_s: Tensor, y_s: Tensor, z_s: Tensor, omega: Tensor,
+                k_active, *, mode: str = "faithful",
+                ridge: float = 1e-4) -> Reconstruction:
+    """The node's batch activation matrix from its EMA triple, factored.
+    x/y/z (d, k_max); omega (N_b, k_max); k_active a 0-d tensor."""
+    y_s, omega, q_y, c, q_x = _factors(x_s, y_s, z_s, omega, k_active)
+    ypq = _pinv_apply(y_s, q_y, mode, ridge)   # (k, k)
+    return Reconstruction(left=omega @ (ypq @ c), right=q_x)
+
+
+def reconstruct_dense_faithful(x_s, y_s, z_s, omega, k_active, *,
+                               mode: str = "faithful",
+                               ridge: float = 1e-6) -> Tensor:
+    """The literal paper path: materialise G~ (d x d), then project
+    (Eq. 7). Tests hold the factored path against it."""
+    y_s, omega, q_y, c, q_x = _factors(x_s, y_s, z_s, omega, k_active)
+    g = q_y @ c @ q_x.T                          # (d, d) feature structure
+    return omega @ _pinv_apply(y_s, g, mode, ridge)

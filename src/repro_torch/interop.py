@@ -11,7 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.sketches import NodeTree, SketchNode
+from repro_torch.sketches import NodeTree, PsparseProjections, SketchNode
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -50,15 +50,46 @@ def params_from_jax(tree: dict, device="cpu") -> dict:
     }
 
 
-def proj_from_jax(proj: dict, device="cpu") -> dict:
-    """A dense {"upsilon","omega","phi"} projection dict."""
+def mlp_params_from_jax(params: list, device="cpu") -> list[dict]:
+    """The reference's paper-MLP parameters (a list of {"w", "bias"})."""
+    return [{k: _tensor(v, device) for k, v in layer.items()}
+            for layer in params]
+
+
+def adamw_state_from_jax(state: dict, device="cpu") -> dict:
+    """An ``init_adamw``/``adamw_update`` state: moments shaped like the
+    parameters, and the step count."""
+    return {"m": mlp_params_from_jax(state["m"], device),
+            "v": mlp_params_from_jax(state["v"], device),
+            "count": _tensor(state["count"], device).to(torch.int32)}
+
+
+def psparse_from_jax(params, num_tokens: int, k_max: int, density: float,
+                     device="cpu") -> PsparseProjections:
+    """Seeds-only projections from the reference's (3, 4) uint32
+    coefficients; the port holds them as host integers."""
+    rows = tuple(tuple(int(c) for c in row)
+                 for row in np.asarray(params, dtype=np.uint32))
+    return PsparseProjections(params=rows, num_tokens=int(num_tokens),
+                              k_max=int(k_max), density=float(density),
+                              device=torch.device(device))
+
+
+def proj_from_jax(proj, device="cpu"):
+    """A dense {"upsilon","omega","phi"} projection dict, or the
+    reference's ``PsparseProjections`` (any object with ``params``,
+    ``num_tokens``, ``k_max`` and ``density``)."""
+    if hasattr(proj, "params"):
+        return psparse_from_jax(proj.params, proj.num_tokens, proj.k_max,
+                                proj.density, device)
     return {k: _tensor(v, device) for k, v in proj.items()}
 
 
 def tree_from_jax(node_tree, device="cpu") -> NodeTree:
-    """A reference ``NodeTree`` (paper-kind nodes, dense projections)
-    -> the port's. Node stacks keep their layer order; the PRNG key and
-    refresh epoch have no counterpart in the port."""
+    """A reference ``NodeTree`` of paper-kind nodes, with dense or
+    psparse projections -> the port's. Node stacks keep their layer
+    order; the refresh epoch carries over, the PRNG key has no
+    counterpart (the port's refreshes draw from its own seed)."""
     nodes = {
         name: SketchNode(x=_tensor(n.x, device), y=_tensor(n.y, device),
                          z=_tensor(n.z, device), psi=_tensor(n.psi, device))
@@ -66,4 +97,4 @@ def tree_from_jax(node_tree, device="cpu") -> NodeTree:
     }
     return NodeTree(nodes=nodes, proj=proj_from_jax(node_tree.proj, device),
                     rank=_tensor(node_tree.rank, device).to(torch.int32),
-                    step=int(node_tree.step))
+                    step=int(node_tree.step), epoch=int(node_tree.epoch))

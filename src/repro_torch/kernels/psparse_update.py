@@ -1,0 +1,229 @@
+"""p-sparsified EMA sketch-triple update: the hash family, the CUDA
+kernel's wrapper and its plain PyTorch version.
+
+Replaces the TPU kernel ``src/repro/kernels/psparse_update.py::
+psparse_update``. The kernel is ``csrc/psparse_update.cu`` (CUDA C++ for
+``sm_90a``), built at first use by ``kernels._build`` and called through
+``ctypes``.
+
+Each implicit projection matrix (T, k) has m support rows. Support slot u
+of matrix ``mat`` sits at row ``row_mat(u)`` and holds
+``alpha * sgn_mat(u, j)`` in column j, with alpha = sqrt(T/m):
+
+    row(u)    = (((a1*u + b1) >> 16) * T) >> 16           in [0, T)
+    sgn(u, j) = 1 - 2 * ((a2*(u << 16 | j) + b2) >> 31)   in {-1, +1}
+
+all in uint32 arithmetic that wraps. Duplicate support rows add, as in a
+CountSketch. The update is
+
+    X' = beta X + (1-beta) A^T Upsilon,  Y' likewise with Omega,
+    Z' = beta Z + (1-beta) (A^T Phi) * psi,
+
+and A^T Omega = A[rows]^T (alpha * sgn): only m rows of A take part.
+
+Bound on an H100 SXM (3.35 TB/s): a call must read the 3*m support rows
+(3*m*d*|A| bytes, fewer where rows repeat) and read and write the
+sketches (6*d*k*4 bytes); its 6*m*d*k flops are negligible. At the
+trainer's shapes (T=128, m=33, d=512, k=33 and T=128, m=17, d=1024,
+k=17, f32 A) that is 0.61 and 0.63 MB, 0.18 and 0.19 us; at the psparse
+serving prefill (T=1024, m=102, d=2048, k=9, bf16 A) 1.70 MB, 0.51 us.
+All are far under a launch's latency, so the kernel is latency-bound.
+The Pallas kernel builds one-hot (t_blk, m) tiles and reads all of A;
+this one regenerates the rows and signs from the 12 coefficients, which
+the wrapper passes as kernel arguments (host integers: no device read
+and no stream sync per call), and reads only the support rows (the
+source file has the details).
+
+``psparse_update`` takes the plain version for CPU tensors and only for
+them; for CUDA tensors it launches the kernel or raises.
+``psparse_update.launches`` counts the calls that launched the kernel
+(one kernel per call).
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from repro_torch.kernels import _build
+
+Tensor = torch.Tensor
+
+MAX_K = 64
+NAMES = ("upsilon", "omega", "phi")
+_MASK32 = 0xFFFFFFFF
+
+
+# -- hash family -------------------------------------------------------------
+
+
+def psparse_dim(num_tokens: int, k_max: int, density: float) -> int:
+    """Support size m = clamp(round(p * T), k_max, T)."""
+    return int(min(num_tokens, max(k_max, round(density * num_tokens))))
+
+
+def psparse_scale(num_tokens: int, m: int) -> float:
+    """alpha = sqrt(T/m): every implicit entry has unit variance."""
+    return math.sqrt(num_tokens / m)
+
+
+def psparse_hash_params(gen: torch.Generator,
+                        rows: int = 3) -> tuple[tuple[int, ...], ...]:
+    """``rows`` tuples [a_row, b_row, a_sign, b_sign] of uint32 values
+    drawn from ``gen``, the multipliers forced odd (2-universal hashes).
+    Host integers, so a launch never reads them back from the device."""
+    bits = torch.randint(0, 2**32, (rows, 4), generator=gen,
+                         dtype=torch.int64, device=gen.device).tolist()
+    return tuple((r[0] | 1, r[1], r[2] | 1, r[3]) for r in bits)
+
+
+def _mul32(a: int, u: Tensor) -> Tensor:
+    """(a * u) mod 2**32 for a uint32 ``a`` and int64 ``u`` in
+    [0, 2**32): ``a`` split into 16-bit halves keeps every product
+    under 2**48, inside int64."""
+    hi, lo = a >> 16, a & 0xFFFF
+    return (((hi * u) & 0xFFFF) << 16) + lo * u & _MASK32
+
+
+def psparse_rows(params_m, m: int, num_tokens: int,
+                 device="cpu") -> Tensor:
+    """(m,) int64 support rows in [0, num_tokens) of one matrix."""
+    u = torch.arange(m, dtype=torch.int64, device=device)
+    h = (_mul32(params_m[0], u) + params_m[1]) & _MASK32
+    return ((h >> 16) * num_tokens & _MASK32) >> 16
+
+
+def psparse_signs(params_m, m: int, k: int, device="cpu") -> Tensor:
+    """(m, k) f32 in {-1, +1}: the top bit of the sign hash of the
+    packed index (u << 16 | j)."""
+    uu = (torch.arange(m, dtype=torch.int64, device=device)[:, None]
+          << 16) & _MASK32
+    jj = torch.arange(k, dtype=torch.int64, device=device)[None, :]
+    h = (_mul32(params_m[2], uu | jj) + params_m[3]) & _MASK32
+    return 1.0 - 2.0 * (h >> 31).to(torch.float32)
+
+
+def psparse_dense_one(params_m, num_tokens: int, k: int, m: int,
+                      device="cpu") -> Tensor:
+    """One implicit (T, k) matrix, materialised as the reference does:
+    one-hot(row(u) == t) @ (alpha * sgn), so duplicate rows add."""
+    rows = psparse_rows(params_m, m, num_tokens, device)
+    sgn = psparse_signs(params_m, m, k, device) * psparse_scale(num_tokens, m)
+    onehot = (rows[None, :] == torch.arange(num_tokens, device=device)[:, None])
+    return onehot.to(torch.float32) @ sgn
+
+
+def psparse_dense(params, num_tokens: int, k: int, m: int,
+                  device="cpu") -> dict:
+    """{"upsilon","omega","phi"}: the three implicit (T, k) matrices."""
+    return {name: psparse_dense_one(params[i], num_tokens, k, m, device)
+            for i, name in enumerate(NAMES)}
+
+
+def psparse_triple_increment(a: Tensor, params, psi: Tensor, beta: float,
+                             m: int) -> tuple[Tensor, Tensor, Tensor]:
+    """The (1-beta)-scaled f32 increments against the implicit
+    projections: A[rows]^T (alpha * sgn) for each matrix, the Z one
+    times psi (pre-masked, (k,)). Gathers the m support rows of A and
+    never materialises a projection."""
+    T, k = a.shape[0], psi.shape[-1]
+    a = a.detach().float()
+    scale = (1.0 - beta) * psparse_scale(T, m)
+    outs = []
+    for p in params:
+        rows = psparse_rows(p, m, T, a.device)
+        sgn = psparse_signs(p, m, k, a.device)
+        outs.append(scale * (a.index_select(0, rows).T @ sgn))
+    return outs[0], outs[1], outs[2] * psi.float()[None, :]
+
+
+# -- the update: plain version and kernel wrapper -----------------------------
+
+
+def psparse_update_ref(a, x_s, y_s, z_s, params, psi, *, beta: float,
+                       m: int):
+    """The plain version: ``beta * S + increment`` for each sketch."""
+    inc = psparse_triple_increment(a, params, psi, beta, m)
+    return tuple(beta * s + i for s, i in zip((x_s, y_s, z_s), inc))
+
+
+def _check(a, x_s, y_s, z_s, params, psi, m) -> tuple[int, int, int]:
+    if a.ndim != 2:
+        raise ValueError(f"a must be (T, d), got shape {tuple(a.shape)}")
+    if a.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"a must be float32 or bfloat16, got {a.dtype}")
+    T, d = a.shape
+    if x_s.ndim != 2 or x_s.shape[0] != d:
+        raise ValueError(f"sketches must be (d={d}, k), got {tuple(x_s.shape)}")
+    k = x_s.shape[1]
+    if not 1 <= k <= MAX_K:
+        raise ValueError(f"k={k} outside the kernel's range 1..{MAX_K}")
+    if T < 1 or d < 1 or max(T, d) >= 2**31:
+        raise ValueError(f"unsupported activation shape {(T, d)}")
+    if not 1 <= m <= T:
+        raise ValueError(f"support size m={m} outside 1..T={T}")
+    if len(params) != 3 or any(
+            len(p) != 4 or any(not 0 <= int(c) < 2**32 for c in p)
+            for p in params):
+        raise ValueError("params must be 3 rows of 4 uint32 coefficients")
+    want = {"x_s": (d, k), "y_s": (d, k), "z_s": (d, k), "psi": (k,)}
+    got = {"x_s": x_s, "y_s": y_s, "z_s": z_s, "psi": psi}
+    for name, t in got.items():
+        if tuple(t.shape) != want[name]:
+            raise ValueError(f"{name} must have shape {want[name]}, got "
+                             f"{tuple(t.shape)}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+    for name, t in {"a": a, **got}.items():
+        if t.device != a.device:
+            raise ValueError(f"{name} is on {t.device}, a on {a.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    return T, d, k
+
+
+def _bind(lib: ctypes.CDLL) -> None:
+    p, i, u, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
+    lib.psparse_update_launch.argtypes = (
+        [p, i] + [p] * 7 + [u] * 12 + [i] * 4 + [f, f, p])
+    lib.psparse_update_launch.restype = i
+    lib.psparse_update_error_string.argtypes = [i]
+    lib.psparse_update_error_string.restype = ctypes.c_char_p
+
+
+def psparse_update(a, x_s, y_s, z_s, params, psi, *, beta: float, m: int):
+    """Fused psparse EMA update; returns new f32 (x, y, z), each (d, k).
+
+    a (T, d) f32 or bf16; x/y/z (d, k) and psi (k,) f32, psi pre-masked;
+    ``params`` 3 rows of 4 uint32 host integers; all tensors contiguous
+    on one device; k <= 64. Column masking of the outputs is the
+    caller's. CPU tensors take ``psparse_update_ref``; CUDA tensors
+    launch the kernel.
+    """
+    T, d, k = _check(a, x_s, y_s, z_s, params, psi, m)
+    if a.device.type == "cpu":
+        return psparse_update_ref(a, x_s, y_s, z_s, params, psi, beta=beta,
+                                  m=m)
+    if a.device.type != "cuda":
+        raise ValueError(f"psparse_update runs on cpu or cuda, not {a.device}")
+    lib = _build.load("psparse_update", _bind)
+    outs = [torch.empty((d, k), dtype=torch.float32, device=a.device)
+            for _ in range(3)]
+    coeffs = [int(c) for row in params for c in row]
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.psparse_update_launch(
+            a.data_ptr(), int(a.dtype == torch.bfloat16), psi.data_ptr(),
+            x_s.data_ptr(), y_s.data_ptr(), z_s.data_ptr(),
+            outs[0].data_ptr(), outs[1].data_ptr(), outs[2].data_ptr(),
+            *coeffs, T, d, k, m, psparse_scale(T, m), float(beta), stream)
+    if err:
+        raise RuntimeError(
+            f"psparse_update kernel launch failed: "
+            f"{lib.psparse_update_error_string(err).decode()} ({err})")
+    psparse_update.launches += 1
+    return tuple(outs)
+
+
+psparse_update.launches = 0

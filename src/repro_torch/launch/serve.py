@@ -17,7 +17,8 @@ import torch
 
 from repro_torch.configs import get_arch, reduced as reduce_cfg
 from repro_torch.models.transformer import init_params
-from repro_torch.serve.engine import ServeEngine, resolve_device
+from repro_torch.device import resolve_device
+from repro_torch.serve.engine import ServeEngine
 from repro_torch.telemetry import TelemetryLog
 
 

@@ -1,1 +1,2 @@
-"""Dense-attention decoder models (counterpart of ``repro.models``)."""
+"""Models (counterpart of ``repro.models``): dense-attention decoders
+and the paper MLPs."""

@@ -1,0 +1,84 @@
+"""AdamW and SGD over a list of parameter dicts (counterpart of
+``repro.optim.adamw``). Functional, as in the reference: each update
+returns new parameters and state and changes no input.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+Tensor = torch.Tensor
+
+
+@dataclasses.dataclass(frozen=True)
+class AdamWConfig:
+    lr: float = 1e-3
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.0
+    grad_clip: float = 1.0           # global-norm clip; 0 disables
+    moment_dtype: torch.dtype = torch.float32
+
+
+def _leaves(tree) -> list[Tensor]:
+    return [t for layer in tree for _, t in sorted(layer.items())]
+
+
+def _like(tree, leaves) -> list[dict]:
+    it = iter(leaves)
+    return [{k: next(it) for k, _ in sorted(layer.items())} for layer in tree]
+
+
+def init_adamw(params, cfg: AdamWConfig) -> dict:
+    zeros = [torch.zeros(p.shape, dtype=cfg.moment_dtype, device=p.device)
+             for p in _leaves(params)]
+    return {"m": _like(params, zeros),
+            "v": _like(params, [torch.zeros_like(z) for z in zeros]),
+            "count": torch.zeros((), dtype=torch.int32,
+                                 device=zeros[0].device)}
+
+
+def global_norm(tree) -> Tensor:
+    return torch.sqrt(sum(torch.sum(torch.square(g.float()))
+                          for g in _leaves(tree)))
+
+
+def clip_by_global_norm(grads, max_norm: float):
+    gn = global_norm(grads)
+    scale = torch.clamp(max_norm / torch.clamp(gn, min=1e-12), max=1.0)
+    return _like(grads, [g * scale.to(g.dtype) for g in _leaves(grads)]), gn
+
+
+def adamw_update(params, grads, state, cfg: AdamWConfig, lr_scale=1.0):
+    """Returns (new_params, new_state, metrics)."""
+    if cfg.grad_clip > 0:
+        grads, gn = clip_by_global_norm(grads, cfg.grad_clip)
+    else:
+        gn = global_norm(grads)
+    count = state["count"] + 1
+    t = count.to(torch.float32)
+    b1c = 1.0 - torch.pow(torch.tensor(cfg.b1, device=t.device), t)
+    b2c = 1.0 - torch.pow(torch.tensor(cfg.b2, device=t.device), t)
+    lr = cfg.lr * lr_scale
+    new_p, new_m, new_v = [], [], []
+    for p, g, m, v in zip(_leaves(params), _leaves(grads),
+                          _leaves(state["m"]), _leaves(state["v"])):
+        gf = g.to(cfg.moment_dtype)
+        m = cfg.b1 * m + (1 - cfg.b1) * gf
+        v = cfg.b2 * v + (1 - cfg.b2) * gf * gf
+        step = (m / b1c) / (torch.sqrt(v / b2c) + cfg.eps)
+        pf = p.float()
+        new_p.append((pf - lr * (step + cfg.weight_decay * pf)).to(p.dtype))
+        new_m.append(m)
+        new_v.append(v)
+    return (_like(params, new_p),
+            {"m": _like(params, new_m), "v": _like(params, new_v),
+             "count": count},
+            {"grad_norm": gn})
+
+
+def sgd_update(params, grads, lr: float):
+    return _like(params, [(p.float() - lr * g.float()).to(p.dtype)
+                          for p, g in zip(_leaves(params), _leaves(grads))])

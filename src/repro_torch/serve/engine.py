@@ -27,27 +27,21 @@ from repro_torch.core.monitor import (
     MonitorState, PathologyThresholds, detect_pathologies,
     init_monitor_state, monitor_record, tree_metrics,
 )
+from repro_torch.core.sketch import validate_proj_kind
+from repro_torch.device import resolve_device
 from repro_torch.models.transformer import (
     SketchSettings, cast_params, forward,
 )
 from repro_torch.sketches import (
-    NodeSpec, NodeTree, SketchNode, gaussian_projections, init_node_tree,
-    node_paths,
+    NodeSpec, NodeTree, gaussian_projections, init_node_tree,
+    init_psparse_projections, node_paths, proj_num_tokens, proj_to,
+    tree_to,
 )
 from repro_torch.telemetry import (
     TelemetryRecord, flag_paths, latest_reading, node_metrics, span,
 )
 
 Tensor = torch.Tensor
-
-
-def resolve_device(device=None) -> torch.device:
-    """``None`` means the CUDA device; asking for CUDA without one raises."""
-    device = torch.device("cuda" if device is None else device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "CUDA is not available; pass device='cpu' to run on the CPU")
-    return device
 
 
 @dataclasses.dataclass
@@ -163,26 +157,19 @@ def refill_step(params, cache, tok, pos, mon, slot: int, prompt,
     return cache, tok, pos, new_mon
 
 
-def _tree_to(tree: NodeTree, device) -> NodeTree:
-    """A copy of ``tree`` with every tensor on ``device``."""
-    def mv(t):
-        return t.detach().to(device=device, copy=True)
-    return NodeTree(
-        nodes={n: SketchNode(x=mv(v.x), y=mv(v.y), z=mv(v.z), psi=mv(v.psi))
-               for n, v in tree.nodes.items()},
-        proj={n: mv(v) for n, v in tree.proj.items()},
-        rank=mv(tree.rank), step=tree.step)
-
-
 @dataclasses.dataclass
 class ServeEngine:
     """Greedy batched generation over fixed request slots, with optional
     sketch-native live monitoring.
 
-    ``projections`` ({n_tokens: {"upsilon","omega","phi"}}) and
-    ``initial_tree`` inject the monitor's random state (a differential
-    test feeds the JAX engine's); otherwise both are drawn from
-    ``torch.Generator``s seeded from ``monitor_seed``.
+    ``monitor_proj_kind="psparse"`` monitors through seeds-only
+    p-sparsified projections (density ``monitor_proj_density``) and the
+    ``psparse_update`` kernel instead of dense Gaussian ones and
+    ``sketch_update``. ``projections`` ({n_tokens: {"upsilon","omega",
+    "phi"}} or {n_tokens: PsparseProjections}) and ``initial_tree``
+    inject the monitor's random state (a differential test feeds the
+    JAX engine's); otherwise both are drawn from ``torch.Generator``s
+    seeded from ``monitor_seed``.
     """
 
     cfg: ArchConfig
@@ -193,6 +180,8 @@ class ServeEngine:
     monitor_window: int = 32
     monitor_beta: float = 0.9
     monitor_seed: int = 17
+    monitor_proj_kind: str = "gaussian"   # "psparse": seeds-only
+    monitor_proj_density: float = 0.1     # projections of this density
     thresholds: PathologyThresholds = PathologyThresholds()
     telemetry_log: Any = None           # telemetry.TelemetryLog | None
     device: Any = None                  # None -> "cuda"
@@ -204,10 +193,9 @@ class ServeEngine:
         self._settings = SketchSettings(beta=self.monitor_beta,
                                         serve_monitor=self.monitor)
         self._params = cast_params(self.params, self.cfg.dtype, self.device)
-        self._proj_cache = {
-            n: {k: v.to(device=self.device, dtype=torch.float32)
-                for k, v in p.items()}
-            for n, p in (self.projections or {}).items()}
+        validate_proj_kind(self.monitor_proj_kind)
+        self._proj_cache = {n: proj_to(p, self.device)
+                            for n, p in (self.projections or {}).items()}
         self._slots = None
         self._host_pos: list[int] = []
         self._decode_steps = 0
@@ -222,33 +210,41 @@ class ServeEngine:
         return dict(cfg=self.cfg, seq_len_ctx=self.max_context,
                     settings=self._settings)
 
-    def _proj_for(self, n_tokens: int) -> dict:
+    def _proj_for(self, n_tokens: int):
         """(n_tokens, k_max) projection triple, injected or drawn from a
         generator seeded by (monitor_seed, n_tokens), and cached per
-        token count: prefill (B*S0), decode (B) and refill (S0)."""
+        token count: prefill (B*S0), decode (B) and refill (S0). A
+        psparse entry is 12 coefficients instead of 3 n_tokens x k_max
+        floats."""
         if n_tokens not in self._proj_cache:
             gen = torch.Generator(device=self.device)
             gen.manual_seed(self.monitor_seed * 1_000_003 + n_tokens)
-            self._proj_cache[n_tokens] = gaussian_projections(
-                gen, n_tokens, self._k_max)
+            if self.monitor_proj_kind == "psparse":
+                proj = init_psparse_projections(
+                    gen, n_tokens, self._k_max, self.monitor_proj_density)
+            else:
+                proj = gaussian_projections(gen, n_tokens, self._k_max)
+            self._proj_cache[n_tokens] = proj
         return self._proj_cache[n_tokens]
 
     def _init_monitor(self, batch: int) -> ServeMonitorState:
         L, d = self.cfg.num_layers, self.cfg.d_model
         if self.initial_tree is not None:
-            tree = _tree_to(self.initial_tree, self.device)
+            tree = tree_to(self.initial_tree, self.device)
             res = tree.nodes["res"]
-            if tuple(res.x.shape) != (L, d, self._k_max) or \
-                    tree.proj["omega"].shape[0] != batch:
+            rows = proj_num_tokens(tree.proj)
+            if tuple(res.x.shape) != (L, d, self._k_max) or rows != batch:
                 raise ValueError(
                     f"initial_tree has res {tuple(res.x.shape)} and "
-                    f"{tree.proj['omega'].shape[0]} projection rows; the "
-                    f"engine needs {(L, d, self._k_max)} and {batch}")
+                    f"{rows} projection rows; the engine needs "
+                    f"{(L, d, self._k_max)} and {batch}")
         else:
             gen = torch.Generator(device=self.device)
             gen.manual_seed(self.monitor_seed)
             tree = init_node_tree(gen, {"res": NodeSpec(width=d, layers=L)},
-                                  num_tokens=batch, k_max=self._k_max)
+                                  num_tokens=batch, k_max=self._k_max,
+                                  proj_kind=self.monitor_proj_kind,
+                                  proj_density=self.monitor_proj_density)
         tree.rank = torch.tensor(self.monitor_rank, dtype=torch.int32,
                                  device=self.device)
         return ServeMonitorState(

@@ -45,3 +45,10 @@ def init_paper_node(gen: torch.Generator, width: int, k_max: int,
         z=torch.zeros(shape, dtype=dtype, device=dev),
         psi=torch.randn(lead + (k_max,), generator=gen, device=dev).to(dtype),
     )
+
+
+def zero_node_sketches(node: SketchNode) -> SketchNode:
+    """Zero x/y/z (rank change / projection refresh); psi untouched."""
+    return dataclasses.replace(node, x=torch.zeros_like(node.x),
+                               y=torch.zeros_like(node.y),
+                               z=torch.zeros_like(node.z))

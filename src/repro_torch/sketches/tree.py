@@ -2,18 +2,29 @@
 ``repro.sketches.tree``).
 
 One NodeTree holds every sketched activation node of a network, keyed by
-name, plus what the nodes share: the (T, k_max) batch projections and
-the active rank. The rank is a 0-d int32 tensor on the tree's device, so
-a rank change alters values and never a shape (static k_max, masked
-columns).
+name, plus what the nodes share: the batch projections (dense (T, k_max)
+Gaussian matrices, or seeds-only ``PsparseProjections``) and the active
+rank. The rank is a 0-d int32 tensor on the tree's device, so a rank
+change alters values and never a shape (static k_max, masked columns).
+A refresh (``refresh_tree``) draws new projections and psi from a
+generator derived from the tree's ``seed`` and refresh ``epoch``, as the
+reference folds its key with the epoch; the bits differ from
+``jax.random``.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Any
 
 import torch
 
-from repro_torch.sketches.node import SketchNode, init_paper_node
+from repro_torch.core.sketch import validate_proj_kind
+from repro_torch.sketches.node import (
+    SketchNode, init_paper_node, zero_node_sketches,
+)
+from repro_torch.sketches.psparse import (
+    init_psparse_projections, is_psparse, refresh_psparse_projections,
+)
 
 Tensor = torch.Tensor
 
@@ -31,9 +42,12 @@ class NodeTree:
     """All sketch state of one network, keyed by node name."""
 
     nodes: dict[str, SketchNode]
-    proj: dict[str, Tensor]     # {"upsilon","omega","phi"}: (T, k_max)
+    proj: Any                   # {"upsilon","omega","phi"}: (T, k_max),
+    #                             or PsparseProjections
     rank: Tensor                # () int32 — active target rank r
     step: int = 0               # EMA update counter
+    epoch: int = 0              # projection refreshes so far
+    seed: int = 0               # refresh generators derive from it
 
     @property
     def k_active(self) -> Tensor:
@@ -49,21 +63,91 @@ def gaussian_projections(gen: torch.Generator, num_tokens: int,
 
 
 def init_node_tree(gen: torch.Generator, specs: dict[str, NodeSpec],
-                   num_tokens: int, k_max: int,
-                   dtype=torch.float32) -> NodeTree:
-    """Zero sketches + fresh Gaussian projections, all at full rank.
+                   num_tokens: int, k_max: int, dtype=torch.float32,
+                   proj_kind: str = "gaussian",
+                   proj_density: float = 0.1) -> NodeTree:
+    """Zero sketches + fresh projections, all at full rank.
 
     Draws come from ``gen`` in the reference's order (projections, then
     each node's psi in registry order); the bits differ from
     ``jax.random``, so differential tests inject the reference's tree.
+    The tree's refresh seed is ``gen.initial_seed()``.
     """
-    proj = gaussian_projections(gen, num_tokens, k_max, dtype)
+    validate_proj_kind(proj_kind)
+    if proj_kind == "psparse":
+        proj = init_psparse_projections(gen, num_tokens, k_max,
+                                        proj_density)
+    else:
+        proj = gaussian_projections(gen, num_tokens, k_max, dtype)
     nodes = {name: init_paper_node(gen, spec.width, k_max,
                                    layers=spec.layers, dtype=dtype)
              for name, spec in specs.items()}
     rank = torch.tensor((k_max - 1) // 2, dtype=torch.int32,
                         device=gen.device)
-    return NodeTree(nodes=nodes, proj=proj, rank=rank)
+    return NodeTree(nodes=nodes, proj=proj, rank=rank,
+                    seed=gen.initial_seed())
+
+
+def zero_sketches(tree: NodeTree) -> NodeTree:
+    """Zero every node's x/y/z (psi, projections, counters untouched)."""
+    return dataclasses.replace(
+        tree, nodes={n: zero_node_sketches(v) for n, v in tree.nodes.items()})
+
+
+def refresh_tree(tree: NodeTree) -> NodeTree:
+    """New projections and psi, zero sketches: the paper's "reinitialize
+    matrices" after a rank change (Alg. 1). Shapes never change; the
+    epoch advances and the step counter restarts. Draws: projections,
+    then each node's psi in sorted node order."""
+    epoch = tree.epoch + 1
+    gen = torch.Generator(device=tree.rank.device)
+    gen.manual_seed((tree.seed * 1_000_003 + epoch) % 2**63)
+    if is_psparse(tree.proj):
+        proj = refresh_psparse_projections(tree.proj, gen)
+    else:
+        proj = {name: torch.randn(p.shape, generator=gen, device=p.device,
+                                  dtype=p.dtype)
+                for name, p in tree.proj.items()}
+    nodes = {}
+    for name in sorted(tree.nodes):
+        node = zero_node_sketches(tree.nodes[name])
+        if node.psi.numel():
+            node = dataclasses.replace(node, psi=torch.randn(
+                node.psi.shape, generator=gen, device=node.psi.device,
+                dtype=node.psi.dtype))
+        nodes[name] = node
+    return dataclasses.replace(tree, nodes=nodes, proj=proj, epoch=epoch,
+                               step=0)
+
+
+def tree_memory_bytes(tree: NodeTree) -> int:
+    """Bytes held by the tree: sketches, psi and projections (a psparse
+    tree's are its 12 uint32 coefficients)."""
+    total = sum(t.numel() * t.element_size()
+                for n in tree.nodes.values() for t in (n.x, n.y, n.z, n.psi))
+    if is_psparse(tree.proj):
+        return total + 4 * sum(len(row) for row in tree.proj.params)
+    return total + sum(p.numel() * p.element_size()
+                       for p in tree.proj.values())
+
+
+def proj_to(proj, device):
+    """A copy of a projection (dense dict or psparse) on ``device``."""
+    if is_psparse(proj):
+        return proj.to(device)
+    return {n: v.detach().to(device=device, copy=True)
+            for n, v in proj.items()}
+
+
+def tree_to(tree: NodeTree, device) -> NodeTree:
+    """A copy of ``tree`` with every tensor on ``device``."""
+    def mv(t):
+        return t.detach().to(device=device, copy=True)
+    return dataclasses.replace(
+        tree, nodes={n: SketchNode(x=mv(v.x), y=mv(v.y), z=mv(v.z),
+                                   psi=mv(v.psi))
+                     for n, v in tree.nodes.items()},
+        proj=proj_to(tree.proj, device), rank=mv(tree.rank))
 
 
 def node_paths(tree: NodeTree) -> list[str]:

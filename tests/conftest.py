@@ -40,6 +40,10 @@ def pytest_configure(config):
         "differential tier (tests/test_ring.py) — reduced W∈{2,4} "
         "subset per PR in the `ring-differential` CI job, full W=8 "
         "nightly; excluded from tier1-fast")
+    config.addinivalue_line(
+        "markers",
+        "requires_cuda: needs a CUDA device (the PyTorch port's kernels); "
+        "decided inside the test, which skips without one")
 
 
 @pytest.fixture

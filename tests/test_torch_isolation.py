@@ -12,9 +12,12 @@ import pytest
 import torch
 
 from repro.configs import get_arch as jax_get_arch
+from repro.configs import paper as jax_paper
 from repro.configs import reduced as jax_reduced
-from repro_torch.configs import ARCHS, get_arch, reduced
+from repro_torch.configs import ARCHS, get_arch, paper, reduced
+from repro_torch.launch import paper as paper_launcher
 from repro_torch.launch import serve as serve_launcher
+from repro_torch.train import paper_trainer
 from repro_torch.serve import ServeEngine
 
 SRC = Path(__file__).resolve().parent.parent / "src"
@@ -26,6 +29,10 @@ def test_port_loads_without_jax():
         "import sys\n"
         "import repro_torch, repro_torch.interop, repro_torch.launch.serve\n"
         "import repro_torch.serve.engine, repro_torch.kernels.sketch_update\n"
+        "import repro_torch.kernels.psparse_update, repro_torch.launch.paper\n"
+        "import repro_torch.train.paper_trainer, repro_torch.sketches.linear\n"
+        "import repro_torch.core.reconstruct, repro_torch.core.adaptive\n"
+        "import repro_torch.optim.adamw, repro_torch.data.synthetic\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
         "assert not any(m == 'repro' or m.startswith('repro.')\n"
         "               for m in sys.modules), 'repro was imported'\n")
@@ -51,6 +58,40 @@ def test_engine_defaults_to_cuda_and_never_falls_back(monkeypatch):
         ServeEngine(cfg=cfg, params={}, max_context=16)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         serve_launcher.main(["--reduced"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        paper_launcher.main(["--steps", "1"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        paper_trainer.train(paper.MNIST_MLP, paper.MNIST_MLP.sketch,
+                            "standard", steps=1, batch_fn=None)
+
+
+def _same_fields(ours, ref):
+    ref_fields = dataclasses.asdict(ref)
+    for f, v in dataclasses.asdict(ours).items():
+        if f == "dtype":
+            assert str(v).split(".")[-1] == ref_fields[f].__name__, f
+        elif isinstance(v, dict):
+            _same_fields(getattr(ours, f), getattr(ref, f))
+        else:
+            assert v == ref_fields[f], f
+    assert set(dataclasses.asdict(ours)) == set(ref_fields)
+
+
+@pytest.mark.parametrize("name", ["MNIST_MLP", "CIFAR_HYBRID", "PINN_POISSON",
+                                  "MONITOR_HEALTHY", "MONITOR_PROBLEMATIC"])
+def test_paper_configs_match_reference(name):
+    _same_fields(getattr(paper, name), getattr(jax_paper, name))
+    assert paper.PAPER_CONFIGS[getattr(paper, name).name] is \
+        getattr(paper, name)
+
+
+def test_paper_launcher_trains_on_cpu(capsys):
+    res = paper_launcher.main(["--device", "cpu", "--steps", "4",
+                               "--log-every", "2", "--variant",
+                               "sketched_fixed", "--proj-kind", "psparse"])
+    assert len(res.history) == 4 and res.sketch.step == 4
+    out = capsys.readouterr().out
+    assert "test acc" in out and "pathology flags" in out
 
 
 @pytest.mark.parametrize("name", ARCHS)

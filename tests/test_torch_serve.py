@@ -10,7 +10,10 @@ prefills, decodes 5 steps, refills slot 1 and decodes once more.
 Configs: reduced tinyllama-1.1b, and reduced gemma3-27b cut to 8 layers
 (one scanned group of 6 plus a 2-layer tail in the reference, tied
 embeddings) with window 8, so its 12-token prompts overflow the local
-layers' ring caches at prefill and the ring wraps while decoding.
+layers' ring caches at prefill and the ring wraps while decoding. The
+"tinyllama-psparse" case monitors through seeds-only p-sparsified
+projections (``monitor_proj_kind="psparse"``): the JAX engine takes its
+gather path, the port ``psparse_update``'s plain version.
 
 Tolerances: tokens and flags exact; decode logits rtol 1e-4, atol 1e-4;
 sketches and the metrics ring rtol 1e-4, atol 1e-5 * max|reference|
@@ -40,6 +43,8 @@ CASES = {
     "tinyllama": dict(arch="tinyllama-1.1b", cut={}, prompt_len=8),
     "gemma3": dict(arch="gemma3-27b", cut=dict(num_layers=8, window_size=8),
                    prompt_len=12),
+    "tinyllama-psparse": dict(arch="tinyllama-1.1b", cut={}, prompt_len=8,
+                              proj_kind="psparse"),
 }
 BATCH = 2
 MAX_CONTEXT = 32
@@ -81,8 +86,9 @@ def run(request, tmp_path_factory):
     refill_prompt = rng.integers(0, cfg.vocab_size, (S0,))
 
     jparams = jax_init_params(jax.random.PRNGKey(0), jcfg)
+    proj_kind = case.get("proj_kind", "gaussian")
     jeng = JaxServeEngine(cfg=jcfg, params=jparams, max_context=MAX_CONTEXT,
-                          monitor=True)
+                          monitor=True, monitor_proj_kind=proj_kind)
     j_toks, j_logits = _drive(jeng, jnp.asarray(prompts, jnp.int32),
                               jnp.asarray(refill_prompt, jnp.int32))
 
@@ -95,7 +101,8 @@ def run(request, tmp_path_factory):
     def port(monitor):
         eng = ServeEngine(cfg=cfg, params=params, max_context=MAX_CONTEXT,
                           monitor=monitor, device="cpu", projections=proj,
-                          initial_tree=tree_from_jax(tree0))
+                          initial_tree=tree_from_jax(tree0),
+                          monitor_proj_kind=proj_kind)
         toks, logits = _drive(eng, torch.from_numpy(prompts),
                               torch.from_numpy(refill_prompt))
         return eng, toks, logits

@@ -116,3 +116,48 @@ def test_wrapper_rejects_what_the_kernel_cannot_take():
     with pytest.raises(ValueError, match="shape"):
         sketch_update(args[0], *args[1:4], args[4][:4], *args[5:],
                       beta=BETA)
+
+
+@pytest.mark.parametrize("k_active", [3, 9])
+def test_increment_then_apply_is_the_update(k_active):
+    """``ema_triple_increment`` against the reference's (kernel and jnp
+    paths), and ``ema_apply_increment`` of it against the update."""
+    from repro.sketches.update import ema_apply_increment as jax_apply
+    from repro.sketches.update import ema_triple_increment as jax_increment
+    from repro_torch.sketches.update import (
+        ema_apply_increment, ema_triple_increment,
+    )
+    a, x, y, z, ups, omg, phi, psi = _inputs(37, 50, 9, seed=2)
+    x[:, k_active:] = y[:, k_active:] = z[:, k_active:] = 0.0
+    args = (x, y, z, a, ups, omg, phi, psi)
+    ka = torch.tensor(k_active)
+    got = ema_triple_increment(*map(torch.from_numpy, args), BETA, ka)
+    for use_kernel in (True, False):
+        want = jax_increment(*map(jnp.asarray, args), BETA,
+                             jnp.asarray(k_active), use_kernel=use_kernel)
+        for g, w in zip(got, want):
+            _close(g.numpy(), w)
+    upd = ema_triple_update(*map(torch.from_numpy, args), BETA, ka)
+    for s, inc, u in zip((x, y, z), got, upd):
+        applied = ema_apply_increment(torch.from_numpy(s), inc, BETA, ka)
+        want = jax_apply(jnp.asarray(s), jnp.asarray(inc.numpy()), BETA,
+                         jnp.asarray(k_active))
+        _close(applied.numpy(), want)
+        _close(applied.numpy(), u.numpy())
+
+
+@pytest.mark.parametrize("rows", [5, 8])
+def test_pad_activation_rows_and_row_binding(rows):
+    from repro.sketches.update import pad_activation_rows as jax_pad
+    from repro_torch.sketches import (
+        PsparseProjections, pad_activation_rows, proj_num_tokens,
+    )
+    a = _inputs(rows, 6, 3)[0]
+    got = pad_activation_rows(torch.from_numpy(a), 8)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(jax_pad(
+        jnp.asarray(a), 8)))
+    with pytest.raises(ValueError, match="num_tokens"):
+        pad_activation_rows(torch.from_numpy(a), rows - 1)
+    assert proj_num_tokens({"omega": torch.zeros(8, 3)}) == 8
+    assert proj_num_tokens(PsparseProjections(((1, 0, 1, 0),) * 3, 8,
+                                              3)) == 8
