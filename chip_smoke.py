@@ -97,9 +97,7 @@ KERNELS = ("sketch_update", "psparse_update")
 # 16-layer monitoring pair as examples/gradient_monitoring.py runs it
 MNIST_STEPS = 100
 MNIST_EPOCH = 10            # steps per adaptive-rank epoch
-MNIST_NOISE = 1.2
 MONITOR_STEPS = 120
-MONITOR_NOISE = 2.0
 VARIANTS = ("standard", "monitor", "sketched_fixed", "sketched_adaptive")
 PROJ_KINDS = ("gaussian", "psparse")
 # device against CPU: the k x k solves and pinv of the reconstruction
@@ -150,34 +148,16 @@ def time_ms(fn, iters: int, warmup: int = 10) -> tuple[float, float]:
     return (us / 1e3 / iters if us > 0 else call_ms), call_ms
 
 
-def sketch_update_bound(T: int, d: int, k: int, a_bytes: int):
-    """(bound_ms, bound_by): each input read once, each output written
-    once. The three products (6*T*d*k flops) run at the bf16 tensor-core
-    rate with each f32 operand split into a bf16 high and low part, which
-    keeps the sums within the 1e-4 tolerance: two bf16 products per
-    product for bf16 A, three for f32 A. The epilogue's 10*d*k flops run
-    at the f32 rate."""
-    nbytes = T * d * a_bytes + 3 * T * k * 4 + k * 4 + 6 * d * k * 4
+def bound(nbytes: int, flops: int, d: int, k: int, a_bytes: int):
+    """(bound_ms, bound_by) of one sketch update moving ``nbytes`` (each
+    input read once, each output written once) and doing ``flops`` of
+    products. The products run at the bf16 tensor-core rate with each f32
+    operand split into a bf16 high and low part, which keeps the sums
+    within the 1e-4 tolerance: two bf16 products per product for bf16 A,
+    three for f32 A. The epilogue's 10*d*k flops run at the f32 rate."""
     passes = 2 if a_bytes == 2 else 3
     t_bytes = nbytes / PEAK_BYTES_S
-    t_ops = (passes * 6 * T * d * k / PEAK_BF16_FLOP_S
-             + 10 * d * k / PEAK_F32_FLOP_S)
-    if t_bytes >= t_ops:
-        return t_bytes * 1e3, "bytes"
-    return t_ops * 1e3, "operations"
-
-
-def psparse_update_bound(rows_read: int, m: int, d: int, k: int,
-                        a_bytes: int):
-    """(bound_ms, bound_by) of one psparse update: the distinct support
-    rows of A that this call's coefficients select (each read once), psi
-    and the 12 coefficients, the sketches read and written; its 6*m*d*k
-    flops as in ``sketch_update_bound``."""
-    nbytes = rows_read * d * a_bytes + k * 4 + 48 + 6 * d * k * 4
-    passes = 2 if a_bytes == 2 else 3
-    t_bytes = nbytes / PEAK_BYTES_S
-    t_ops = (passes * 6 * m * d * k / PEAK_BF16_FLOP_S
-             + 10 * d * k / PEAK_F32_FLOP_S)
+    t_ops = passes * flops / PEAK_BF16_FLOP_S + 10 * d * k / PEAK_F32_FLOP_S
     if t_bytes >= t_ops:
         return t_bytes * 1e3, "bytes"
     return t_ops * 1e3, "operations"
@@ -240,7 +220,8 @@ def phase_kernels(dev) -> dict[str, list[dict]]:
             lambda: sketch_update(*args, beta=0.9),
             lambda: sketch_update_ref(*args, 0.9),
             lambda: torch.matmul(a.t(), pcat),
-            sketch_update_bound(T, d, k, a.element_size())))
+            bound(T * d * a.element_size() + 3 * T * k * 4 + k * 4
+                  + 6 * d * k * 4, 6 * T * d * k, d, k, a.element_size())))
     for label, T, d, k, a_dtype in PSPARSE_CASES:
         dtype = getattr(torch, a_dtype)
         m = psparse_dim(T, k, DENSITY)
@@ -260,7 +241,10 @@ def phase_kernels(dev) -> dict[str, list[dict]]:
             lambda: psparse_update_ref(a, x, y, z, coeffs, psi, beta=0.9,
                                        m=m),
             lambda: torch.matmul(a.t(), pcat),
-            psparse_update_bound(read, m, d, k, a.element_size())))
+            # the distinct support rows this call's coefficients select,
+            # psi, the 12 coefficients, the sketches read and written
+            bound(read * d * a.element_size() + k * 4 + 48 + 6 * d * k * 4,
+                  6 * m * d * k, d, k, a.element_size())))
     return rows
 
 
@@ -464,22 +448,21 @@ def phase_train_mnist(dev) -> dict:
     variant must leave the parameters equal to standard's."""
     import torch
     from repro_torch.configs.paper import MNIST_MLP
-    from repro_torch.core.sketch import SketchConfig
     from repro_torch.data.synthetic import (
         class_prototypes, classification_batch,
     )
+    from repro_torch.launch.paper import run_settings
 
     cfg = MNIST_MLP
+    noise = run_settings("mnist_mlp", cfg.batch_size, "gaussian")[1]
     gen = torch.Generator(device=dev).manual_seed(100)
     protos = class_prototypes(gen, cfg.d_out, cfg.d_in)
-    test = classification_batch(gen, protos, 2048, MNIST_NOISE)
-    batches = [classification_batch(gen, protos, cfg.batch_size, MNIST_NOISE)
+    test = classification_batch(gen, protos, 2048, noise)
+    batches = [classification_batch(gen, protos, cfg.batch_size, noise)
                for _ in range(MNIST_STEPS)]
     out = {}
     for proj_kind in PROJ_KINDS:
-        scfg = SketchConfig(rank=2, max_rank=16, beta=0.95,
-                            batch_size=cfg.batch_size, recon_mode="fast",
-                            proj_kind=proj_kind, proj_density=DENSITY)
+        scfg = run_settings("mnist_mlp", cfg.batch_size, proj_kind)[0]
         # warm-up: the kernels' load and the solver libraries' handles
         train_run(dev, cfg, scfg, "sketched_fixed", 3, batches)
         runs = {}
@@ -522,23 +505,21 @@ def phase_monitor_pair(dev) -> dict:
     import torch
     from repro_torch.configs.paper import MONITOR_HEALTHY, MONITOR_PROBLEMATIC
     from repro_torch.core.monitor import detect_pathologies
-    from repro_torch.core.sketch import SketchConfig
     from repro_torch.data.synthetic import (
         class_prototypes, classification_batch,
     )
+    from repro_torch.launch.paper import run_settings
     from repro_torch.sketches import node_paths
     from repro_torch.telemetry import flag_paths
 
     out = {}
-    for cfg in (MONITOR_HEALTHY, MONITOR_PROBLEMATIC):
+    for name, cfg in (("monitor_healthy", MONITOR_HEALTHY),
+                      ("monitor_problematic", MONITOR_PROBLEMATIC)):
+        scfg, noise = run_settings(name, cfg.batch_size, "psparse")
         gen = torch.Generator(device=dev).manual_seed(11)
         protos = class_prototypes(gen, cfg.d_out, cfg.d_in)
-        batches = [classification_batch(gen, protos, cfg.batch_size,
-                                        MONITOR_NOISE)
+        batches = [classification_batch(gen, protos, cfg.batch_size, noise)
                    for _ in range(MONITOR_STEPS)]
-        scfg = SketchConfig(rank=4, max_rank=8, beta=0.9,
-                            batch_size=cfg.batch_size, proj_kind="psparse",
-                            proj_density=DENSITY)
         train_run(dev, cfg, scfg, "monitor", 3, batches)       # warm-up
         r = train_run(dev, cfg, scfg, "monitor", MONITOR_STEPS, batches)
         check_counts(f"{cfg.name} monitor psparse", r["launches"],

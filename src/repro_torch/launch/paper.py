@@ -10,7 +10,10 @@ without one. Prints the loss every ``--log-every`` steps, the final test
 accuracy and, for the sketch-keeping variants, the pathology flags the
 monitor reads from the sketches alone. ``--config`` takes the
 classification configs: mnist_mlp, cifar_hybrid (its dense tail on
-1024-d features), monitor_healthy and monitor_problematic.
+1024-d features), monitor_healthy and monitor_problematic. Each config
+fixes its sketch settings and data noise as the JAX package's runs do:
+the monitoring pair as examples/gradient_monitoring.py, the others as
+benchmarks/bench_mnist.py.
 """
 from __future__ import annotations
 
@@ -30,8 +33,18 @@ from repro_torch.telemetry import flag_paths
 from repro_torch.train.paper_trainer import VARIANTS, PaperTrainResult, \
     accuracy, train
 
-CONFIGS = ("mnist_mlp", "cifar_hybrid", "monitor_healthy",
-           "monitor_problematic")
+MONITOR_PAIR = ("monitor_healthy", "monitor_problematic")
+CONFIGS = ("mnist_mlp", "cifar_hybrid") + MONITOR_PAIR
+SEED = 0
+
+
+def run_settings(config: str, batch_size: int, proj_kind: str):
+    """(SketchConfig, data noise) of a config's runs in the JAX package."""
+    if config in MONITOR_PAIR:
+        return SketchConfig(rank=4, max_rank=8, beta=0.9,
+                            batch_size=batch_size, proj_kind=proj_kind), 2.0
+    return SketchConfig(rank=2, max_rank=16, beta=0.95, batch_size=batch_size,
+                        recon_mode="fast", proj_kind=proj_kind), 1.2
 
 
 def main(argv=None) -> PaperTrainResult:
@@ -39,45 +52,30 @@ def main(argv=None) -> PaperTrainResult:
     ap.add_argument("--config", default="mnist_mlp", choices=CONFIGS)
     ap.add_argument("--variant", default="sketched_fixed", choices=VARIANTS)
     ap.add_argument("--proj-kind", default="gaussian", choices=PROJ_KINDS)
-    ap.add_argument("--density", type=float, default=0.1,
-                    help="psparse projection density")
-    ap.add_argument("--rank", type=int, default=2)
-    ap.add_argument("--max-rank", type=int, default=16)
-    ap.add_argument("--beta", type=float, default=0.95)
-    ap.add_argument("--recon-mode", default="fast",
-                    choices=("fast", "faithful"))
     ap.add_argument("--steps", type=int, default=200)
-    ap.add_argument("--noise", type=float, default=1.2)
-    ap.add_argument("--epoch", type=int, default=50,
-                    help="steps per adaptive-rank epoch")
     ap.add_argument("--log-every", type=int, default=50)
-    ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda)")
     args = ap.parse_args(argv)
 
     cfg = PAPER_CONFIGS[args.config]
-    scfg = SketchConfig(rank=args.rank, max_rank=args.max_rank,
-                        beta=args.beta, batch_size=cfg.batch_size,
-                        recon_mode=args.recon_mode,
-                        proj_kind=args.proj_kind,
-                        proj_density=args.density)
+    scfg, noise = run_settings(args.config, cfg.batch_size, args.proj_kind)
     device = resolve_device(args.device)
     gen = torch.Generator(device=device)
-    gen.manual_seed(args.seed + 100)
+    gen.manual_seed(SEED + 100)
     protos = class_prototypes(gen, cfg.d_out, cfg.d_in)
-    x_test, y_test = classification_batch(gen, protos, 1024, args.noise)
+    x_test, y_test = classification_batch(gen, protos, 1024, noise)
 
     def batch_fn(step):
-        return classification_batch(gen, protos, cfg.batch_size, args.noise)
+        return classification_batch(gen, protos, cfg.batch_size, noise)
 
     def eval_fn(params):
         return {"test_acc": accuracy(params, cfg, x_test, y_test)}
 
     t0 = time.perf_counter()
     res = train(cfg, scfg, args.variant, steps=args.steps, batch_fn=batch_fn,
-                eval_fn=eval_fn, seed=args.seed, steps_per_epoch=args.epoch,
-                adaptive=AdaptiveConfig(r0=args.rank, r_max=args.max_rank),
+                eval_fn=eval_fn, seed=SEED,
+                adaptive=AdaptiveConfig(r0=scfg.rank, r_max=scfg.max_rank),
                 device=device)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
