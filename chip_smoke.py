@@ -9,10 +9,19 @@ nvcc and nvidia-smi. Phases, each of which raises on failure:
 1. build the CUDA kernels from ``src/repro_torch/csrc`` (one nvcc per
    source, started together) and print the card's name and power limit;
 2. hold each kernel against its plain PyTorch version on the card at the
-   shapes the paths give it (rtol 1e-4, atol 1e-4 * max|plain|: the sums
-   run in another order), then time it (device time from torch.profiler,
-   per-call time from CUDA events) beside its bound, its plain version
-   and one torch.matmul of A^T against the (T, 3k) projections;
+   shapes the paths give it, then time it (device time from
+   torch.profiler, per-call time from CUDA events) beside its bound, its
+   plain version and a library call computing the same function:
+   the sketch updates (rtol 1e-4, atol 1e-4 * max|plain|: the sums run in
+   another order) beside one torch.matmul of A^T against the (T, 3k)
+   projections; the count-sketch kernels at the LM train step's geometry
+   (r 5, c 2^23, the flat dimension of tinyllama-1.1b, k 256 and 512), a
+   small ragged case and an even r: ``csvec_insert`` within the same
+   tolerance (atomic sums) beside r ``index_add_`` calls over
+   precomputed buckets and signed values, ``csvec_topk`` exact (indices
+   and values) beside ``torch.topk`` of a precomputed |estimate|,
+   ``csvec_quant`` exact in q, scale and dhat and within one ulp of the
+   row's amax in resid (no single library call computes it);
 3. serving: ``ServeEngine(monitor=True)`` on tinyllama-1.1b at full width
    with random weights (8 prompts of 128 tokens, 32 new tokens, then one
    refill of a 64-token prompt); tokens must equal the unmonitored
@@ -33,12 +42,30 @@ nvcc and nvidia-smi. Phases, each of which raises on failure:
    and the reconstruction of a node, on the card and on the CPU, with
    each projection kind (tree within 1e-4; gradients and reconstruction
    factors within 1e-3, as the k x k solves amplify rounding);
-7. print ``{"kernels": [...]}``, the nvidia-smi line, and last
+7. LM training: tinyllama-1.1b at full width (f32 parameters, bf16
+   compute), B=8 x S=128 synthetic batches, sketched backprop on both
+   FFN matmuls of all 22 layers (k_max 17), AdamW with warmup-cosine,
+   20 steps each of (a) no compression, (b) count-sketch with an fp32
+   table, (c) count-sketch with an int8 table and p2=2, all with
+   Gaussian projections, then 3 steps with psparse projections. Losses
+   finite, no skipped step, (a) learns (mean of the last 5 losses below
+   the first 5's; (b) and (c) send 256 of 1.1e9 coordinates a step, so
+   learning is not asked of them). After each run one more step under
+   torch.profiler (device time by kernel); after (b) and (c), one more
+   step's gradients: v_new + update == v_pre exactly away from the sent
+   coordinates (rtol 1e-6 at them), and the insert kernel against its
+   plain version on that step's v_pre;
+8. the LM launcher (``python -m repro_torch.launch.train --reduced
+   --compress countsketch``'s ``main``) for 6 steps, checkpointing into
+   a temporary directory that is removed afterwards;
+9. print ``{"kernels": [...]}``, the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 
-Every run of a path (3, 5) sets the kernels' launch counts to 0 just
-before it and checks them just after: each monitored token step or
-train step launches one kernel per sketched node, the projection kind's.
+Every run of a path (3, 5, 7, 8) sets the kernels' launch counts to 0
+just before it and checks them just after: each monitored token step or
+train step launches one update kernel per sketched node, the projection
+kind's; each compressed LM step one insert and one top-k, and one quant
+with the int8 table.
 
 Exits non-zero, printing no result, without a CUDA device or without the
 repository's sources beside it. Measurements also go to
@@ -49,6 +76,7 @@ from __future__ import annotations
 import concurrent.futures
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -81,6 +109,8 @@ SKETCH_UPDATE_CASES = [
     ("k33", 1024, 2048, 33, "bfloat16"),
     ("mnist_mlp", 128, 512, 33, "float32"),
     ("monitor16", 128, 1024, 17, "float32"),
+    ("lm_ffn_in", 1024, 2048, 17, "bfloat16"),
+    ("lm_ffn_h", 1024, 5632, 17, "bfloat16"),
 ]
 # psparse_update at density 0.1: the trainer's nodes, the psparse serving
 # prefill and a ragged case (m = clamp(round(0.1 T), k, T) support rows)
@@ -89,9 +119,28 @@ PSPARSE_CASES = [
     ("monitor16", 128, 1024, 17, "float32"),
     ("prefill", 1024, 2048, 9, "bfloat16"),
     ("ragged", 37, 50, 9, "float32"),
+    ("lm_ffn_in", 1024, 2048, 17, "bfloat16"),
+    ("lm_ffn_h", 1024, 5632, 17, "bfloat16"),
 ]
 DENSITY = 0.1
-KERNELS = ("sketch_update", "psparse_update")
+KERNELS = ("sketch_update", "psparse_update", "csvec_insert", "csvec_topk",
+           "csvec_quant")
+# the count-sketch kernels: (label, r, c, n, ks). "train" is the LM train
+# step's geometry: tinyllama-1.1b's flat dimension, the table that
+# resolve_countsketch sizes for it (5 x 2^23), cs_k 256 and 2 x 256 p2
+# candidates
+CS_CASES = [
+    ("train", 5, 2**23, None, (256, 512)),
+    ("ragged", 5, 128, 1000, (64,)),
+    ("even_r", 4, 128, 1000, (64,)),
+]
+
+# the LM trainer: tinyllama-1.1b at full width, as launch/train.py runs it
+LM_BATCH, LM_SEQ, LM_STEPS, LM_PSPARSE_STEPS = 8, 128, 20, 3
+LM_MODES = {"none": None,
+            "countsketch_fp32": dict(mode="countsketch"),
+            "countsketch_int8_p2": dict(mode="countsketch", cs_p2=2,
+                                        wire_dtype="int8")}
 
 # the trainer's path: MNIST_MLP as benchmarks/bench_mnist.py runs it, the
 # 16-layer monitoring pair as examples/gradient_monitoring.py runs it
@@ -104,6 +153,8 @@ PROJ_KINDS = ("gaussian", "psparse")
 # amplify f32 rounding by up to cond(Y^T Y); a QR column of the other
 # sign moves A~ by O(1)
 RECON_TOL = 1e-3
+PROFILE_TRIES = 3       # profiles of a timing before a short count is taken
+SPIN_CYCLES = 2_000_000  # about 1 ms of torch.cuda._sleep at 1.98 GHz
 
 
 def log(msg: str) -> None:
@@ -118,15 +169,52 @@ def gpu_line() -> str:
     return out.strip().splitlines()[0].strip()
 
 
+def _device_kernels(fn, calls: int) -> dict[str, tuple[int, float]] | None:
+    """{kernel name: (records, device us)} that torch.profiler keeps over
+    ``calls`` calls of ``fn``, or None if it lost a marker. The profiler
+    can miss the kernels of a profile's first milliseconds and pass late
+    records of an earlier profile on, so a 1 ms spin kernel and a
+    synchronisation lead in, and the calls run between two more spin
+    kernels: only the records between those two count."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(SPIN_CYCLES)
+        torch.cuda.synchronize()
+        torch.cuda._sleep(1000)
+        for _ in range(calls):
+            fn()
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    marks = [e for e in events if "spin_kernel" in e.name
+             and e.time_range.elapsed_us() < 100]
+    if len(marks) != 2:
+        return None
+    t0, t1 = marks[0].time_range.end, marks[1].time_range.start
+    out: dict[str, tuple[int, float]] = {}
+    for e in events:
+        if t0 <= e.time_range.start and e.time_range.end <= t1:
+            n, us = out.get(e.name, (0, 0.0))
+            out[e.name] = (n + 1, us + e.time_range.elapsed_us())
+    return out
+
+
 def time_ms(fn, iters: int, warmup: int = 10) -> tuple[float, float]:
     """(device ms, call ms) of one call of ``fn``, each a mean over
-    ``iters`` calls after ``warmup``. Device ms sums the CUDA kernels that
-    torch.profiler records; call ms comes from CUDA events around the
-    loop, so it includes the host's enqueue time where that is longer
-    (small shapes). Device ms is the call ms when the profiler records
-    no device time."""
+    ``iters`` calls after ``warmup``. Call ms comes from CUDA events
+    around the loop, so it includes the host's enqueue time where that
+    is longer (small shapes). Device ms sums the kernels that
+    torch.profiler records, and is the call ms when it records none.
+
+    Each kernel's records over the ``iters`` calls must number ``iters``
+    times its records in a profile of one call, or both profiles are
+    taken again, up to PROFILE_TRIES times: a profile that lost records
+    would understate device ms. If the counts never agree, each kernel
+    counts as the mean of its kept records times the most records a
+    one-call profile kept, and the shortfall is logged."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
@@ -137,15 +225,32 @@ def time_ms(fn, iters: int, warmup: int = 10) -> tuple[float, float]:
     end.record()
     torch.cuda.synchronize()
     call_ms = start.elapsed_time(end) / iters
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = 0.0
-    for ev in prof.key_averages():
-        us += getattr(ev, "self_device_time_total",
-                      getattr(ev, "self_cuda_time_total", 0.0))
-    return (us / 1e3 / iters if us > 0 else call_ms), call_ms
+    per_call: dict[str, int] = {}
+    seen = None
+    for _ in range(PROFILE_TRIES):
+        one, many = _device_kernels(fn, 1), _device_kernels(fn, iters)
+        if one is None or many is None:
+            continue
+        if not one and not many:
+            return call_ms, call_ms
+        for name, (n, _) in one.items():
+            per_call[name] = max(per_call.get(name, 0), n)
+        seen = many
+        if {k: iters * n for k, n in per_call.items()} == {
+                k: n for k, (n, _) in seen.items()}:
+            return sum(us for _, us in seen.values()) / 1e3 / iters, call_ms
+    if not seen:
+        log(f"time_ms: torch.profiler lost its markers in {PROFILE_TRIES} "
+            f"profiles; device ms is the call ms")
+        return call_ms, call_ms
+    want = {k: per_call.get(k, max(1, round(n / iters))) for k, (n, _)
+            in seen.items()}
+    log(f"time_ms: torch.profiler kept {sum(n for n, _ in seen.values())} "
+        f"kernel records where {iters} calls make "
+        f"{iters * sum(want.values())}, in each of {PROFILE_TRIES} tries; "
+        f"device ms from the mean of each kernel's kept records")
+    return sum(us / n * want[k] for k, (n, us) in seen.items()) / 1e3, \
+        call_ms
 
 
 def bound(nbytes: int, flops: int, d: int, k: int, a_bytes: int):
@@ -248,22 +353,166 @@ def phase_kernels(dev) -> dict[str, list[dict]]:
     return rows
 
 
-def reset_counts() -> None:
-    """Every kernel's launch counts to 0."""
+def _cs_rows_only(params, j: int):
+    """Hash row ``j`` of (4, r) coefficients as a one-row family."""
+    return tuple((row[j],) for row in params)
+
+
+def phase_cs_kernels(dev) -> dict[str, list[dict]]:
+    """csvec_insert, csvec_topk and csvec_quant at each CS_CASES geometry
+    against their plain versions, then timed beside the library yardstick
+    and their bounds. The bounds count each input byte read once and each
+    output written once at 3.35 TB/s, and the f32 operations at 67 TFLOP/s
+    (insert: the r n signed adds; top-k: the r sign products, the median
+    network's compare-exchanges and the absolute value of each estimate;
+    quant: six a counter); the integer hash arithmetic is not counted, as
+    the data sheet gives no integer ALU rate. For top-k the r n random
+    gathers at 32 bytes a sector are reported beside (gather_bound_ms)."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.countsketch.csvec import (
+        CSVec, hash_buckets, hash_params, hash_signs, query,
+    )
+    from repro_torch.kernels.csvec_insert import csvec_insert, csvec_insert_ref
+    from repro_torch.kernels.csvec_quant import csvec_quant, csvec_quant_ref
+    from repro_torch.kernels.csvec_topk import csvec_topk, csvec_topk_ref
+    from repro_torch.models.transformer import num_params
+
+    def chunks(n):
+        for a in range(0, n, 1 << 24):
+            yield a, min(a + (1 << 24), n)
+
+    def bytes_or_ops(nbytes, flops):
+        t_b, t_o = nbytes / PEAK_BYTES_S, flops / PEAK_F32_FLOP_S
+        return (t_b * 1e3, "bytes") if t_b >= t_o else (t_o * 1e3,
+                                                       "operations")
+
+    rows = {"csvec_insert": [], "csvec_topk": [], "csvec_quant": []}
+    for label, r, c, n, ks in CS_CASES:
+        n = n or num_params(get_arch("tinyllama-1.1b"))
+        params = hash_params(torch.Generator().manual_seed(r * 31 + c % 97), r)
+        vec = torch.randn(n, generator=torch.Generator(device=dev).manual_seed(
+            7), device=dev)
+        zeros = torch.zeros((r, c), device=dev)
+        big = n > 10**6
+        it, plain_it = (3, 1) if big else (200, 20)
+        case = dict(case=label, r=r, c=c, n=n)
+
+        # insert, and r index_add_ calls over precomputed buckets and
+        # signed values, one row at a time
+        got = csvec_insert(zeros, params, vec)
+        table = csvec_insert_ref(zeros, params, vec)
+        torch.cuda.synchronize()
+        scale = float(table.abs().max())
+        torch.testing.assert_close(got, table, rtol=TOL, atol=TOL * scale)
+        ms, call_ms = time_ms(lambda: csvec_insert(zeros, params, vec), it, 1)
+        plain_ms, plain_call_ms = time_ms(
+            lambda: csvec_insert_ref(zeros, params, vec), plain_it, 0)
+        lib_ms = lib_call_ms = 0.0
+        for j in range(r):
+            pj = _cs_rows_only(params, j)
+            bj = torch.empty(n, dtype=torch.int32, device=dev)
+            svj = torch.empty(n, dtype=torch.float32, device=dev)
+            for a, b in chunks(n):
+                idx = torch.arange(a, b, device=dev)
+                bj[a:b] = hash_buckets(pj, c, idx)[0]
+                svj[a:b] = hash_signs(pj, idx)[0] * vec[a:b]
+            row = torch.zeros(c, device=dev)
+            m1, m2 = time_ms(lambda: row.index_add_(0, bj, svj), it, 1)
+            lib_ms, lib_call_ms = lib_ms + m1, lib_call_ms + m2
+            del bj, svj
+        rows["csvec_insert"].append(dict(
+            case, max_abs_err=float((got - table).abs().max()), ms=ms,
+            plain_ms=plain_ms, library_ms=lib_ms, call_ms=call_ms,
+            plain_call_ms=plain_call_ms, library_call_ms=lib_call_ms,
+            **dict(zip(("bound_ms", "bound_by"),
+                       bytes_or_ops(4 * n + 8 * r * c, 2 * r * n)))))
+        log(f"csvec_insert {rows['csvec_insert'][-1]}")
+        del got
+
+        # top-k of the inserted table, and torch.topk of |estimate|
+        mag = torch.empty(n, device=dev)
+        cs = CSVec(table=table, params=params, dim=n)
+        for a, b in chunks(n):
+            mag[a:b] = query(cs, torch.arange(a, b, device=dev)).abs()
+        for k in ks:
+            got = csvec_topk(table, params, n, k)
+            want = csvec_topk_ref(table, params, n, k)
+            torch.cuda.synchronize()
+            for g, w, what in zip(got, want, ("values", "indices")):
+                if not torch.equal(g, w):
+                    raise AssertionError(f"csvec_topk {label} k={k}: {what} "
+                                         f"differ from the plain version")
+            ms, call_ms = time_ms(lambda: csvec_topk(table, params, n, k),
+                                  it, 1)
+            plain_ms, plain_call_ms = time_ms(
+                lambda: csvec_topk_ref(table, params, n, k), plain_it, 0)
+            lib_ms, lib_call_ms = time_ms(lambda: torch.topk(mag, k), it, 1)
+            flops = n * (r + 2 * (r * (r - 1) // 2) + 1 + (2 if r % 2 == 0
+                                                            else 0))
+            rows["csvec_topk"].append(dict(
+                case, case_k=f"{label}_k{k}", k=k, max_abs_err=0.0, ms=ms,
+                plain_ms=plain_ms, library_ms=lib_ms, call_ms=call_ms,
+                plain_call_ms=plain_call_ms, library_call_ms=lib_call_ms,
+                gather_bound_ms=r * n * 32 / PEAK_BYTES_S * 1e3,
+                **dict(zip(("bound_ms", "bound_by"),
+                           bytes_or_ops(4 * r * c + 12 * k, flops)))))
+            log(f"csvec_topk {rows['csvec_topk'][-1]}")
+        del mag, vec
+
+        # quantisation of the inserted table
+        got, want = csvec_quant(table), csvec_quant_ref(table)
+        torch.cuda.synchronize()
+        for g, w, what in zip(got[:3], want[:3], ("q", "scale", "dhat")):
+            if not torch.equal(g, w):
+                raise AssertionError(f"csvec_quant {label}: {what} differs "
+                                     f"from the plain version")
+        amax = table.abs().amax(1)
+        ulp = torch.nextafter(amax, torch.full_like(amax, float("inf"))) - amax
+        resid_err = (got[3] - want[3]).abs()
+        if bool((resid_err > ulp[:, None]).any()):
+            raise AssertionError(f"csvec_quant {label}: resid off by more "
+                                 f"than one ulp of the row amax")
+        ms, call_ms = time_ms(lambda: csvec_quant(table), it, 1)
+        plain_ms, plain_call_ms = time_ms(lambda: csvec_quant_ref(table),
+                                          plain_it * 10, 1)
+        rows["csvec_quant"].append(dict(
+            case, max_abs_err=float(resid_err.max()), ms=ms,
+            plain_ms=plain_ms, library_ms=None, call_ms=call_ms,
+            plain_call_ms=plain_call_ms,
+            **dict(zip(("bound_ms", "bound_by"),
+                       bytes_or_ops(13 * r * c + 4 * r, 6 * r * c)))))
+        log(f"csvec_quant {rows['csvec_quant'][-1]}")
+        del got, want, table, zeros
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _wrappers() -> dict:
+    from repro_torch.kernels.csvec_insert import csvec_insert
+    from repro_torch.kernels.csvec_quant import csvec_quant
+    from repro_torch.kernels.csvec_topk import csvec_topk
     from repro_torch.kernels.psparse_update import psparse_update
     from repro_torch.kernels.sketch_update import sketch_update
-    sketch_update.launches = sketch_update.kernel_launches = 0
-    psparse_update.launches = 0
+    return {"sketch_update": sketch_update, "psparse_update": psparse_update,
+            "csvec_insert": csvec_insert, "csvec_topk": csvec_topk,
+            "csvec_quant": csvec_quant}
+
+
+def reset_counts() -> None:
+    """Every kernel's launch counts to 0."""
+    for fn in _wrappers().values():
+        fn.launches = 0
+    _wrappers()["sketch_update"].kernel_launches = 0
 
 
 def read_counts() -> dict[str, int]:
-    from repro_torch.kernels.psparse_update import psparse_update
-    from repro_torch.kernels.sketch_update import sketch_update
-    return {"sketch_update": sketch_update.launches,
-            "psparse_update": psparse_update.launches}
+    return {name: fn.launches for name, fn in _wrappers().items()}
 
 
 def check_counts(what: str, got: dict, want: dict) -> None:
+    """``got`` must equal ``want``, the kernels ``want`` omits at 0."""
+    want = {k: want.get(k, 0) for k in got}
     if got != want:
         raise AssertionError(f"{what}: kernel launches {got}, expected {want}")
 
@@ -628,6 +877,213 @@ def phase_train_device_vs_cpu(dev) -> dict:
     return out
 
 
+def _lm_run_config(mode: str, proj_kind: str, steps: int):
+    from repro_torch.models.transformer import SketchSettings
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.optim.compression import CompressionConfig
+    from repro_torch.train.state import RunConfig
+    ckw = LM_MODES[mode]
+    # as launch/train.py builds it: lr 3e-4, k_max 17, warmup
+    # min(20, steps // 5 + 1)
+    return RunConfig(
+        seq_len=LM_SEQ, global_batch=LM_BATCH,
+        optimizer=AdamWConfig(lr=3e-4),
+        warmup_steps=min(20, steps // 5 + 1), total_steps=steps,
+        sketch=SketchSettings(enabled=True, k_max=17, proj_kind=proj_kind),
+        compression=CompressionConfig(**ckw) if ckw else None)
+
+
+def _mass_check(dev, cfg, run, state, step, batch) -> dict:
+    """One more step's gradients through the compression by hand: the
+    insert kernel against its plain version on the real v_pre, and
+    v_new + update == v_pre exactly away from the sent coordinates."""
+    import torch
+    from repro_torch.kernels.csvec_insert import csvec_insert, csvec_insert_ref
+    from repro_torch.models.transformer import flat_paths
+    from repro_torch.optim.flat import FlatLayout
+    from repro_torch.optim.sketched_sgd import (
+        countsketch_finish, countsketch_local,
+    )
+    from repro_torch.train.state import finalize_run
+
+    comp = finalize_run(cfg, run).compression
+    layout = FlatLayout(state.params, flat_paths(state.params, cfg))
+    grads = step.loss_and_grads(state, batch)[3]
+    local = countsketch_local(grads, state.opt["err"], comp, layout)
+    del grads
+    v_pre = local.v_pre.clone()
+    zeros = torch.zeros((comp.cs_rows, comp.cs_cols), device=dev)
+    got = csvec_insert(zeros, local.cs.params, v_pre)
+    want = csvec_insert_ref(zeros, local.cs.params, v_pre)
+    scale = float(want.abs().max())
+    torch.testing.assert_close(got, want, rtol=TOL, atol=TOL * scale)
+    insert_err = float((got - want).abs().max())
+    del got, want
+    update_tree, err, _ = countsketch_finish(local, local.cs)
+    update = layout.ravel(update_tree)
+    del update_tree
+    sent = update != 0
+    n_sent = int(sent.sum())
+    total = err["v"] + update
+    if not torch.equal(torch.where(sent, v_pre, total), v_pre):
+        raise AssertionError("v_new + update != v_pre away from the sent "
+                             "coordinates")
+    torch.testing.assert_close(total[sent], v_pre[sent], rtol=1e-6,
+                               atol=1e-6 * float(v_pre[sent].abs().max()))
+    if n_sent != comp.cs_k or bool(err["u"][sent].any()):
+        raise AssertionError(f"{n_sent} coordinates sent, u not zeroed")
+    return dict(sent=n_sent, insert_max_abs_err=insert_err,
+                insert_scale=scale)
+
+
+def _profile_step(state, step, batch, top: int = 15):
+    """One more train step under torch.profiler, recording the card's
+    kernels only: the step's wall time (inflated by the profiler), the
+    kernels' device time in all, and the kernels that took most of it
+    (device ms and launches by name). A spin kernel and a
+    synchronisation lead in, as in ``_device_kernels``. The caller sets
+    ``idle_share`` against its median step time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(SPIN_CYCLES)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, _ = step(state, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = []
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total",
+                     getattr(ev, "self_cuda_time_total", 0.0))
+        if us > 0 and "spin_kernel" not in ev.key:
+            rows.append((ev.key, us / 1e3, ev.count))
+    rows.sort(key=lambda r: -r[1])
+    device_ms = sum(r[1] for r in rows)
+    return state, dict(wall_ms=wall_ms, device_ms=device_ms,
+                       top=[dict(name=n[:120], ms=ms, calls=c)
+                            for n, ms, c in rows[:top]])
+
+
+def lm_run(dev, cfg, mode: str, proj_kind: str, steps: int) -> dict:
+    """One counted, timed run of ``steps`` train steps from a fresh
+    state: per-step host time (each step ends in the loss's device
+    sync), peak memory, launches; then, with compression, the mass
+    check on one more step."""
+    import gc
+    import torch
+    from repro_torch.data.pipeline import PipelineConfig, host_batch
+    from repro_torch.train.state import init_train_state
+    from repro_torch.train.step import make_train_step
+
+    # what earlier phases left in reference cycles would count in the peak
+    gc.collect()
+    torch.cuda.empty_cache()
+    left_mib = torch.cuda.memory_allocated() / 2**20
+    run = _lm_run_config(mode, proj_kind, steps)
+    pipe = PipelineConfig(seed=0, global_batch=LM_BATCH, seq_len=LM_SEQ,
+                          vocab=cfg.vocab_size)
+    state = init_train_state(0, cfg, run, device=dev)
+    step = make_train_step(cfg, run)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    losses, skipped, stamps = [], [], [time.perf_counter()]
+    for s in range(steps):
+        tokens, labels = host_batch(pipe, s, device=dev)
+        state, m = step(state, {"tokens": tokens, "labels": labels})
+        losses.append(float(m["loss"]))
+        skipped.append(m["skipped_total"])
+        stamps.append(time.perf_counter())
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    what = f"lm {mode} {proj_kind}"
+    kernel = "psparse_update" if proj_kind == "psparse" else "sketch_update"
+    want = {kernel: 2 * cfg.num_layers * steps}
+    if run.compression is not None:
+        want.update(csvec_insert=steps, csvec_topk=steps)
+        if run.compression.wire_dtype == "int8":
+            want["csvec_quant"] = steps
+    check_counts(what, launches, want)
+    if not all(math.isfinite(v) for v in losses) or skipped[-1]:
+        raise AssertionError(f"{what}: losses {losses}, skipped {skipped[-1]}")
+    step_ms = [(b - a) * 1e3 for a, b in zip(stamps[:-1], stamps[1:])]
+    out = dict(steps=steps, step_ms=statistics.median(step_ms[1:]),
+               step_ms_samples=step_ms, peak_mem_mib=peak,
+               allocated_before_mib=left_mib,
+               launches=launches, launches_per_step={
+                   k: v / steps for k, v in launches.items()},
+               losses=losses, loss_first5=statistics.mean(losses[:5]),
+               loss_last5=statistics.mean(losses[-5:]), skipped=skipped[-1])
+    tokens, labels = host_batch(pipe, steps, device=dev)
+    state, out["profile"] = _profile_step(state, step, {"tokens": tokens,
+                                                        "labels": labels})
+    # the share of a median step the card spends on no kernel
+    out["profile"]["idle_share"] = max(
+        0.0, 1 - out["profile"]["device_ms"] / out["step_ms"])
+    if run.compression is not None:
+        tokens, labels = host_batch(pipe, steps + 1, device=dev)
+        out["mass_check"] = _mass_check(
+            dev, cfg, run, state, step, {"tokens": tokens, "labels": labels})
+    log(f"{what}: " + json.dumps({k: v for k, v in out.items()
+                                  if k not in ("step_ms_samples", "losses")}))
+    del state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_lm_train(dev) -> dict:
+    """tinyllama-1.1b at full width: the three LM_MODES with Gaussian
+    projections for LM_STEPS steps each, then LM_PSPARSE_STEPS steps with
+    psparse projections. Without compression the loss must fall."""
+    from repro_torch.configs import get_arch
+    cfg = get_arch("tinyllama-1.1b")
+    out = {f"{mode}/gaussian": lm_run(dev, cfg, mode, "gaussian", LM_STEPS)
+           for mode in LM_MODES}
+    base = out["none/gaussian"]
+    if not base["loss_last5"] < base["loss_first5"]:
+        raise AssertionError(
+            f"lm without compression did not learn: mean loss "
+            f"{base['loss_first5']:.4f} -> {base['loss_last5']:.4f}")
+    out["none/psparse"] = lm_run(dev, cfg, "none", "psparse",
+                                 LM_PSPARSE_STEPS)
+    return out
+
+
+def phase_launcher(dev) -> dict:
+    """``python -m repro_torch.launch.train --reduced --compress
+    countsketch`` (its ``main``, on the CUDA device) for 6 steps,
+    checkpointing every 3 into a temporary directory."""
+    import tempfile
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.launch import train as train_launcher
+
+    steps, layers = 6, reduced(get_arch("tinyllama-1.1b")).num_layers
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        reset_counts()
+        state, hist = train_launcher.main([
+            "--reduced", "--compress", "countsketch", "--steps", str(steps),
+            "--ckpt-every", "3", "--ckpt-dir", ckpt_dir])
+        launches = read_counts()
+        saved = sorted(os.listdir(ckpt_dir))
+    check_counts("launcher", launches, {"sketch_update": 2 * layers * steps,
+                                        "csvec_insert": steps,
+                                        "csvec_topk": steps})
+    losses = [h["loss"] for h in hist]
+    if len(hist) != steps or state.skipped or \
+            not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"launcher: {len(hist)} steps, losses {losses}")
+    if saved != ["step_0000000003", "step_0000000006"]:
+        raise AssertionError(f"launcher checkpoints {saved}")
+    out = dict(steps=steps, losses=losses, launches=launches,
+               checkpoints=saved, device=str(state.params["embed"][
+                   "embedding"].device))
+    log("launcher: " + json.dumps(out))
+    return out
+
+
 def phase_device_vs_cpu(dev) -> dict:
     """Reduced tinyllama in f32 on the card and on the CPU, from the same
     weights, projections and monitor tree."""
@@ -707,6 +1163,7 @@ def main() -> int:
         f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
 
     kernel_rows = phase_kernels(dev)
+    kernel_rows.update(phase_cs_kernels(dev))
     serve = phase_serve(dev, get_arch("tinyllama-1.1b"), batch=8,
                         prompt_len=128, new_tokens=32, refill_len=64,
                         max_context=256)
@@ -714,22 +1171,36 @@ def main() -> int:
     mnist = phase_train_mnist(dev)
     pair = phase_monitor_pair(dev)
     train_dvc = phase_train_device_vs_cpu(dev)
+    lm = phase_lm_train(dev)
+    launcher = phase_launcher(dev)
 
     # launches on every counted run of the paths, and per path
     by_path = {"serve/gaussian": serve["launches"],
                "serve/psparse": serve["psparse_launches"],
                **{f"mnist_mlp/{k}": v["launches"] for k, v in mnist.items()},
-               **{k: v["launches"] for k, v in pair.items()}}
+               **{k: v["launches"] for k, v in pair.items()},
+               **{f"lm/{k}": v["launches"] for k, v in lm.items()},
+               "lm_launcher": launcher["launches"]}
     sources = {"sketch_update": ("src/repro_torch/csrc/sketch_update.cu",
                                  "src/repro/kernels/sketch_update.py:60",
                                  "prefill"),
                "psparse_update": ("src/repro_torch/csrc/psparse_update.cu",
                                   "src/repro/kernels/psparse_update.py:249",
-                                  "mnist_mlp")}
+                                  "mnist_mlp"),
+               "csvec_insert": ("src/repro_torch/csrc/csvec_insert.cu",
+                                "src/repro/kernels/csvec_insert.py:62",
+                                "train"),
+               "csvec_topk": ("src/repro_torch/csrc/csvec_topk.cu",
+                              "src/repro/kernels/csvec_topk.py:199",
+                              "train_k256"),
+               "csvec_quant": ("src/repro_torch/csrc/csvec_quant.cu",
+                               "src/repro/kernels/csvec_quant.py:61",
+                               "train")}
     kernels = []
     for name, (source, replaces, main_case) in sources.items():
         rows = kernel_rows[name]
-        main_row = next(r for r in rows if r["case"] == main_case)
+        main_row = next(r for r in rows
+                        if r.get("case_k", r["case"]) == main_case)
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=sum(c[name] for c in by_path.values()),
@@ -746,7 +1217,8 @@ def main() -> int:
         card=card, build_s=build_s, torch=torch.__version__,
         cuda=torch.version.cuda, kernels=kernels, serve=serve,
         device_vs_cpu=dvc, mnist_mlp=mnist, monitor_pair=pair,
-        train_device_vs_cpu=train_dvc), indent=1))
+        train_device_vs_cpu=train_dvc, lm_train=lm, lm_launcher=launcher),
+        indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -35,6 +35,9 @@ class ArchConfig:
     rope_theta: float = 10000.0
     norm_eps: float = 1e-6
     tie_embeddings: bool = False
+    # paper technique in training: sketched backprop on the dense FFN
+    # ("backprop"), monitoring-only residual nodes ("monitor"), or none
+    sketch_mode: str = "backprop"
     dtype: torch.dtype = torch.bfloat16
     param_dtype: torch.dtype = torch.float32
 

@@ -1,8 +1,11 @@
-"""Deterministic synthetic classification data (counterpart of
-``repro.data.synthetic``): K class prototypes plus Gaussian noise at the
-original input dims, linearly separable at a margin set by the noise.
-Draws come from a ``torch.Generator`` and are made on its device; the
-bits differ from ``jax.random``.
+"""Deterministic synthetic data (counterpart of ``repro.data.synthetic``).
+
+LM tokens: uniform draws with a repeated 8-token motif spliced into every
+third position, so next-token prediction has learnable structure.
+Classification: K class prototypes plus Gaussian noise at the original
+input dims, linearly separable at a margin set by the noise. Draws come
+from a ``torch.Generator`` and are made on its device; the bits differ
+from ``jax.random``.
 """
 from __future__ import annotations
 
@@ -23,3 +26,17 @@ def classification_batch(gen: torch.Generator, protos: torch.Tensor,
     x = protos[y] + noise * torch.randn((batch, protos.shape[1]),
                                         generator=gen, device=gen.device)
     return x, y
+
+
+def lm_batch(gen: torch.Generator, batch: int, seq_len: int, vocab: int):
+    """(tokens, labels), each (batch, seq_len) int64: the sequence and
+    its shift by one."""
+    dev = gen.device
+    base = torch.randint(0, vocab, (batch, seq_len + 1), generator=gen,
+                         device=dev)
+    motif = torch.randint(0, vocab, (batch, 8), generator=gen, device=dev)
+    reps = (seq_len + 1 + 7) // 8
+    pattern = motif.repeat(1, reps)[:, : seq_len + 1]
+    mix = torch.arange(seq_len + 1, device=dev) % 3 == 0
+    seq = torch.where(mix[None, :], pattern, base)
+    return seq[:, :-1], seq[:, 1:]

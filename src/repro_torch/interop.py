@@ -58,10 +58,28 @@ def mlp_params_from_jax(params: list, device="cpu") -> list[dict]:
 
 def adamw_state_from_jax(state: dict, device="cpu") -> dict:
     """An ``init_adamw``/``adamw_update`` state: moments shaped like the
-    parameters, and the step count."""
-    return {"m": mlp_params_from_jax(state["m"], device),
-            "v": mlp_params_from_jax(state["v"], device),
+    parameters (the paper MLP's list, or the LM's stacked tree, carried
+    over as ``params_from_jax`` carries the weights), and the step
+    count."""
+    conv = params_from_jax if isinstance(state["m"], dict) \
+        else mlp_params_from_jax
+    return {"m": conv(state["m"], device), "v": conv(state["v"], device),
             "count": _tensor(state["count"], device).to(torch.int32)}
+
+
+def error_feedback_from_jax(err, device="cpu"):
+    """Compression error feedback: countsketch's flat {u, v}, or top-k's
+    tree shaped like the LM parameters."""
+    if set(err) == {"u", "v"}:
+        return {k: _tensor(v, device) for k, v in err.items()}
+    return params_from_jax(err, device)
+
+
+def csvec_params_from_jax(params) -> tuple[tuple[int, ...], ...]:
+    """A reference ``CSVec.params`` (4, r) uint32 array -> the port's
+    host-integer coefficients."""
+    return tuple(tuple(int(c) for c in row)
+                 for row in np.asarray(params, dtype=np.uint32))
 
 
 def psparse_from_jax(params, num_tokens: int, k_max: int, density: float,

@@ -6,6 +6,12 @@ its plain PyTorch version (taken for CPU tensors) and a launch counter:
     psparse_update  the same update with hashed p-sparse projections,
                     reading only their support rows of A
                     (replaces src/repro/kernels/psparse_update.py)
+    csvec_insert    count-sketch insert of a flat vector into all r
+                    hash rows (replaces src/repro/kernels/csvec_insert.py)
+    csvec_topk      top-k coordinates by |median-of-r estimate|
+                    (replaces src/repro/kernels/csvec_topk.py)
+    csvec_quant     per-row int8 quantisation of the sketch table
+                    (replaces src/repro/kernels/csvec_quant.py)
 
 The package re-exports nothing: a function re-exported under its
 module's name would hide the module (``repro_torch.kernels.psparse_update``

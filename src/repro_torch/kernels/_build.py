@@ -16,12 +16,15 @@ import shutil
 import subprocess
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
+_NUM_SMS: dict[int, int] = {}
 
 
 def nvcc() -> str:
@@ -66,3 +69,14 @@ def load(name: str, bind) -> ctypes.CDLL:
         bind(lib)
         _LIBS[name] = lib
     return _LIBS[name]
+
+
+def num_sms(device) -> int:
+    """Streaming multiprocessors of a CUDA device (launch grids follow
+    it)."""
+    idx = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    if idx not in _NUM_SMS:
+        _NUM_SMS[idx] = torch.cuda.get_device_properties(
+            idx).multi_processor_count
+    return _NUM_SMS[idx]

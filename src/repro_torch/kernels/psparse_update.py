@@ -47,12 +47,13 @@ import math
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._hash import MASK32 as _MASK32
+from repro_torch.kernels._hash import mul32 as _mul32
 
 Tensor = torch.Tensor
 
 MAX_K = 64
 NAMES = ("upsilon", "omega", "phi")
-_MASK32 = 0xFFFFFFFF
 
 
 # -- hash family -------------------------------------------------------------
@@ -76,14 +77,6 @@ def psparse_hash_params(gen: torch.Generator,
     bits = torch.randint(0, 2**32, (rows, 4), generator=gen,
                          dtype=torch.int64, device=gen.device).tolist()
     return tuple((r[0] | 1, r[1], r[2] | 1, r[3]) for r in bits)
-
-
-def _mul32(a: int, u: Tensor) -> Tensor:
-    """(a * u) mod 2**32 for a uint32 ``a`` and int64 ``u`` in
-    [0, 2**32): ``a`` split into 16-bit halves keeps every product
-    under 2**48, inside int64."""
-    hi, lo = a >> 16, a & 0xFFFF
-    return (((hi * u) & 0xFFFF) << 16) + lo * u & _MASK32
 
 
 def psparse_rows(params_m, m: int, num_tokens: int,

@@ -40,9 +40,6 @@ TILE_D = 32        # d columns per block (csrc TILE_D)
 KC = 16            # projection columns per block (csrc KC)
 MIN_ROWS = 64      # fewest rows a T-split gets
 
-_NUM_SMS: dict[int, int] = {}
-
-
 def sketch_update_ref(a, x_s, y_s, z_s, ups, omg, phi, psi, beta):
     """The plain version (``repro.kernels.ref.sketch_update_ref``):
     a (T, d); x/y/z (d, k); ups/omg/phi (T, k); psi (k,)."""
@@ -103,15 +100,6 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.sketch_update_error_string.restype = ctypes.c_char_p
 
 
-def _num_sms(device: torch.device) -> int:
-    idx = device.index if device.index is not None \
-        else torch.cuda.current_device()
-    if idx not in _NUM_SMS:
-        _NUM_SMS[idx] = torch.cuda.get_device_properties(
-            idx).multi_processor_count
-    return _NUM_SMS[idx]
-
-
 def sketch_update(a, x_s, y_s, z_s, ups, omg, phi, psi, *, beta: float):
     """Fused EMA update; returns new f32 (x, y, z), each (d, k).
 
@@ -125,7 +113,7 @@ def sketch_update(a, x_s, y_s, z_s, ups, omg, phi, psi, *, beta: float):
     if a.device.type != "cuda":
         raise ValueError(f"sketch_update runs on cpu or cuda, not {a.device}")
     lib = _build.load("sketch_update", _bind)
-    splits, rows = launch_plan(T, d, k, _num_sms(a.device))
+    splits, rows = launch_plan(T, d, k, _build.num_sms(a.device))
     outs = [torch.empty((d, k), dtype=torch.float32, device=a.device)
             for _ in range(3)]
     ws = (torch.empty((splits, 3, d, k), dtype=torch.float32,

@@ -1,4 +1,4 @@
-"""GQA attention: chunked-causal (prefill/eval) + KV-cache decode
+"""GQA attention: chunked-causal (train/eval/prefill) + KV-cache decode
 (counterpart of ``repro.models.attention``).
 
 Plain PyTorch math: in the JAX package this is XLA code, not a Pallas
@@ -121,7 +121,7 @@ def attn_apply(
     cfg,
     layer_type: str,
     positions: Tensor,              # (B, S) eval/prefill; (B,) decode
-    mode: str,                      # eval | prefill | decode
+    mode: str,                      # train | eval | prefill | decode
     cache: dict | None = None,
     seq_len_ctx: int,               # context length the cache is sized for
 ) -> tuple[Tensor, dict | None]:
@@ -142,7 +142,7 @@ def attn_apply(
     qg = q.reshape(B, S, KV, G, D)
 
     new_cache = None
-    if mode in ("eval", "prefill"):
+    if mode in ("train", "eval", "prefill"):
         out = chunked_causal_attention(qg, k, v, window=window)
         if mode == "prefill":
             kc = k.transpose(1, 2)                # (B, KV, S, D)

@@ -4,8 +4,17 @@ the attention subset of ``repro.models.transformer``).
 Parameters are ``{"embed", "final_norm", "layers": [block, ...]}`` with
 one dict per layer, in layer order; the reference's scanned layout
 (``groups[i]`` stacked over G, then ``tail``) maps onto it through
-``repro_torch.interop.params_from_jax``. The layers run in a Python
-loop where the reference uses ``lax.scan``.
+``repro_torch.interop.params_from_jax``, and ``flat_paths`` gives the
+order in which the reference's ``ravel_pytree`` lays it out. The layers
+run in a Python loop where the reference uses ``lax.scan``.
+
+Training (``mode="train"``, paper Algorithm 2): with sketch mode
+"backprop", both FFN matmuls of every layer run through
+``sketches.linear.sketched_matmul``, each node's EMA triple updated on
+its activation (``ffn_in`` on the FFN input, ``ffn_h`` on the hidden
+activation) just before it is consumed, so no FFN input is stored for
+the backward. Sketch mode "monitor" updates monitoring-only "res"
+nodes on every layer's output instead.
 
 Monitoring (paper §4.6 in the serving path): with
 ``SketchSettings.serve_monitor``, every layer's residual-stream output
@@ -17,14 +26,20 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core.sketch import validate_proj_kind
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import (
     embed_apply, embed_init, mlp_apply, mlp_init, rmsnorm_apply,
     rmsnorm_init, unembed_apply,
 )
-from repro_torch.sketches import NodeTree, SketchNode, proj_triple_update
+from repro_torch.optim.flat import leaf_paths
+from repro_torch.sketches import (
+    NodeSpec, NodeTree, SketchNode, init_node_tree, proj_triple_update,
+)
+from repro_torch.sketches.linear import sketched_matmul
 
 Tensor = torch.Tensor
 ATTN_KINDS = ("full", "swa", "local", "global")
@@ -32,10 +47,61 @@ ATTN_KINDS = ("full", "swa", "local", "global")
 
 @dataclasses.dataclass(frozen=True)
 class SketchSettings:
-    """Sketch hyper-parameters of the serving monitor."""
+    """Static sketching hyper-parameters of the forward."""
+    enabled: bool = False
     beta: float = 0.95
+    k_max: int = 33                 # 2*r_max+1
+    recon_mode: str = "fast"        # faithful | fast
+    ridge: float = 1e-4             # relative ridge (core.reconstruct)
+    factored: bool = True           # low-rank weight-gradient products
+    proj_kind: str = "gaussian"     # gaussian | psparse
+    proj_density: float = 0.1       # psparse nonzero fraction p
+    # the reference's data-parallel layouts (per-node psums inside the
+    # forward, deferred increments, a pre-merged tree): ROADMAP A11
+    dp_axis: str | None = None
+    dp_defer: bool = False
+    dp_premerged: bool = False
     # monitoring-only "res" nodes update in prefill/decode (never eval)
     serve_monitor: bool = False
+
+    def __post_init__(self):
+        validate_proj_kind(self.proj_kind)
+        if self.dp_axis is not None or self.dp_defer or self.dp_premerged:
+            raise NotImplementedError(
+                "the data-parallel sketch layouts (dp_axis, dp_defer, "
+                "dp_premerged) are not ported yet: ROADMAP A11")
+
+
+def sketch_groups(cfg: ArchConfig) -> dict[str, int]:
+    """{node name: width} of the sketched activation nodes of a layer."""
+    if cfg.sketch_mode == "none":
+        return {}
+    if cfg.sketch_mode == "monitor":
+        return {"res": cfg.d_model}
+    groups = {"ffn_in": cfg.d_model}
+    if cfg.mlp_type in ("swiglu", "gelu"):
+        groups["ffn_h"] = cfg.d_ff
+    return groups
+
+
+def transformer_node_specs(cfg: ArchConfig) -> dict[str, NodeSpec]:
+    """One NodeSpec per node group, stacked over the layers."""
+    return {g: NodeSpec(width=w, layers=cfg.num_layers)
+            for g, w in sketch_groups(cfg).items()}
+
+
+def init_lm_sketch_state(gen: torch.Generator, cfg: ArchConfig,
+                         st: SketchSettings,
+                         num_tokens: int) -> NodeTree | None:
+    """The LM's NodeTree: per-group (L, w, k_max) stacked nodes, shared
+    (num_tokens, k_max) projections, full rank; None when sketching is
+    off. Drawn on the generator's device."""
+    if not st.enabled:
+        return None
+    return init_node_tree(gen, transformer_node_specs(cfg), num_tokens,
+                          st.k_max, dtype=torch.float32,
+                          proj_kind=st.proj_kind,
+                          proj_density=st.proj_density)
 
 
 def _check_ported(cfg: ArchConfig) -> None:
@@ -70,6 +136,41 @@ def init_params(gen: torch.Generator, cfg: ArchConfig) -> dict:
     }
 
 
+def num_params(cfg: ArchConfig) -> int:
+    """Parameters of ``init_params(gen, cfg)``, counted from the config
+    without allocating them."""
+    _check_ported(cfg)
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    attn_w = 2 * d * cfg.num_heads * hd + 2 * d * cfg.num_kv_heads * hd
+    mlp_w = (3 if cfg.mlp_type == "swiglu" else 2) * d * cfg.d_ff
+    embed = (1 if cfg.tie_embeddings else 2) * cfg.vocab_size * d
+    return embed + d + cfg.num_layers * (attn_w + mlp_w + 2 * d)
+
+
+def reference_leaves(params: dict, cfg: ArchConfig) -> list[list[tuple]]:
+    """The reference's parameter leaves, in the order
+    ``jax.flatten_util.ravel_pytree`` lays out its stacked tree, each as
+    the list of the port's leaf paths it holds: sorted keys ("embed",
+    "final_norm", "groups", "tail"); for pattern position i, each block
+    leaf of layers i, P+i, 2P+i, ... (a (G, ...) stacked leaf); then the
+    tail layers' leaves one by one."""
+    P, G = len(cfg.pattern), cfg.num_groups
+    layers = params["layers"]
+    out = [[("embed",) + p] for p in leaf_paths(params["embed"])]
+    out += [[("final_norm",) + p] for p in leaf_paths(params["final_norm"])]
+    for i in range(P if G else 0):
+        out += [[("layers", g * P + i) + p for g in range(G)]
+                for p in leaf_paths(layers[i])]
+    for t in range(G * P, len(layers)):
+        out += [[("layers", t) + p] for p in leaf_paths(layers[t])]
+    return out
+
+
+def flat_paths(params: dict, cfg: ArchConfig) -> list[tuple]:
+    """The port's leaf paths in the reference's flat order."""
+    return [p for leaf in reference_leaves(params, cfg) for p in leaf]
+
+
 def cast_params(params, dtype, device):
     """The same nested dict with every tensor on ``device`` in ``dtype``
     (the forward casts weights to its compute dtype at each use; a copy
@@ -91,18 +192,58 @@ def init_cache(cfg: ArchConfig, batch: int, seq_len_ctx: int,
 
 def _monitor_active(mode: str, st: SketchSettings) -> bool:
     """Whether monitoring-only sketch nodes advance in this mode."""
-    return st.serve_monitor and mode in ("prefill", "decode")
+    return mode == "train" or (st.serve_monitor
+                               and mode in ("prefill", "decode"))
 
 
-def _apply_block(kind, p, x, *, cfg, positions, mode, cache, seq_len_ctx):
-    """One decoder block. Returns (x, new_cache)."""
+def _update_triple(node: SketchNode, a: Tensor, proj, k_active,
+                   st: SketchSettings) -> SketchNode:
+    """One layer's node, updated on activation ``a`` (T, d)."""
+    xs, ys, zs = proj_triple_update(node.x, node.y, node.z, a, proj,
+                                    node.psi, st.beta, k_active)
+    return SketchNode(x=xs, y=ys, z=zs, psi=node.psi)
+
+
+def _apply_sketched_mlp(p, x, cfg, sk, proj, omega, k_active,
+                        st: SketchSettings):
+    """Dense FFN with sketched backprop on both matmuls; returns (y,
+    {"ffn_in", "ffn_h"} updated nodes of this layer)."""
+    B, S, d = x.shape
+    xf = x.reshape(B * S, d)
+    n_in = _update_triple(sk["ffn_in"], xf, proj, k_active, st)
+
+    def mm(a, w, t):
+        return sketched_matmul(a, w.to(a.dtype), t.x, t.y, t.z, omega,
+                               k_active, st.recon_mode, st.ridge, st.factored)
+
+    if cfg.mlp_type == "swiglu":
+        g = mm(xf, p["w_gate"], n_in)
+        u = mm(xf, p["w_up"], n_in)
+        h = F.silu(g.float()).to(x.dtype) * u
+    else:
+        h = F.gelu(mm(xf, p["w_up"], n_in).float(),
+                   approximate="tanh").to(x.dtype)
+    n_h = _update_triple(sk["ffn_h"], h, proj, k_active, st)
+    return mm(h, p["w_down"], n_h).reshape(B, S, d), {"ffn_in": n_in,
+                                                      "ffn_h": n_h}
+
+
+def _apply_block(kind, p, x, *, cfg, positions, mode, cache, seq_len_ctx,
+                 sk=None, proj=None, omega=None, k_active=None,
+                 st: SketchSettings = SketchSettings()):
+    """One decoder block. ``sk`` holds this layer's nodes of the
+    sketched FFN in train mode. Returns (x, new_cache, new nodes)."""
     h = rmsnorm_apply(p["norm1"], x, cfg.norm_eps)
     mix, new_cache = attn.attn_apply(
         p["attn"], h, cfg=cfg, layer_type=kind, positions=positions,
         mode=mode, cache=cache, seq_len_ctx=seq_len_ctx)
     x = x + mix
     h2 = rmsnorm_apply(p["norm2"], x, cfg.norm_eps)
-    return x + mlp_apply(p["mlp"], h2, cfg.mlp_type), new_cache
+    if sk is None:
+        return x + mlp_apply(p["mlp"], h2, cfg.mlp_type), new_cache, {}
+    y, new_sk = _apply_sketched_mlp(p["mlp"], h2, cfg, sk, proj, omega,
+                                    k_active, st)
+    return x + y, new_cache, new_sk
 
 
 def forward(
@@ -110,7 +251,7 @@ def forward(
     tokens: Tensor,                 # (B, S) int
     *,
     cfg: ArchConfig,
-    mode: str = "eval",             # eval | prefill | decode
+    mode: str = "eval",             # train | eval | prefill | decode
     positions: Tensor | None = None,
     cache: list | None = None,
     sketch_state: NodeTree | None = None,
@@ -118,13 +259,15 @@ def forward(
     logits_only_last: bool = False,
     seq_len_ctx: int | None = None,
 ) -> dict:
-    """Full decoder forward -> dict(logits, cache, sketch_state).
+    """Full decoder forward -> dict(logits, cache, aux, sketch_state).
 
     ``seq_len_ctx`` is the context length caches are sized for (decode
-    must pass it; eval and prefill default to S). Under an active
-    monitor, layer l's output (B*S, d) updates ``res`` entry l and the
-    returned tree has its step advanced; otherwise the tree comes back
-    as given.
+    must pass it; train, eval and prefill default to S). In train mode
+    the "ffn_in"/"ffn_h" nodes of a backprop tree update and feed the
+    sketched FFN; under an active monitor, layer l's output (B*S, d)
+    updates "res" entry l. Whenever nodes update, the returned tree has
+    its step advanced; otherwise it comes back as given. ``aux`` (the
+    MoE balance loss of the reference) is 0 for these dense archs.
     """
     _check_ported(cfg)
     B, S = tokens.shape
@@ -137,26 +280,35 @@ def forward(
     x = x * torch.tensor(d ** 0.5, dtype=dt, device=x.device)
     if seq_len_ctx is None:
         seq_len_ctx = S
-    monitor = (sketch_state is not None and "res" in sketch_state.nodes
-               and _monitor_active(mode, settings))
-    if monitor:
-        res = sketch_state.nodes["res"]
-        k_active = sketch_state.k_active
-        new_res = ([], [], [])
+    nodes = sketch_state.nodes if sketch_state is not None else {}
+    sketched = mode == "train" and "ffn_in" in nodes
+    monitor = "res" in nodes and _monitor_active(mode, settings)
+    proj = k_active = omega = None
+    if sketched or monitor:
+        proj, k_active = sketch_state.proj, sketch_state.k_active
+        new = {name: ([], [], []) for name in nodes}
+    if sketched:  # psparse materialises omega: once a step, not per layer
+        omega = proj["omega"]
 
     new_cache = [] if mode in ("prefill", "decode") else None
     for l, kind in enumerate(cfg.layer_types):
-        x, nc = _apply_block(
+        sk = ({name: SketchNode(x=n.x[l], y=n.y[l], z=n.z[l], psi=n.psi[l])
+               for name, n in nodes.items()} if sketched else None)
+        x, nc, new_sk = _apply_block(
             kind, params["layers"][l], x, cfg=cfg, positions=positions,
             mode=mode, cache=cache[l] if cache is not None else None,
-            seq_len_ctx=seq_len_ctx)
+            seq_len_ctx=seq_len_ctx, sk=sk, proj=proj, omega=omega,
+            k_active=k_active, st=settings)
         if new_cache is not None:
             new_cache.append(nc)
         if monitor:
-            upd = proj_triple_update(
-                res.x[l], res.y[l], res.z[l], x.reshape(B * S, d),
-                sketch_state.proj, res.psi[l], settings.beta, k_active)
-            for acc, t in zip(new_res, upd):
+            res = nodes["res"]
+            new_sk = {"res": _update_triple(
+                SketchNode(x=res.x[l], y=res.y[l], z=res.z[l],
+                           psi=res.psi[l]),
+                x.reshape(B * S, d), proj, k_active, settings)}
+        for name, node in new_sk.items():
+            for acc, t in zip(new[name], (node.x, node.y, node.z)):
                 acc.append(t)
 
     x = rmsnorm_apply(params["final_norm"], x, cfg.norm_eps)
@@ -165,10 +317,14 @@ def forward(
     logits = unembed_apply(params["embed"], x, dt)
 
     new_sketch = sketch_state
-    if monitor:  # the reference stacks "res" in layer order too
-        xs, ys, zs = (torch.stack(t) for t in new_res)
-        node = SketchNode(x=xs, y=ys, z=zs, psi=res.psi)
-        new_sketch = dataclasses.replace(
-            sketch_state, nodes=dict(sketch_state.nodes, res=node),
-            step=sketch_state.step + 1)
-    return {"logits": logits, "cache": new_cache, "sketch_state": new_sketch}
+    if sketched or monitor:  # stacked in layer order, as the reference
+        new_nodes = {
+            name: SketchNode(x=torch.stack(new[name][0]),
+                             y=torch.stack(new[name][1]),
+                             z=torch.stack(new[name][2]), psi=n.psi)
+            for name, n in nodes.items()}
+        new_sketch = dataclasses.replace(sketch_state, nodes=new_nodes,
+                                         step=sketch_state.step + 1)
+    return {"logits": logits, "cache": new_cache,
+            "aux": torch.zeros((), dtype=torch.float32, device=x.device),
+            "sketch_state": new_sketch}

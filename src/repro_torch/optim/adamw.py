@@ -1,12 +1,17 @@
-"""AdamW and SGD over a list of parameter dicts (counterpart of
-``repro.optim.adamw``). Functional, as in the reference: each update
-returns new parameters and state and changes no input.
+"""AdamW and SGD over a parameter tree (counterpart of
+``repro.optim.adamw``): the paper MLP's list of dicts or the LM's nested
+dict, walked as ``optim.flat.tree_leaves`` walks it. Functional, as in
+the reference: each update returns new parameters and state and changes
+no input.
 """
 from __future__ import annotations
 
 import dataclasses
 
 import torch
+
+from repro_torch.optim.flat import tree_leaves as _leaves
+from repro_torch.optim.flat import tree_like as _like
 
 Tensor = torch.Tensor
 
@@ -20,15 +25,6 @@ class AdamWConfig:
     weight_decay: float = 0.0
     grad_clip: float = 1.0           # global-norm clip; 0 disables
     moment_dtype: torch.dtype = torch.float32
-
-
-def _leaves(tree) -> list[Tensor]:
-    return [t for layer in tree for _, t in sorted(layer.items())]
-
-
-def _like(tree, leaves) -> list[dict]:
-    it = iter(leaves)
-    return [{k: next(it) for k, _ in sorted(layer.items())} for layer in tree]
 
 
 def init_adamw(params, cfg: AdamWConfig) -> dict:
@@ -45,18 +41,13 @@ def global_norm(tree) -> Tensor:
                           for g in _leaves(tree)))
 
 
-def clip_by_global_norm(grads, max_norm: float):
-    gn = global_norm(grads)
-    scale = torch.clamp(max_norm / torch.clamp(gn, min=1e-12), max=1.0)
-    return _like(grads, [g * scale.to(g.dtype) for g in _leaves(grads)]), gn
-
-
 def adamw_update(params, grads, state, cfg: AdamWConfig, lr_scale=1.0):
-    """Returns (new_params, new_state, metrics)."""
-    if cfg.grad_clip > 0:
-        grads, gn = clip_by_global_norm(grads, cfg.grad_clip)
-    else:
-        gn = global_norm(grads)
+    """Returns (new_params, new_state, metrics). The global-norm clip
+    scales each gradient leaf as the update reads it, so no clipped copy
+    of the gradients is held."""
+    gn = global_norm(grads)
+    scale = (torch.clamp(cfg.grad_clip / torch.clamp(gn, min=1e-12), max=1.0)
+             if cfg.grad_clip > 0 else None)
     count = state["count"] + 1
     t = count.to(torch.float32)
     b1c = 1.0 - torch.pow(torch.tensor(cfg.b1, device=t.device), t)
@@ -65,6 +56,8 @@ def adamw_update(params, grads, state, cfg: AdamWConfig, lr_scale=1.0):
     new_p, new_m, new_v = [], [], []
     for p, g, m, v in zip(_leaves(params), _leaves(grads),
                           _leaves(state["m"]), _leaves(state["v"])):
+        if scale is not None:
+            g = g * scale.to(g.dtype)
         gf = g.to(cfg.moment_dtype)
         m = cfg.b1 * m + (1 - cfg.b1) * gf
         v = cfg.b2 * v + (1 - cfg.b2) * gf * gf

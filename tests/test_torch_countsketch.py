@@ -1,0 +1,413 @@
+"""The port's count-sketch pieces against the JAX reference, on the CPU:
+hashes, the insert / top-k / quantisation plain versions (the kernels'
+CPU path) against the reference's Pallas kernels in interpret mode and
+its jnp oracles, and the compression modules.
+
+Inputs are made with numpy from a seed and fed to both packages; the
+hash coefficients are the reference's. Tolerances:
+  * buckets, signs, top-k indices and values (given the same table),
+    int8 codes, scales and dequantised tables: exact;
+  * insert: rtol 1e-6, atol 1e-6 * max|table| (f32 sums in another
+    order);
+  * quantisation residual: one ulp of the row's amax (the Pallas
+    kernel's FMA);
+  * flat compression state: u and v exact away from the sent
+    coordinates; the update exact at them (the same f32 operations).
+"""
+import dataclasses
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.countsketch import csvec as J
+from repro.kernels.csvec_insert import csvec_insert as jax_insert
+from repro.kernels.csvec_quant import csvec_quant as jax_quant
+from repro.kernels.csvec_quant import csvec_quant_ref as jax_quant_ref
+from repro.kernels.csvec_topk import csvec_topk as jax_topk
+from repro.kernels.ref import csvec_insert_ref as jax_insert_ref
+from repro.kernels.ref import csvec_topk_ref as jax_topk_ref
+from repro.optim import compression as JC
+from repro.optim import sketched_sgd as JS
+from repro_torch.countsketch import csvec as T
+from repro_torch.interop import csvec_params_from_jax
+from repro_torch.kernels import csvec_insert as KI
+from repro_torch.kernels import csvec_quant as KQ
+from repro_torch.kernels import csvec_topk as KT
+from repro_torch.optim import compression as TC
+from repro_torch.optim import sketched_sgd as TS
+
+
+def _coeffs(rows, seed, ones=False):
+    if ones:
+        p = np.full((4, rows), 0xFFFFFFFF, dtype=np.uint32)
+    else:
+        rng = np.random.default_rng(seed)
+        p = rng.integers(0, 2**32, (4, rows), dtype=np.uint64).astype(
+            np.uint32)
+        p[0] |= 1
+        p[2] |= 1
+    return p, csvec_params_from_jax(p)
+
+
+def _table(r, c, n, seed, ties=False):
+    """A table holding the sketch of a heavy-tailed vector; with ``ties``
+    small integers instead, whose medians tie at many coordinates."""
+    rng = np.random.default_rng(seed)
+    p, tp = _coeffs(r, seed + 1)
+    if ties:
+        return rng.integers(-4, 5, (r, c)).astype(np.float32), p, tp
+    vec = (rng.standard_normal(n) * rng.pareto(2.0, n)).astype(np.float32)
+    table = np.array(J.insert(J.CSVec(
+        table=jnp.zeros((r, c), jnp.float32), params=jnp.asarray(p), dim=n),
+        jnp.asarray(vec)).table)
+    return table, p, tp
+
+
+@pytest.mark.parametrize("cols", [1, 128, 2**23])
+@pytest.mark.parametrize("ones", [False, True])
+def test_hashes_bit_exact(cols, ones):
+    p, tp = _coeffs(5, cols, ones)
+    idx = np.concatenate([np.arange(5000), 2**31 + np.arange(-50, 50),
+                          2**32 - 1 - np.arange(50)]).astype(np.uint32)
+    ti = torch.from_numpy(idx.astype(np.int64))
+    np.testing.assert_array_equal(
+        T.hash_buckets(tp, cols, ti).numpy(),
+        np.asarray(J.hash_buckets(jnp.asarray(p), cols, jnp.asarray(idx))))
+    np.testing.assert_array_equal(
+        T.hash_signs(tp, ti).numpy(),
+        np.asarray(J.hash_signs(jnp.asarray(p), jnp.asarray(idx))))
+
+
+def test_hash_params_are_odd_uint32():
+    tp = T.hash_params(torch.Generator().manual_seed(3), 6)
+    assert len(tp) == 4 and all(len(row) == 6 for row in tp)
+    assert all(0 <= c < 2**32 for row in tp for c in row)
+    assert all(c & 1 for c in tp[0] + tp[2])
+    with pytest.raises(ValueError, match="power of two"):
+        T.make_csvec(torch.Generator(), 10, 3, 100)
+
+
+@pytest.mark.parametrize("r,c,n", [(5, 128, 1000), (4, 256, 3001),
+                                   (1, 1, 50), (3, 512, 70000)])
+def test_insert_matches_pallas_and_oracle(r, c, n):
+    rng = np.random.default_rng(n)
+    p, tp = _coeffs(r, n)
+    vec = rng.standard_normal(n).astype(np.float32)
+    table = rng.standard_normal((r, c)).astype(np.float32)  # adds onto it
+    got = KI.csvec_insert(torch.from_numpy(table), tp, torch.from_numpy(vec))
+    chunked = KI.csvec_insert_ref(torch.from_numpy(table), tp,
+                                  torch.from_numpy(vec), chunk=97)
+    for want in (jax_insert(jnp.asarray(table), jnp.asarray(p),
+                            jnp.asarray(vec), interpret=True),
+                 jax_insert_ref(jnp.asarray(table), jnp.asarray(p),
+                                jnp.asarray(vec))):
+        want = np.asarray(want)
+        for g in (got, chunked):
+            np.testing.assert_allclose(g.numpy(), want, rtol=1e-6,
+                                       atol=1e-6 * np.abs(want).max())
+    torch.testing.assert_close(got, chunked, rtol=0, atol=0)
+
+
+def test_insert_at_and_merge_match_reference():
+    r, c, n = 3, 64, 400
+    rng = np.random.default_rng(7)
+    p, tp = _coeffs(r, 7)
+    idx = rng.choice(n, 50, replace=False).astype(np.int32)
+    vals = rng.standard_normal(50).astype(np.float32)
+    zero = T.CSVec(table=torch.zeros(r, c), params=tp, dim=n)
+    jzero = J.CSVec(table=jnp.zeros((r, c)), params=jnp.asarray(p), dim=n)
+    got = T.insert_at(zero, torch.from_numpy(idx.astype(np.int64)),
+                      torch.from_numpy(vals))
+    want = J.insert_at(jzero, jnp.asarray(idx), jnp.asarray(vals))
+    np.testing.assert_allclose(got.table.numpy(), np.asarray(want.table),
+                               rtol=1e-6, atol=1e-6)
+    merged = T.merge(got, got)
+    np.testing.assert_array_equal(merged.table.numpy(),
+                                  2 * got.table.numpy())
+    with pytest.raises(ValueError, match="mismatched"):
+        T.merge(got, dataclasses.replace(got, dim=n + 1))
+
+
+@pytest.mark.parametrize("r", [4, 5])
+def test_query_and_unsketch_match_reference(r):
+    n = 900
+    table, p, tp = _table(r, 128, n, seed=r)
+    cs = T.CSVec(table=torch.from_numpy(table), params=tp, dim=n)
+    jcs = J.CSVec(table=jnp.asarray(table), params=jnp.asarray(p), dim=n)
+    np.testing.assert_array_equal(T.query_all(cs).numpy(),
+                                  np.asarray(J.query_all(jcs)))
+    np.testing.assert_array_equal(T.unsketch(cs, 17).numpy(),
+                                  np.asarray(J.unsketch(jcs, 17)))
+
+
+def test_even_r_median_is_the_midpoint_not_the_lower_middle():
+    est = torch.tensor([[1.0, -4.0], [3.0, 2.0], [2.0, 0.0], [7.0, 1.0]])
+    np.testing.assert_array_equal(T.median_rows(est).numpy(), [2.5, 0.5])
+    assert float(torch.median(est[:, 0])) == 2.0      # lower middle
+
+
+def _check_topk(r, k, chunk, n, ties, wants):
+    table, p, tp = _table(r, 128, n, seed=10 + r, ties=ties)
+    vals, idx = KT.csvec_topk_ref(torch.from_numpy(table), tp, n, k, chunk)
+    for a, b in zip(KT.csvec_topk(torch.from_numpy(table), tp, n, k),
+                    (vals, idx)):
+        assert torch.equal(a, b)        # the wrapper: one plain chunk
+    assert idx.dtype == torch.int64 and len(idx) == min(k, n)
+    jt, jp = jnp.asarray(table), jnp.asarray(p)
+    for wv, wi in wants(jt, jp):
+        np.testing.assert_array_equal(idx.numpy(), np.asarray(wi))
+        np.testing.assert_array_equal(vals.numpy(), np.asarray(wv))
+    mags = np.abs(vals.numpy())
+    if ties:
+        assert len(set(mags.tolist())) < len(mags)     # ties were selected
+
+
+@pytest.mark.parametrize("r", [4, 5])
+@pytest.mark.parametrize("k,chunk,ties", [(5, 256, False), (64, 16384, True),
+                                          (300, 100, True),
+                                          (1000, 128, False)])
+def test_topk_matches_oracles(r, k, chunk, ties):
+    """Exact indices and values against the reference's dense oracle and
+    its streaming top-k, ties and even r included; k > chunk exercises
+    the plain version's concatenate-and-sort merge."""
+    n = 1000
+    _check_topk(r, k, chunk, n, ties, lambda jt, jp: [
+        jax_topk_ref(jt, jp, n, k),
+        J.topk_streaming(J.CSVec(table=jt, params=jp, dim=n), k,
+                         chunk=chunk)])
+
+
+@pytest.mark.parametrize("r", [4, 5])
+def test_topk_matches_pallas_interpret(r):
+    n, k = 600, 40
+    _check_topk(r, k, 97, n, True, lambda jt, jp: [
+        jax_topk(jt, jp, dim=n, k=k, chunk=256, interpret=True)])
+
+
+def test_topk_ties_break_to_the_smaller_index():
+    table = np.ones((1, 2), np.float32)
+    p = np.array([[1], [0], [1], [0]], np.uint32)  # bucket 0, sign +
+    _, idx = KT.csvec_topk_ref(torch.from_numpy(table),
+                               csvec_params_from_jax(p), 40, 7, chunk=8)
+    np.testing.assert_array_equal(idx.numpy(), np.arange(7))
+
+
+@pytest.mark.parametrize("c", [128, 4096])
+def test_quant_matches_oracle_and_pallas(c):
+    """q, scale and dhat equal the reference's jnp oracle bit for bit
+    (IEEE division by 127); resid is within one ulp of the row's amax.
+    The reference's Pallas kernel, in interpret mode, takes scale as
+    amax times the reciprocal of 127, one ulp off the oracle on some
+    rows (ROADMAP C): on the rows where their scales agree, the port
+    equals the kernel too."""
+    rng = np.random.default_rng(c)
+    table = (rng.standard_normal((5, c))
+             * rng.uniform(0.01, 100, (5, 1))).astype(np.float32)
+    table[2] = 0.0                                  # all-zero row
+    table[3, :4] = [127.5, -127.5, 0.5, -0.5]       # ties at .5
+    q, scale, dhat, resid = KQ.csvec_quant(torch.from_numpy(table))
+    assert q.dtype == torch.int8 and float(scale[2]) == 0.0
+    assert not bool(q[2].any())
+    ulp = np.spacing(np.abs(table).max(1, keepdims=True))
+    wq, ws, wd, wr = (np.asarray(w)
+                      for w in jax_quant_ref(jnp.asarray(table)))
+    np.testing.assert_array_equal(q.numpy(), wq)
+    np.testing.assert_array_equal(scale.numpy(), ws)
+    np.testing.assert_array_equal(dhat.numpy(), wd)
+    assert np.all(np.abs(resid.numpy() - wr) <= ulp)
+    np.testing.assert_array_equal((dhat + resid).numpy(), table)
+    kq, ks, kd, kr = (np.asarray(w) for w in jax_quant(jnp.asarray(table),
+                                                       interpret=True))
+    np.testing.assert_allclose(ks, ws, rtol=2**-23, atol=0)
+    same = ks == ws
+    np.testing.assert_array_equal(q.numpy()[same], kq[same])
+    np.testing.assert_array_equal(dhat.numpy()[same], kd[same])
+    assert np.all(np.abs(resid.numpy() - kr)[same] <= ulp[same])
+
+
+def test_quantize_rows_matches_reference():
+    x = np.random.default_rng(0).standard_normal((3, 4, 9)).astype(
+        np.float32)
+    q, s = T.quantize_rows(torch.from_numpy(x))
+    wq, ws = J.quantize_rows(jnp.asarray(x))
+    np.testing.assert_array_equal(q.numpy(), np.asarray(wq))
+    np.testing.assert_array_equal(s.numpy(), np.asarray(ws))
+    np.testing.assert_array_equal(T.dequantize_rows(q, s).numpy(),
+                                  np.asarray(J.dequantize_rows(wq, ws)))
+    cs = T.CSVec(table=torch.zeros(5, 64), params=((1,) * 5,) * 4, dim=9)
+    jcs = J.CSVec(table=jnp.zeros((5, 64)), params=jnp.ones((4, 5),
+                                                            jnp.uint32), dim=9)
+    assert T.table_bytes(cs) == J.table_bytes(jcs)
+    assert T.quantized_table_bytes(cs) == J.quantized_table_bytes(jcs)
+
+
+def test_cpu_wrappers_count_no_launch():
+    table, _, tp = _table(3, 128, 300, seed=1)
+    t = torch.from_numpy(table)
+    before = (KI.csvec_insert.launches, KT.csvec_topk.launches,
+              KQ.csvec_quant.launches)
+    KI.csvec_insert(t, tp, torch.zeros(300))
+    KT.csvec_topk(t, tp, 300, 5)
+    KQ.csvec_quant(t)
+    assert (KI.csvec_insert.launches, KT.csvec_topk.launches,
+            KQ.csvec_quant.launches) == before
+
+
+def test_wrappers_reject_what_the_kernels_cannot_take():
+    t = torch.zeros(3, 128)
+    _, tp = _coeffs(3, 0)
+    with pytest.raises(ValueError, match="power of two"):
+        KI.csvec_insert(torch.zeros(3, 100), tp, torch.zeros(4))
+    with pytest.raises(ValueError, match="r=9"):
+        KQ.csvec_quant(torch.zeros(9, 128))
+    with pytest.raises(ValueError, match="params"):
+        KI.csvec_insert(t, _coeffs(2, 0)[1], torch.zeros(4))
+    with pytest.raises(ValueError, match="float32"):
+        KI.csvec_insert(t, tp, torch.zeros(4, dtype=torch.float64))
+    with pytest.raises(ValueError, match="int32"):
+        KI._check(t.to("meta"), tp, torch.empty(2**31, device="meta"))
+    with pytest.raises(ValueError, match="k=1025"):
+        KT.csvec_topk(t, tp, 5000, 1025)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("r,c,n,k", [(5, 128, 1000, 300), (4, 128, 1000, 7),
+                                     (5, 2**16, 3_000_000, 512)])
+def test_cuda_kernels_match_plain_versions(r, c, n, k):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(n)
+    _, tp = _coeffs(r, n)
+    vec = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(dev)
+    table = torch.zeros(r, c, device=dev)
+    got = KI.csvec_insert(table, tp, vec)
+    want = KI.csvec_insert_ref(table, tp, vec)
+    torch.testing.assert_close(got, want, rtol=1e-5,
+                               atol=1e-5 * float(want.abs().max()))
+    for g, w in zip(KT.csvec_topk(want, tp, n, k),
+                    KT.csvec_topk_ref(want, tp, n, k)):
+        assert torch.equal(g, w)
+    for g, w in zip(KQ.csvec_quant(want)[:3], KQ.csvec_quant_ref(want)[:3]):
+        assert torch.equal(g, w)
+
+
+# -- compression -------------------------------------------------------------
+
+
+def test_compression_config_and_resolve_match_reference():
+    for kw in (dict(mode="bad"), dict(wire_dtype="fp16"),
+               dict(mode="countsketch", cs_cols=100),
+               dict(mode="countsketch", cs_rows=0),
+               dict(mode="countsketch", cs_target_ratio=1.0)):
+        with pytest.raises(ValueError):
+            JC.CompressionConfig(**kw)
+        with pytest.raises(ValueError):
+            TC.CompressionConfig(**kw)
+    cfg = dict(mode="countsketch")
+    for dim in (1_000_000, 1_100_048_384):
+        assert TC.resolve_countsketch(TC.CompressionConfig(**cfg),
+                                      dim).cs_cols == \
+            JC.resolve_countsketch(JC.CompressionConfig(**cfg), dim).cs_cols
+    assert TC.resolve_countsketch(TC.CompressionConfig(**cfg),
+                                  1_100_048_384).cs_cols == 2**23
+    for kw, dim in ((dict(cs_cols=2048), 5000),
+                    (dict(cs_cols=128, cs_k=6000), 5000)):
+        with pytest.raises(ValueError, match="invalid countsketch|exceeds"):
+            TC.resolve_countsketch(TC.CompressionConfig(mode="countsketch",
+                                                        **kw), dim,
+                                   strict=True)
+    with pytest.raises(ValueError, match="cannot auto-size"):
+        TC.resolve_countsketch(TC.CompressionConfig(**cfg), 1000)
+    for kw in (dict(mode="topk", int8=False), dict(mode="countsketch",
+               cs_cols=1024, cs_p2=2, wire_dtype="int8"),
+               dict(mode="countsketch", cs_cols=1024)):
+        assert TC.compressed_bytes(50_000, TC.CompressionConfig(**kw)) == \
+            JC.compressed_bytes(50_000, JC.CompressionConfig(**kw))
+        assert TS.countsketch_wire_bytes(TC.CompressionConfig(**kw),
+                                         50_000) == \
+            JS.countsketch_wire_bytes(JC.CompressionConfig(**kw), 50_000)
+
+
+def _grad_trees(seed):
+    rng = np.random.default_rng(seed)
+    shapes = {"a": (30, 20), "b": {"c": (50,), "d": (7, 3, 11)}}
+
+    def make(s):
+        if isinstance(s, dict):
+            return {k: make(v) for k, v in s.items()}
+        return (rng.standard_normal(s) * rng.pareto(3.0, s)).astype(
+            np.float32)
+    g = make(shapes)
+
+    def conv(t, fn):
+        return {k: conv(v, fn) if isinstance(v, dict) else fn(v)
+                for k, v in t.items()}
+    return conv(g, jnp.asarray), conv(g, torch.from_numpy)
+
+
+def test_topk_compression_matches_reference():
+    jg, tg = _grad_trees(3)
+    for int8 in (True, False):
+        jcfg = JC.CompressionConfig(mode="topk", topk_frac=0.1, int8=int8)
+        tcfg = TC.CompressionConfig(mode="topk", topk_frac=0.1, int8=int8)
+        jerr = JC.init_error_feedback(jg, jcfg)
+        terr = TC.init_error_feedback(tg, tcfg)
+        for _ in range(3):
+            jc, jerr, js = JC.compress_grads(jg, jerr, jcfg)
+            tc, terr, ts = TC.compress_grads(tg, terr, tcfg)
+            assert ts == pytest.approx(js)
+            for a, b in ((tc, jc), (terr, jerr)):
+                np.testing.assert_array_equal(
+                    a["b"]["d"].numpy(), np.asarray(b["b"]["d"]))
+                np.testing.assert_array_equal(a["a"].numpy(),
+                                              np.asarray(b["a"]))
+
+
+@pytest.mark.parametrize("p2,wire", [(0, "fp32"), (2, "int8"), (3, "fp32")])
+def test_countsketch_compression_matches_reference(p2, wire):
+    """Three steps on one tree: the sent coordinates equal the
+    reference's, u and v and the update agree, and v_new + update ==
+    v_pre exactly away from the sent coordinates."""
+    kw = dict(mode="countsketch", cs_rows=5, cs_cols=128, cs_k=40,
+              cs_p2=p2, wire_dtype=wire)
+    # the reference sweeps its top-k in chunks of 300 coordinates, the
+    # port in one plain chunk (csvec.PLAIN_CHUNK): the result is the same
+    jcfg = JC.CompressionConfig(cs_chunk=300, **kw)
+    tcfg = TC.CompressionConfig(**kw)
+    jg, tg = _grad_trees(11)
+    dim = JS.flat_dim(jg)
+    tp = csvec_params_from_jax(JS.grad_csvec(jcfg, dim).params)
+    jerr = JC.init_error_feedback(jg, jcfg)
+    terr = TC.init_error_feedback(tg, tcfg)
+    for _ in range(3):
+        v_pre = (terr["v"] + (terr["u"] * 0.9 + TS.FlatLayout(tg).ravel(tg)))
+        jc, jerr, jst = JS.compress_grads_countsketch(jg, jerr, jcfg)
+        tc, terr, tst = TS.compress_grads_countsketch(tg, terr, tcfg,
+                                                      params=tp)
+        assert tst == jst
+        upd = TS.FlatLayout(tc).ravel(tc)
+        sent = upd != 0
+        from jax.flatten_util import ravel_pytree
+        jupd = np.asarray(ravel_pytree(jc)[0])
+        np.testing.assert_array_equal(sent.numpy(), jupd != 0)
+        assert int(sent.sum()) == min(40, dim)
+        np.testing.assert_allclose(upd.numpy(), jupd, rtol=1e-6, atol=1e-7)
+        for key in ("u", "v"):
+            np.testing.assert_allclose(terr[key].numpy(),
+                                       np.asarray(jerr[key]),
+                                       rtol=1e-6, atol=1e-7)
+        assert bool((terr["u"][sent] == 0).all())
+        assert torch.equal((terr["v"] + upd)[~sent], v_pre[~sent])
+        torch.testing.assert_close((terr["v"] + upd)[sent], v_pre[sent],
+                                   rtol=1e-6, atol=1e-6)
+
+
+def test_data_parallel_axis_names_its_roadmap_item():
+    _, tg = _grad_trees(0)
+    cfg = TC.CompressionConfig(mode="countsketch", cs_cols=128)
+    with pytest.raises(NotImplementedError, match="A11"):
+        TS.compress_grads_countsketch(tg, TC.init_error_feedback(tg, cfg),
+                                      cfg, axis_name="data")

@@ -33,6 +33,13 @@ def test_port_loads_without_jax():
         "import repro_torch.train.paper_trainer, repro_torch.sketches.linear\n"
         "import repro_torch.core.reconstruct, repro_torch.core.adaptive\n"
         "import repro_torch.optim.adamw, repro_torch.data.synthetic\n"
+        "import repro_torch.countsketch, repro_torch.kernels.csvec_insert\n"
+        "import repro_torch.kernels.csvec_topk, repro_torch.kernels.csvec_quant\n"
+        "import repro_torch.optim.compression, repro_torch.optim.sketched_sgd\n"
+        "import repro_torch.optim.schedule, repro_torch.data.pipeline\n"
+        "import repro_torch.train.state, repro_torch.train.step\n"
+        "import repro_torch.train.loop, repro_torch.launch.train\n"
+        "import repro_torch.checkpoint.checkpointer\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
         "assert not any(m == 'repro' or m.startswith('repro.')\n"
         "               for m in sys.modules), 'repro was imported'\n")
