@@ -21,13 +21,27 @@ nvcc and nvidia-smi. Phases, each of which raises on failure:
    precomputed buckets and signed values, ``csvec_topk`` exact (indices
    and values) beside ``torch.topk`` of a precomputed |estimate|,
    ``csvec_quant`` exact in q, scale and dhat and within one ulp of the
-   row's amax in resid (no single library call computes it);
+   row's amax in resid (no single library call computes it); the flash
+   attention forward (o, lse) and backward (dq, dk, dv) at FLASH_CASES
+   beside ``scaled_dot_product_attention`` and its gradient (f32, and
+   lse in both types, within rtol 1e-4, atol 1e-4 * max|plain|; bf16 o,
+   dq, dk and dv within rtol and atol 1e-2 * max|plain|: both sides
+   compute in f32 from the same bf16 inputs and round once to bf16, so
+   the sums' order moves a value by at most one bf16 ulp, 2^-7 of it;
+   every head_dim runs in f32 too, over several 64-row tiles); then the bytes autograd keeps for one
+   attention call at tinyllama-1.1b's context (B 4, S 2048) through the
+   plain version and through the kernel, which must keep q, k, v, o and
+   lse and nothing of size S x S;
 3. serving: ``ServeEngine(monitor=True)`` on tinyllama-1.1b at full width
    with random weights (8 prompts of 128 tokens, 32 new tokens, then one
    refill of a 64-token prompt); tokens must equal the unmonitored
    engine's, sketches and logits must be finite; prefill is timed on both
    engines, alternating, median of five. Then the same serve with psparse
-   monitor projections (``monitor_proj_kind="psparse"``), tokens equal;
+   monitor projections (``monitor_proj_kind="psparse"``), tokens equal.
+   The same on gemma3-27b at full width cut to one pattern period (6
+   layers: 5 local with a 1024-token window, 1 global): 2 prompts of
+   2048 tokens, 16 new tokens, a refill of 1100 tokens, max_context 2304,
+   so the local layers' caches are rings and their attention skips tiles;
 4. the serving engine on reduced tinyllama in f32 on the card and on the
    CPU, from the same weights and monitor state: equal tokens, and logits
    and sketches within rtol 1e-4, atol 1e-4;
@@ -41,7 +55,11 @@ nvcc and nvidia-smi. Phases, each of which raises on failure:
 6. a reduced MLP in f32: one sketched_fixed step (gradients, new tree)
    and the reconstruction of a node, on the card and on the CPU, with
    each projection kind (tree within 1e-4; gradients and reconstruction
-   factors within 1e-3, as the k x k solves amplify rounding);
+   factors within 1e-3, as the k x k solves amplify rounding); then one
+   LM train step (plain backprop, f32) of reduced tinyllama at S 80 (not
+   a multiple of the attention kernels' 64-row tiles) and of reduced
+   gemma3 at S 80 (past its 32-token window), card against CPU: loss and
+   gradients within 1e-4 * max|CPU|;
 7. LM training: tinyllama-1.1b at full width (f32 parameters, bf16
    compute), B=8 x S=128 synthetic batches, sketched backprop on both
    FFN matmuls of all 22 layers (k_max 17), AdamW with warmup-cosine,
@@ -51,21 +69,25 @@ nvcc and nvidia-smi. Phases, each of which raises on failure:
    finite, no skipped step, (a) learns (mean of the last 5 losses below
    the first 5's; (b) and (c) send 256 of 1.1e9 coordinates a step, so
    learning is not asked of them). After each run one more step under
-   torch.profiler (device time by kernel); after (b) and (c), one more
-   step's gradients: v_new + update == v_pre exactly away from the sent
-   coordinates (rtol 1e-6 at them), and the insert kernel against its
-   plain version on that step's v_pre;
+   torch.profiler (device time by kernel, the attention kernels' share);
+   after (b) and (c), one more step's gradients: v_new + update == v_pre
+   exactly away from the sent coordinates (rtol 1e-6 at them), and the
+   insert kernel against its plain version on that step's v_pre. Then
+   (a) for 3 steps at tinyllama's own context, B=4 x S=2048: losses
+   finite, no skip, peak memory under 80 GB;
 8. the LM launcher (``python -m repro_torch.launch.train --reduced
    --compress countsketch``'s ``main``) for 6 steps, checkpointing into
    a temporary directory that is removed afterwards;
 9. print ``{"kernels": [...]}``, the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 
-Every run of a path (3, 5, 7, 8) sets the kernels' launch counts to 0
-just before it and checks them just after: each monitored token step or
-train step launches one update kernel per sketched node, the projection
-kind's; each compressed LM step one insert and one top-k, and one quant
-with the int8 table.
+Every run of a path (3, 5, 6's LM step, 7, 8) sets the kernels' launch
+counts to 0 just before it and checks them just after: each monitored
+token step or train step launches one update kernel per sketched node,
+the projection kind's; each compressed LM step one insert and one top-k,
+and one quant with the int8 table; each prefill, refill and train step
+one flash forward a layer, each train step one flash backward a layer,
+a decode step none.
 
 Exits non-zero, printing no result, without a CUDA device or without the
 repository's sources beside it. Measurements also go to
@@ -74,6 +96,7 @@ repository's sources beside it. Measurements also go to
 from __future__ import annotations
 
 import concurrent.futures
+import dataclasses
 import json
 import math
 import os
@@ -123,8 +146,9 @@ PSPARSE_CASES = [
     ("lm_ffn_h", 1024, 5632, 17, "bfloat16"),
 ]
 DENSITY = 0.1
+# the CUDA sources, one nvcc each
 KERNELS = ("sketch_update", "psparse_update", "csvec_insert", "csvec_topk",
-           "csvec_quant")
+           "csvec_quant", "flash_attention")
 # the count-sketch kernels: (label, r, c, n, ks). "train" is the LM train
 # step's geometry: tinyllama-1.1b's flat dimension, the table that
 # resolve_countsketch sizes for it (5 x 2^23), cs_k 256 and 2 x 256 p2
@@ -135,8 +159,32 @@ CS_CASES = [
     ("even_r", 4, 128, 1000, (64,)),
 ]
 
+# flash attention: (label, B, Hq, Hkv, S, D, window, dtype). tinyllama's
+# train step (B 8 x S 128) and its own context (B 4 x S 2048), gemma3's
+# local (window 1024) and global layers at B 2 x S 2048, granite-34b's
+# MQA and stablelm-12b's head_dim 160 at S 512, the reduced configs'
+# f32 head_dim 16 at a ragged S and past a 32-token window, and head_dim
+# 64, 128 and 160 in f32 over several tiles, held at 1e-4
+FLASH_CASES = [
+    ("train_s128", 8, 32, 4, 128, 64, None, "bfloat16"),
+    ("tinyllama_ctx", 4, 32, 4, 2048, 64, None, "bfloat16"),
+    ("gemma3_local", 2, 32, 16, 2048, 128, 1024, "bfloat16"),
+    ("gemma3_global", 2, 32, 16, 2048, 128, None, "bfloat16"),
+    ("granite_mqa", 2, 48, 1, 512, 128, None, "bfloat16"),
+    ("stablelm_d160", 2, 32, 8, 512, 160, None, "bfloat16"),
+    ("reduced_ragged", 2, 4, 2, 37, 16, None, "float32"),
+    ("reduced_window", 2, 4, 2, 80, 16, 32, "float32"),
+    ("f32_d64", 2, 8, 2, 300, 64, None, "float32"),
+    ("f32_d128_window", 1, 8, 2, 300, 128, 100, "float32"),
+    ("f32_d160", 1, 4, 2, 200, 160, None, "float32"),
+]
+FLASH_BF16_TOL = 1e-2       # bf16 o, dq, dk, dv (one bf16 ulp is 2^-7)
+
 # the LM trainer: tinyllama-1.1b at full width, as launch/train.py runs it
 LM_BATCH, LM_SEQ, LM_STEPS, LM_PSPARSE_STEPS = 8, 128, 20, 3
+# and at its own context (arXiv:2401.02385 trains at 2048 tokens)
+LM_CTX_BATCH, LM_CTX_SEQ, LM_CTX_STEPS = 4, 2048, 3
+PEAK_LIMIT_BYTES = 80e9
 LM_MODES = {"none": None,
             "countsketch_fp32": dict(mode="countsketch"),
             "countsketch_int8_p2": dict(mode="countsketch", cs_p2=2,
@@ -488,15 +536,191 @@ def phase_cs_kernels(dev) -> dict[str, list[dict]]:
     return rows
 
 
+def flash_pairs(S: int, window: int | None) -> int:
+    """Live (query, key) pairs of one causal head: sum_i min(i + 1, w)."""
+    w = S if window is None else min(window, S)
+    return w * (w + 1) // 2 + (S - w) * w
+
+
+def flash_bound(B, Hq, Hkv, S, D, window, elem: int, backward: bool):
+    """(bound_ms, bound_by): 4 D operations a live pair forward, 10 D
+    backward, at the bf16 tensor-core rate for bf16 and the f32 rate for
+    f32; bytes of q, k, v, o, lse (and do, dq, dk, dv backward) once."""
+    flops = (10 if backward else 4) * D * flash_pairs(S, window) * B * Hq
+    q_bytes, kv_bytes = B * Hq * S * D * elem, B * Hkv * S * D * elem
+    lse_bytes = B * Hq * S * 4
+    nbytes = (4 * q_bytes + 4 * kv_bytes if backward
+              else 2 * q_bytes + 2 * kv_bytes) + lse_bytes
+    rate = PEAK_BF16_FLOP_S if elem == 2 else PEAK_F32_FLOP_S
+    t_b, t_o = nbytes / PEAK_BYTES_S, flops / rate
+    return (t_b * 1e3, "bytes") if t_b >= t_o else (t_o * 1e3, "operations")
+
+
+def _sdpa(q, k, v, window):
+    """The library yardstick: one scaled_dot_product_attention call (a
+    boolean mask for a window, which takes SDPA off its flash backend)."""
+    import torch
+    import torch.nn.functional as F
+    if window is None:
+        return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                              enable_gqa=True)
+    S = q.shape[2]
+    pos = torch.arange(S, device=q.device)
+    rel = pos[:, None] - pos[None, :]
+    return F.scaled_dot_product_attention(
+        q, k, v, attn_mask=(rel >= 0) & (rel < window), enable_gqa=True)
+
+
+def _flash_check(what: str, got, want, bf16: bool) -> float:
+    """Hold ``got`` against ``want``; returns the max abs error."""
+    import torch
+    scale = float(want.float().abs().max())
+    if not bf16 or got.dtype == torch.float32:
+        rtol, atol = TOL, TOL * scale
+    else:
+        rtol, atol = FLASH_BF16_TOL, FLASH_BF16_TOL * scale
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=atol, msg=lambda m: f"{what}: {m}")
+    return float((got.float() - want.float()).abs().max())
+
+
+def phase_flash(dev) -> dict[str, list[dict]]:
+    """The flash forward and backward at each FLASH_CASES shape against
+    their plain versions (the backward's given the kernel's o and lse),
+    then timed beside their bounds, the plain versions and SDPA (its
+    gradient through torch.autograd.grad for the backward). Inputs lie
+    as the model's do: (B, S, H, D) storage read as (B, H, S, D)."""
+    import torch
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd, flash_attention_bwd_plain, flash_attention_fwd,
+        flash_attention_plain,
+    )
+    gen = torch.Generator(device=dev).manual_seed(3)
+    rows = {"flash_attention": [], "flash_attention_bwd": []}
+    for label, B, Hq, Hkv, S, D, window, dt in FLASH_CASES:
+        dtype = getattr(torch, dt)
+        bf16 = dtype == torch.bfloat16
+
+        def rand(H):
+            return torch.randn((B, S, H, D), generator=gen, device=dev).to(
+                dtype).transpose(1, 2)
+
+        q, k, v, do = rand(Hq), rand(Hkv), rand(Hkv), rand(Hq)
+        kw = dict(window=window)
+        o, lse = flash_attention_fwd(q, k, v, **kw)
+        o_p, lse_p = flash_attention_plain(q, k, v, **kw)
+        grads = flash_attention_bwd(q, k, v, o, lse, do, **kw)
+        grads_p = flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
+        torch.cuda.synchronize()
+        what = f"flash {label}"
+        fwd_err = max(_flash_check(f"{what} o", o, o_p, bf16),
+                      _flash_check(f"{what} lse", lse, lse_p, bf16))
+        bwd_err = max(_flash_check(f"{what} {n}", g, w, bf16)
+                      for n, g, w in zip(("dq", "dk", "dv"), grads, grads_p))
+        lib_err = float((_sdpa(q, k, v, window).float() - o_p.float())
+                        .abs().max())
+        del o_p, lse_p, grads, grads_p
+        big = S >= 1024
+        it, plain_it = (20, 3) if big else (200, 20)
+        case = dict(case=label, B=B, Hq=Hq, Hkv=Hkv, S=S, D=D, window=window,
+                    dtype=dt, live_pairs_a_head=flash_pairs(S, window))
+        timed = {}
+        timed["fwd"] = time_ms(lambda: flash_attention_fwd(q, k, v, **kw),
+                               it, 3)
+        timed["fwd_plain"] = time_ms(
+            lambda: flash_attention_plain(q, k, v, **kw), plain_it, 1)
+        timed["fwd_lib"] = time_ms(lambda: _sdpa(q, k, v, window), it, 3)
+        timed["bwd"] = time_ms(
+            lambda: flash_attention_bwd(q, k, v, o, lse, do, **kw), it, 3)
+        timed["bwd_plain"] = time_ms(
+            lambda: flash_attention_bwd_plain(q, k, v, o, lse, do, **kw),
+            plain_it, 1)
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        out = _sdpa(*leaves, window)
+        timed["bwd_lib"] = time_ms(lambda: torch.autograd.grad(
+            out, leaves, do, retain_graph=True), it, 3)
+        del out, leaves
+        for name, pre, err, backward in (
+                ("flash_attention", "fwd", fwd_err, False),
+                ("flash_attention_bwd", "bwd", bwd_err, True)):
+            bound_ms, bound_by = flash_bound(B, Hq, Hkv, S, D, window,
+                                             q.element_size(), backward)
+            (ms, call_ms), (plain_ms, plain_call_ms), (lib_ms, lib_call_ms) \
+                = timed[pre], timed[f"{pre}_plain"], timed[f"{pre}_lib"]
+            rows[name].append(dict(
+                case, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by,
+                call_ms=call_ms, plain_call_ms=plain_call_ms,
+                library_call_ms=lib_call_ms,
+                **({} if backward else dict(library_max_abs_diff=lib_err))))
+            log(f"{name} {json.dumps(rows[name][-1])}")
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase_saved_bytes(dev, B=4, Hq=32, Hkv=4, S=2048, D=64) -> dict:
+    """The bytes autograd keeps for one attention call, by default at
+    tinyllama-1.1b's context (B 4, S 2048, 32/4 heads, D 64, bf16, the
+    model's layout): through the plain version, differentiated by
+    autograd, and through the kernels' Function, which must keep q, k, v,
+    o and lse and nothing with two dimensions of S or more."""
+    import torch
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_plain,
+    )
+    gen = torch.Generator(device=dev).manual_seed(4)
+    q, k, v = (torch.randn((B, S, H, D), generator=gen, device=dev).to(
+        torch.bfloat16).transpose(1, 2).requires_grad_(True)
+        for H in (Hq, Hkv, Hkv))
+
+    def saved(fn):
+        seen = {}
+
+        def pack(t):
+            seen[(t.data_ptr(), tuple(t.shape), t.dtype)] = (
+                tuple(t.shape), t.numel() * t.element_size())
+            # a saved output returned as-is would reference its own
+            # grad_fn: a cycle through C++ that gc cannot free
+            return t.detach()
+
+        with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+            out = fn()
+        del out
+        torch.cuda.synchronize()
+        return list(seen.values())
+
+    plain = saved(lambda: flash_attention_plain(q, k, v)[0])
+    kernel = saved(lambda: flash_attention(q, k, v))
+    torch.cuda.empty_cache()
+    want = sorted([(B, Hq, S, D), (B, Hkv, S, D), (B, Hkv, S, D),
+                   (B, Hq, S, D), (B, Hq, S)])
+    if sorted(shape for shape, _ in kernel) != want or any(
+            sum(n >= S for n in shape) > 1 for shape, _ in kernel):
+        raise AssertionError(f"the flash Function saved {kernel}")
+    out = dict(B=B, Hq=Hq, Hkv=Hkv, S=S, D=D,
+               plain_bytes=sum(n for _, n in plain),
+               plain_tensors=len(plain),
+               plain_largest=max(plain, key=lambda x: x[1]),
+               kernel_bytes=sum(n for _, n in kernel),
+               kernel_shapes=[shape for shape, _ in kernel])
+    log("saved bytes: " + json.dumps(out))
+    return out
+
+
 def _wrappers() -> dict:
     from repro_torch.kernels.csvec_insert import csvec_insert
     from repro_torch.kernels.csvec_quant import csvec_quant
     from repro_torch.kernels.csvec_topk import csvec_topk
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd, flash_attention_fwd,
+    )
     from repro_torch.kernels.psparse_update import psparse_update
     from repro_torch.kernels.sketch_update import sketch_update
     return {"sketch_update": sketch_update, "psparse_update": psparse_update,
             "csvec_insert": csvec_insert, "csvec_topk": csvec_topk,
-            "csvec_quant": csvec_quant}
+            "csvec_quant": csvec_quant,
+            "flash_attention": flash_attention_fwd,
+            "flash_attention_bwd": flash_attention_bwd}
 
 
 def reset_counts() -> None:
@@ -526,16 +750,20 @@ def _finite_tree(tree) -> bool:
 def phase_serve(dev, cfg, batch: int, prompt_len: int, new_tokens: int,
                 refill_len: int, max_context: int) -> dict:
     """The serving path: monitored serving, counted, against monitor off;
-    then the same with psparse monitor projections, counted too."""
+    then the same with psparse monitor projections, counted too. The
+    weights are cast to the compute type once, so every engine shares
+    them."""
+    import gc
     import torch
-    from repro_torch.kernels.psparse_update import psparse_update
     from repro_torch.kernels.sketch_update import sketch_update
-    from repro_torch.models.transformer import init_params
+    from repro_torch.models.transformer import cast_params, init_params
     from repro_torch.serve import ServeEngine
     from repro_torch.telemetry import TelemetryLog, read_jsonl
 
+    gc.collect()
+    torch.cuda.empty_cache()
     gen = torch.Generator(device=dev).manual_seed(0)
-    params = init_params(gen, cfg)
+    params = cast_params(init_params(gen, cfg), cfg.dtype, dev)
     prompts = torch.randint(0, cfg.vocab_size, (batch, prompt_len),
                             generator=gen, device=dev)
     refill_prompt = torch.randint(0, cfg.vocab_size, (refill_len,),
@@ -553,7 +781,7 @@ def phase_serve(dev, cfg, batch: int, prompt_len: int, new_tokens: int,
     torch.cuda.reset_peak_memory_stats()
 
     OUT_DIR.mkdir(exist_ok=True)
-    tpath = OUT_DIR / "chip_smoke_serve.jsonl"
+    tpath = OUT_DIR / f"chip_smoke_serve_{cfg.name}.jsonl"
     with TelemetryLog(str(tpath)) as tlog:
         eng = engine(True, tlog)
         reset_counts()
@@ -567,9 +795,12 @@ def phase_serve(dev, cfg, batch: int, prompt_len: int, new_tokens: int,
         tlog.append(eng.telemetry_record())
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
 
+    # an update a layer each token step (prefill, decodes, refill); a
+    # flash forward a layer each prefill and refill, none a decode
     want = cfg.num_layers * (1 + (new_tokens - 1) + 1)
-    check_counts("serve (gaussian monitor)", launches,
-                 {"sketch_update": want, "psparse_update": 0})
+    flash = {"flash_attention": 2 * cfg.num_layers}
+    check_counts(f"serve {cfg.name} (gaussian monitor)", launches,
+                 {"sketch_update": want, **flash})
     mon = eng._slots["mon"]
     if not _finite_tree(mon.tree):
         raise AssertionError("non-finite monitor sketches")
@@ -597,8 +828,8 @@ def phase_serve(dev, cfg, batch: int, prompt_len: int, new_tokens: int,
     ps_eng.refill(1, refill_prompt)
     torch.cuda.synchronize()
     ps_launches = read_counts()
-    check_counts("serve (psparse monitor)", ps_launches,
-                 {"sketch_update": 0, "psparse_update": want})
+    check_counts(f"serve {cfg.name} (psparse monitor)", ps_launches,
+                 {"psparse_update": want, **flash})
     if not _finite_tree(ps_eng._slots["mon"].tree):
         raise AssertionError("non-finite psparse monitor sketches")
     if not torch.equal(ps_toks, toks_off) or \
@@ -633,7 +864,8 @@ def phase_serve(dev, cfg, batch: int, prompt_len: int, new_tokens: int,
         launches=launches, kernel_launches=kernel_launches,
         psparse_launches=ps_launches, flags=recs[-1].flags,
         psparse_flags=ps_flags)
-    log("serve: " + json.dumps(out))
+    log(f"serve {cfg.name}: " + json.dumps(out))
+    del eng, off, ps_eng, params
     return out
 
 
@@ -815,7 +1047,6 @@ def phase_train_device_vs_cpu(dev) -> dict:
     card and on the CPU from the same weights, tree and batch, with each
     projection kind. Tree within TOL; gradients and reconstruction
     factors within RECON_TOL (rtol, and atol times max|CPU|)."""
-    import dataclasses
     import torch
     from repro_torch.configs.paper import MLPConfig
     from repro_torch.core.reconstruct import reconstruct
@@ -877,7 +1108,65 @@ def phase_train_device_vs_cpu(dev) -> dict:
     return out
 
 
-def _lm_run_config(mode: str, proj_kind: str, steps: int):
+def phase_lm_step_device_vs_cpu(dev) -> dict:
+    """One LM train step's loss and gradients in f32 with plain backprop
+    (the sketched FFN's reconstruction is phase 6's first half), on the
+    card and on the CPU from the same weights and batch: reduced
+    tinyllama at S 80, not a multiple of the attention kernels' 64-row
+    tiles, and reduced gemma3 at S 80, past its 32-token window. Within
+    TOL * max|CPU| each; the card's step counted."""
+    import torch
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.data.pipeline import PipelineConfig, host_batch
+    from repro_torch.models.transformer import SketchSettings
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.optim.flat import tree_leaves
+    from repro_torch.train.state import RunConfig, init_train_state
+    from repro_torch.train.step import make_train_step
+
+    B, S = 2, 80
+    out = {}
+    for name in ("tinyllama-1.1b", "gemma3-27b"):
+        cfg = reduced(get_arch(name))
+        run = RunConfig(seq_len=S, global_batch=B,
+                        optimizer=AdamWConfig(lr=3e-4), warmup_steps=1,
+                        total_steps=1, sketch=SketchSettings(enabled=False))
+        pipe = PipelineConfig(seed=1, global_batch=B, seq_len=S,
+                              vocab=cfg.vocab_size)
+        tokens, labels = host_batch(pipe, 0)
+        cpu = init_train_state(0, cfg, run, device="cpu")
+
+        def loss_and_grads(where):
+            state = init_train_state(0, cfg, run, device=where,
+                                     params=cpu.params)
+            reset_counts()
+            loss, _, _, grads, _ = make_train_step(cfg, run).loss_and_grads(
+                state, {"tokens": tokens.to(where),
+                        "labels": labels.to(where)})
+            torch.cuda.synchronize()
+            return ([loss.cpu()] + [g.cpu() for g in tree_leaves(grads)],
+                    read_counts())
+
+        got, launches = loss_and_grads(dev)
+        want, _ = loss_and_grads(torch.device("cpu"))
+        check_counts(f"lm step {cfg.name}", launches,
+                     {"flash_attention": cfg.num_layers,
+                      "flash_attention_bwd": cfg.num_layers})
+        err = 0.0
+        for g, w in zip(got, want):
+            scale = float(w.abs().max())
+            torch.testing.assert_close(g, w, rtol=TOL, atol=TOL * scale)
+            err = max(err, float((g - w).abs().max()) / max(scale, 1e-30))
+        out[cfg.name] = dict(S=S, window=cfg.window_size,
+                             loss=float(want[0]), max_rel_err=err,
+                             launches=launches)
+        log(f"lm step device vs cpu ({cfg.name}): " + json.dumps(
+            out[cfg.name]))
+    return out
+
+
+def _lm_run_config(mode: str, proj_kind: str, steps: int,
+                   batch: int = LM_BATCH, seq: int = LM_SEQ):
     from repro_torch.models.transformer import SketchSettings
     from repro_torch.optim.adamw import AdamWConfig
     from repro_torch.optim.compression import CompressionConfig
@@ -886,7 +1175,7 @@ def _lm_run_config(mode: str, proj_kind: str, steps: int):
     # as launch/train.py builds it: lr 3e-4, k_max 17, warmup
     # min(20, steps // 5 + 1)
     return RunConfig(
-        seq_len=LM_SEQ, global_batch=LM_BATCH,
+        seq_len=seq, global_batch=batch,
         optimizer=AdamWConfig(lr=3e-4),
         warmup_steps=min(20, steps // 5 + 1), total_steps=steps,
         sketch=SketchSettings(enabled=True, k_max=17, proj_kind=proj_kind),
@@ -961,16 +1250,20 @@ def _profile_step(state, step, batch, top: int = 15):
             rows.append((ev.key, us / 1e3, ev.count))
     rows.sort(key=lambda r: -r[1])
     device_ms = sum(r[1] for r in rows)
+    attention_ms = sum(ms for n, ms, _ in rows if "flash_" in n)
     return state, dict(wall_ms=wall_ms, device_ms=device_ms,
+                       attention_ms=attention_ms,
+                       attention_share=attention_ms / max(device_ms, 1e-9),
                        top=[dict(name=n[:120], ms=ms, calls=c)
                             for n, ms, c in rows[:top]])
 
 
-def lm_run(dev, cfg, mode: str, proj_kind: str, steps: int) -> dict:
-    """One counted, timed run of ``steps`` train steps from a fresh
-    state: per-step host time (each step ends in the loss's device
-    sync), peak memory, launches; then, with compression, the mass
-    check on one more step."""
+def lm_run(dev, cfg, mode: str, proj_kind: str, steps: int,
+           batch: int = LM_BATCH, seq: int = LM_SEQ) -> dict:
+    """One counted, timed run of ``steps`` train steps of (batch, seq)
+    from a fresh state: per-step host time (each step ends in the loss's
+    device sync), peak memory, launches; then, with compression, the
+    mass check on one more step."""
     import gc
     import torch
     from repro_torch.data.pipeline import PipelineConfig, host_batch
@@ -981,8 +1274,8 @@ def lm_run(dev, cfg, mode: str, proj_kind: str, steps: int) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     left_mib = torch.cuda.memory_allocated() / 2**20
-    run = _lm_run_config(mode, proj_kind, steps)
-    pipe = PipelineConfig(seed=0, global_batch=LM_BATCH, seq_len=LM_SEQ,
+    run = _lm_run_config(mode, proj_kind, steps, batch, seq)
+    pipe = PipelineConfig(seed=0, global_batch=batch, seq_len=seq,
                           vocab=cfg.vocab_size)
     state = init_train_state(0, cfg, run, device=dev)
     step = make_train_step(cfg, run)
@@ -998,9 +1291,11 @@ def lm_run(dev, cfg, mode: str, proj_kind: str, steps: int) -> dict:
         stamps.append(time.perf_counter())
     launches = read_counts()
     peak = torch.cuda.max_memory_allocated() / 2**20
-    what = f"lm {mode} {proj_kind}"
+    what = f"lm {mode} {proj_kind} B={batch} S={seq}"
     kernel = "psparse_update" if proj_kind == "psparse" else "sketch_update"
-    want = {kernel: 2 * cfg.num_layers * steps}
+    want = {kernel: 2 * cfg.num_layers * steps,
+            "flash_attention": cfg.num_layers * steps,
+            "flash_attention_bwd": cfg.num_layers * steps}
     if run.compression is not None:
         want.update(csvec_insert=steps, csvec_topk=steps)
         if run.compression.wire_dtype == "int8":
@@ -1009,7 +1304,8 @@ def lm_run(dev, cfg, mode: str, proj_kind: str, steps: int) -> dict:
     if not all(math.isfinite(v) for v in losses) or skipped[-1]:
         raise AssertionError(f"{what}: losses {losses}, skipped {skipped[-1]}")
     step_ms = [(b - a) * 1e3 for a, b in zip(stamps[:-1], stamps[1:])]
-    out = dict(steps=steps, step_ms=statistics.median(step_ms[1:]),
+    out = dict(batch=batch, seq=seq, steps=steps,
+               step_ms=statistics.median(step_ms[1:]),
                step_ms_samples=step_ms, peak_mem_mib=peak,
                allocated_before_mib=left_mib,
                launches=launches, launches_per_step={
@@ -1037,7 +1333,9 @@ def lm_run(dev, cfg, mode: str, proj_kind: str, steps: int) -> dict:
 def phase_lm_train(dev) -> dict:
     """tinyllama-1.1b at full width: the three LM_MODES with Gaussian
     projections for LM_STEPS steps each, then LM_PSPARSE_STEPS steps with
-    psparse projections. Without compression the loss must fall."""
+    psparse projections, then LM_CTX_STEPS steps without compression at
+    B LM_CTX_BATCH x S LM_CTX_SEQ, whose peak must stay under 80 GB.
+    Without compression the loss must fall at S LM_SEQ."""
     from repro_torch.configs import get_arch
     cfg = get_arch("tinyllama-1.1b")
     out = {f"{mode}/gaussian": lm_run(dev, cfg, mode, "gaussian", LM_STEPS)
@@ -1049,6 +1347,14 @@ def phase_lm_train(dev) -> dict:
             f"{base['loss_first5']:.4f} -> {base['loss_last5']:.4f}")
     out["none/psparse"] = lm_run(dev, cfg, "none", "psparse",
                                  LM_PSPARSE_STEPS)
+    # at the model's own context: the plain attention's S x chunk
+    # intermediates would not fit; the kernels save o and lse only
+    ctx = lm_run(dev, cfg, "none", "gaussian", LM_CTX_STEPS, LM_CTX_BATCH,
+                 LM_CTX_SEQ)
+    if ctx["peak_mem_mib"] * 2**20 >= PEAK_LIMIT_BYTES:
+        raise AssertionError(f"lm at S={LM_CTX_SEQ}: peak "
+                             f"{ctx['peak_mem_mib']:.0f} MiB over 80 GB")
+    out[f"none/gaussian/B{LM_CTX_BATCH}xS{LM_CTX_SEQ}"] = ctx
     return out
 
 
@@ -1070,7 +1376,9 @@ def phase_launcher(dev) -> dict:
         saved = sorted(os.listdir(ckpt_dir))
     check_counts("launcher", launches, {"sketch_update": 2 * layers * steps,
                                         "csvec_insert": steps,
-                                        "csvec_topk": steps})
+                                        "csvec_topk": steps,
+                                        "flash_attention": layers * steps,
+                                        "flash_attention_bwd": layers * steps})
     losses = [h["loss"] for h in hist]
     if len(hist) != steps or state.skipped or \
             not all(math.isfinite(v) for v in losses):
@@ -1164,21 +1472,34 @@ def main() -> int:
 
     kernel_rows = phase_kernels(dev)
     kernel_rows.update(phase_cs_kernels(dev))
+    kernel_rows.update(phase_flash(dev))
+    saved_bytes = phase_saved_bytes(dev)
     serve = phase_serve(dev, get_arch("tinyllama-1.1b"), batch=8,
                         prompt_len=128, new_tokens=32, refill_len=64,
                         max_context=256)
+    # gemma3-27b at full width, cut to one pattern period (5 local, 1
+    # global); prompts of twice the window
+    gemma = dataclasses.replace(get_arch("gemma3-27b"), num_layers=6)
+    serve_gemma = phase_serve(dev, gemma, batch=2, prompt_len=2048,
+                              new_tokens=16, refill_len=1100,
+                              max_context=2304)
     dvc = phase_device_vs_cpu(dev)
     mnist = phase_train_mnist(dev)
     pair = phase_monitor_pair(dev)
     train_dvc = phase_train_device_vs_cpu(dev)
+    lm_step_dvc = phase_lm_step_device_vs_cpu(dev)
     lm = phase_lm_train(dev)
     launcher = phase_launcher(dev)
 
     # launches on every counted run of the paths, and per path
     by_path = {"serve/gaussian": serve["launches"],
                "serve/psparse": serve["psparse_launches"],
+               "serve_gemma3/gaussian": serve_gemma["launches"],
+               "serve_gemma3/psparse": serve_gemma["psparse_launches"],
                **{f"mnist_mlp/{k}": v["launches"] for k, v in mnist.items()},
                **{k: v["launches"] for k, v in pair.items()},
+               **{f"lm_step_vs_cpu/{k}": v["launches"]
+                  for k, v in lm_step_dvc.items()},
                **{f"lm/{k}": v["launches"] for k, v in lm.items()},
                "lm_launcher": launcher["launches"]}
     sources = {"sketch_update": ("src/repro_torch/csrc/sketch_update.cu",
@@ -1195,7 +1516,15 @@ def main() -> int:
                               "train_k256"),
                "csvec_quant": ("src/repro_torch/csrc/csvec_quant.cu",
                                "src/repro/kernels/csvec_quant.py:61",
-                               "train")}
+                               "train"),
+               "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                                   "src/repro/kernels/flash_attention.py:81",
+                                   "tinyllama_ctx"),
+               "flash_attention_bwd": (
+                   "src/repro_torch/csrc/flash_attention.cu",
+                   "gradient of src/repro/kernels/ref.py::"
+                   "flash_attention_ref; no Pallas backward",
+                   "tinyllama_ctx")}
     kernels = []
     for name, (source, replaces, main_case) in sources.items():
         rows = kernel_rows[name]
@@ -1215,9 +1544,11 @@ def main() -> int:
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(dict(
         card=card, build_s=build_s, torch=torch.__version__,
-        cuda=torch.version.cuda, kernels=kernels, serve=serve,
+        cuda=torch.version.cuda, kernels=kernels,
+        flash_saved_bytes=saved_bytes, serve=serve, serve_gemma3=serve_gemma,
         device_vs_cpu=dvc, mnist_mlp=mnist, monitor_pair=pair,
-        train_device_vs_cpu=train_dvc, lm_train=lm, lm_launcher=launcher),
+        train_device_vs_cpu=train_dvc, lm_step_device_vs_cpu=lm_step_dvc,
+        lm_train=lm, lm_launcher=launcher),
         indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -12,6 +12,10 @@ its plain PyTorch version (taken for CPU tensors) and a launch counter:
                     (replaces src/repro/kernels/csvec_topk.py)
     csvec_quant     per-row int8 quantisation of the sketch table
                     (replaces src/repro/kernels/csvec_quant.py)
+    flash_attention causal / sliding-window GQA attention, forward and
+                    backward (replaces src/repro/kernels/
+                    flash_attention.py; the backward is the gradient of
+                    src/repro/kernels/ref.py::flash_attention_ref)
 
 The package re-exports nothing: a function re-exported under its
 module's name would hide the module (``repro_torch.kernels.psparse_update``

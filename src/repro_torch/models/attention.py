@@ -1,17 +1,22 @@
-"""GQA attention: chunked-causal (train/eval/prefill) + KV-cache decode
-(counterpart of ``repro.models.attention``).
+"""GQA attention: causal / sliding-window attention over the whole
+sequence (train/eval/prefill) + KV-cache decode (counterpart of
+``repro.models.attention``).
 
-Plain PyTorch math: in the JAX package this is XLA code, not a Pallas
-kernel. Scores and softmax run in f32 with an additive -1e30 mask, as
-in the reference. Decode supports full caches and ring-buffer windowed
-caches (swa/local layers, and global layers past 262k tokens). The
-decode step writes the new key/value into the cache in place, where the
-reference returns an updated copy.
+Train, eval and prefill go through ``kernels.flash_attention``: the
+Hopper forward and backward kernels on the card, their plain versions on
+the CPU. Where the reference's chunked scan rounds P to the compute type
+before P V, the kernel keeps P in f32, as the TPU kernel does; in f32 the
+two agree. Decode stays plain PyTorch, as the reference computes it in
+XLA: scores and softmax in f32 with a -1e30 mask, full caches and
+ring-buffer windowed caches (swa/local layers, and global layers past
+262k tokens). The decode step writes the new key/value into the cache in
+place, where the reference returns an updated copy.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models.layers import dense_init, rope
 
 Tensor = torch.Tensor
@@ -41,47 +46,6 @@ def resolve_window(cfg, layer_type: str, seq_len: int) -> int | None:
 def cache_capacity(cfg, layer_type: str, seq_len: int) -> int:
     w = resolve_window(cfg, layer_type, seq_len)
     return min(seq_len, w) if w else seq_len
-
-
-def chunked_causal_attention(
-    q: Tensor,              # (B, S, KV, G, D)  grouped query heads
-    k: Tensor,              # (B, S, KV, D)
-    v: Tensor,              # (B, S, KV, D)
-    *,
-    window: int | None,
-    chunk: int = 1024,
-) -> Tensor:
-    """Online-softmax causal attention over KV chunks -> (B, S, KV, G, D)."""
-    B, S, KV, G, D = q.shape
-    chunk = min(chunk, S)
-    if S % chunk:
-        raise ValueError(f"sequence length {S} is not a multiple of the "
-                         f"attention chunk {chunk}")
-    dev = q.device
-    qf = (q * D ** -0.5).to(q.dtype).float()
-    q_pos = torch.arange(S, device=dev)
-    m = torch.full((B, KV, G, S), NEG_INF, dtype=torch.float32, device=dev)
-    l = torch.zeros((B, KV, G, S), dtype=torch.float32, device=dev)
-    acc = torch.zeros((B, KV, G, S, D), dtype=torch.float32, device=dev)
-    for j in range(S // chunk):
-        kj = k[:, j * chunk:(j + 1) * chunk].float()
-        vj = v[:, j * chunk:(j + 1) * chunk]
-        s = torch.einsum("bqhgd,bkhd->bhgqk", qf, kj)
-        k_pos = j * chunk + torch.arange(chunk, device=dev)
-        rel = q_pos[:, None] - k_pos[None, :]
-        bias = torch.where(rel >= 0, 0.0, NEG_INF)
-        if window is not None:
-            bias = bias + torch.where(rel < window, 0.0, NEG_INF)
-        s = s + bias
-        m_new = torch.maximum(m, s.amax(dim=-1))
-        corr = torch.exp(m - m_new)
-        p = torch.exp(s - m_new[..., None])
-        l = l * corr + p.sum(dim=-1)
-        acc = acc * corr[..., None] + torch.einsum(
-            "bhgqk,bkhd->bhgqd", p.to(v.dtype).float(), vj.float())
-        m = m_new
-    out = acc / torch.clamp(l, min=1e-30)[..., None]
-    return out.permute(0, 3, 1, 2, 4).to(q.dtype)
 
 
 def decode_attention(
@@ -139,11 +103,12 @@ def attn_apply(
     pos2d = positions if positions.ndim == 2 else positions[:, None]
     q = rope(q, pos2d, cfg.rope_theta)
     k = rope(k, pos2d, cfg.rope_theta)
-    qg = q.reshape(B, S, KV, G, D)
 
     new_cache = None
     if mode in ("train", "eval", "prefill"):
-        out = chunked_causal_attention(qg, k, v, window=window)
+        # (B, S, H, D) read through (B, H, S, D) views: no copy either way
+        out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                              v.transpose(1, 2), window=window).transpose(1, 2)
         if mode == "prefill":
             kc = k.transpose(1, 2)                # (B, KV, S, D)
             vc = v.transpose(1, 2)
@@ -167,8 +132,9 @@ def attn_apply(
         b_idx = torch.arange(B, device=x.device)
         cache["k"][b_idx, :, slot] = k[:, 0].to(cache["k"].dtype)
         cache["v"][b_idx, :, slot] = v[:, 0].to(cache["v"].dtype)
-        out = decode_attention(qg, cache["k"], cache["v"], positions,
-                               window=window, ring=ring)
+        out = decode_attention(q.reshape(B, S, KV, G, D), cache["k"],
+                               cache["v"], positions, window=window,
+                               ring=ring)
         new_cache = cache
     else:
         raise ValueError(f"unknown attention mode {mode!r}")

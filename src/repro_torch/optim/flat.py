@@ -35,15 +35,18 @@ def tree_leaves(tree) -> list[Tensor]:
 def tree_like(tree, leaves):
     """A tree of ``tree``'s structure holding ``leaves`` in
     ``tree_leaves`` order."""
-    it = iter(leaves)
+    return _build(tree, iter(leaves))
 
-    def build(t):
-        if isinstance(t, dict):
-            return {k: build(t[k]) for k in sorted(t)}
-        if isinstance(t, (list, tuple)):
-            return [build(v) for v in t]
-        return next(it)
-    return build(tree)
+
+def _build(t, it):
+    # a module-level function: a nested one that called itself would be
+    # a reference cycle holding ``it``, and so every leaf, until the
+    # garbage collector ran (device memory of whole parameter trees)
+    if isinstance(t, dict):
+        return {k: _build(t[k], it) for k in sorted(t)}
+    if isinstance(t, (list, tuple)):
+        return [_build(v, it) for v in t]
+    return next(it)
 
 
 def tree_map(fn, tree):

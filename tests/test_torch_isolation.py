@@ -40,6 +40,7 @@ def test_port_loads_without_jax():
         "import repro_torch.train.state, repro_torch.train.step\n"
         "import repro_torch.train.loop, repro_torch.launch.train\n"
         "import repro_torch.checkpoint.checkpointer\n"
+        "import repro_torch.kernels.flash_attention\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
         "assert not any(m == 'repro' or m.startswith('repro.')\n"
         "               for m in sys.modules), 'repro was imported'\n")

@@ -390,6 +390,34 @@ def test_nan_guard_keeps_the_old_state_and_counts_a_skip():
     assert new.sketch.step == state.sketch.step
 
 
+@pytest.mark.parametrize("mode", ["none", "int8_p2"])
+def test_train_step_leaves_no_tensor_in_a_reference_cycle(mode):
+    """Every tensor a step drops is freed by its reference count: a
+    tensor that only the garbage collector frees holds device memory
+    (whole parameter trees at full width) until a collection runs."""
+    import gc
+    _, tcfg = _cfgs()
+    _, trun = _runs(mode)
+    state = init_train_state(0, tcfg, trun, device="cpu")
+    step = make_train_step(tcfg, trun)
+    gc.collect()
+    was_enabled = gc.isenabled()
+    gc.disable()
+    gc.set_debug(gc.DEBUG_SAVEALL)
+    try:
+        for i in range(2):
+            state, _ = step(state, _batch(i, tcfg.vocab_size)[1])
+        gc.collect()
+        cycled = [tuple(o.shape) for o in gc.garbage
+                  if isinstance(o, torch.Tensor)]
+    finally:
+        gc.set_debug(0)
+        gc.garbage.clear()
+        if was_enabled:
+            gc.enable()
+    assert not cycled, cycled
+
+
 def test_checkpoint_round_trip(tmp_path):
     _, tcfg = _cfgs()
     _, trun = _runs("fp32")
