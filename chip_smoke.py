@@ -28,10 +28,16 @@ nvcc and nvidia-smi. Phases, each of which raises on failure:
    dq, dk and dv within rtol and atol 1e-2 * max|plain|: both sides
    compute in f32 from the same bf16 inputs and round once to bf16, so
    the sums' order moves a value by at most one bf16 ulp, 2^-7 of it;
-   every head_dim runs in f32 too, over several 64-row tiles); then the bytes autograd keeps for one
-   attention call at tinyllama-1.1b's context (B 4, S 2048) through the
-   plain version and through the kernel, which must keep q, k, v, o and
-   lse and nothing of size S x S;
+   every head_dim runs in f32 too, over several 64-row tiles);
+   ``mlstm_chunk`` at MLSTM_CASES (chunks longer than, equal to and a
+   quarter of S at small widths, xlstm-1.3b's serving prefill B 8 x S
+   2048 and refill B 1 x S 512 at Dk 512, Dv 1024), each with f32 and
+   with bf16 inputs widened in the kernel: h, C and n within rtol 1e-4,
+   atol 1e-4 * max|plain|, m within 1e-4 (the reference's tolerance for
+   its Pallas kernel), no library call computing the function; then
+   the bytes autograd keeps for one attention call at tinyllama-1.1b's
+   context (B 4, S 2048) through the plain version and through the
+   kernel, which must keep q, k, v, o and lse and nothing of size S x S;
 3. serving: ``ServeEngine(monitor=True)`` on tinyllama-1.1b at full width
    with random weights (8 prompts of 128 tokens, 32 new tokens, then one
    refill of a 64-token prompt); tokens must equal the unmonitored
@@ -41,10 +47,16 @@ nvcc and nvidia-smi. Phases, each of which raises on failure:
    The same on gemma3-27b at full width cut to one pattern period (6
    layers: 5 local with a 1024-token window, 1 global): 2 prompts of
    2048 tokens, 16 new tokens, a refill of 1100 tokens, max_context 2304,
-   so the local layers' caches are rings and their attention skips tiles;
+   so the local layers' caches are rings and their attention skips tiles.
+   The same on xlstm-1.3b at full width and all 48 layers (42 mLSTM, 6
+   sLSTM; 2.12 B parameters, bf16): 8 prompts of 2048 tokens (eight
+   chunks), 32 new tokens, a 512-token refill, max_context 2304, and the
+   sLSTM loop's share of one more prefill;
 4. the serving engine on reduced tinyllama in f32 on the card and on the
    CPU, from the same weights and monitor state: equal tokens, and logits
-   and sketches within rtol 1e-4, atol 1e-4;
+   and sketches within rtol 1e-4, atol 1e-4; then reduced xlstm with
+   512-token prompts (two chunks): equal tokens, logits and sketches
+   within rtol and atol 1e-3 * max|CPU| (XLSTM_DVC_TOL's reason);
 5. training: MNIST_MLP (784 -> 512 x3 -> 10) for 100 steps in each of
    standard, monitor, sketched_fixed and sketched_adaptive, with Gaussian
    and with psparse projections; then the 16-layer monitoring pair
@@ -81,12 +93,13 @@ nvcc and nvidia-smi. Phases, each of which raises on failure:
 9. print ``{"kernels": [...]}``, the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 
-Every run of a path (3, 5, 6's LM step, 7, 8) sets the kernels' launch
-counts to 0 just before it and checks them just after: each monitored
-token step or train step launches one update kernel per sketched node,
+Every run of a path (3, 4, 5, 6's LM step, 7, 8) sets the kernels'
+launch counts to 0 just before it and checks them just after: each
+monitored token step or train step launches one update kernel per sketched node,
 the projection kind's; each compressed LM step one insert and one top-k,
 and one quant with the int8 table; each prefill, refill and train step
-one flash forward a layer, each train step one flash backward a layer,
+one flash forward an attention layer and each prefill and refill one
+mlstm_chunk an mLSTM layer, each train step one flash backward a layer,
 a decode step none.
 
 Exits non-zero, printing no result, without a CUDA device or without the
@@ -100,6 +113,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -148,7 +162,7 @@ PSPARSE_CASES = [
 DENSITY = 0.1
 # the CUDA sources, one nvcc each
 KERNELS = ("sketch_update", "psparse_update", "csvec_insert", "csvec_topk",
-           "csvec_quant", "flash_attention")
+           "csvec_quant", "flash_attention", "mlstm_chunk")
 # the count-sketch kernels: (label, r, c, n, ks). "train" is the LM train
 # step's geometry: tinyllama-1.1b's flat dimension, the table that
 # resolve_countsketch sizes for it (5 x 2^23), cs_k 256 and 2 x 256 p2
@@ -179,6 +193,28 @@ FLASH_CASES = [
     ("f32_d160", 1, 4, 2, 200, 160, None, "float32"),
 ]
 FLASH_BF16_TOL = 1e-2       # bf16 o, dq, dk, dv (one bf16 ulp is 2^-7)
+
+# mlstm_chunk: (label, B, H, S, Dk, Dv, chunk), each with f32 inputs and
+# with bf16 inputs widened in the kernel (the model's q, k and v). S below,
+# at and four times the chunk at small widths, then xlstm-1.3b's serving
+# prefill (B 8 x 2048 tokens, eight chunks) and its refill (1 x 512)
+MLSTM_CASES = [
+    ("s_lt_w", 2, 2, 40, 8, 16, 256),
+    ("s_eq_w", 1, 3, 64, 16, 32, 64),
+    ("s_4w", 2, 2, 128, 32, 32, 32),
+    ("serve", 8, 4, 2048, 512, 1024, 256),
+    ("refill", 1, 4, 512, 512, 1024, 256),
+]
+# xlstm-1.3b served at full width and depth: 2048-token prompts (eight
+# chunks), 32 new tokens, a 512-token refill (two chunks, one request)
+XLSTM_SERVE = dict(batch=8, prompt_len=2048, new_tokens=32, refill_len=512,
+                   max_context=2304)
+# reduced models amplify rounding over long prompts: at 512 tokens the JAX
+# reference's own logits move by 7.3e-4 of their max when only its mLSTM
+# chunk changes, the port's CPU prefill reads 7.2e-4 against it, and one
+# with q and k rounded to bf16 reads 0.75 (tools/xlstm_chunk_spread.py),
+# so the card is held to the CPU there at 1e-3 of max
+XLSTM_DVC_TOL = 1e-3
 
 # the LM trainer: tinyllama-1.1b at full width, as launch/train.py runs it
 LM_BATCH, LM_SEQ, LM_STEPS, LM_PSPARSE_STEPS = 8, 128, 20, 3
@@ -707,6 +743,82 @@ def phase_saved_bytes(dev, B=4, Hq=32, Hkv=4, S=2048, D=64) -> dict:
     return out
 
 
+def mlstm_bound(B, H, S, Dk, Dv, W, elem: int) -> tuple[float, str]:
+    """(bound_ms, bound_by): W (W + 1) (Dk + Dv) + 4 W Dk Dv operations a
+    chunk of a (b, h) (causal q k^T and s v, q C and the C update) at the
+    f32 rate, the kernels' arithmetic; q, k, v read once in their type,
+    li and lf in f32, h, C, n, m written once in f32."""
+    nc = S // W
+    flops = B * H * nc * (W * (W + 1) * (Dk + Dv) + 4 * W * Dk * Dv)
+    nbytes = (B * H * S * (2 * Dk + Dv) * elem + 2 * B * H * S * 4
+              + 4 * B * H * (S * Dv + Dk * Dv + Dk + 1))
+    t_b, t_o = nbytes / PEAK_BYTES_S, flops / PEAK_F32_FLOP_S
+    return (t_b * 1e3, "bytes") if t_b >= t_o else (t_o * 1e3, "operations")
+
+
+def phase_mlstm(dev) -> dict[str, list[dict]]:
+    """mlstm_chunk at each MLSTM_CASES shape, f32 and bf16 inputs, against
+    its plain version (h, C, n within TOL * max|plain|, m within TOL),
+    then timed beside its bound and the plain version. No one PyTorch call
+    computes the function: library_ms is None. Inputs lie as the model's
+    do: v a (B, H, S, Dv) view of (B, S, H, Dv) storage."""
+    import torch
+    from repro_torch.kernels.mlstm_chunk import mlstm_chunk, mlstm_chunk_plain
+    gen = torch.Generator(device=dev).manual_seed(5)
+    rows = []
+    for label, B, H, S, Dk, Dv, chunk in MLSTM_CASES:
+        for dt in ("float32", "bfloat16"):
+            dtype = getattr(torch, dt)
+
+            def rand(*shape):
+                return torch.randn(shape, generator=gen, device=dev)
+
+            q, k = rand(B, H, S, Dk).to(dtype), rand(B, H, S, Dk).to(dtype)
+            v = rand(B, S, H, Dv).to(dtype).transpose(1, 2)
+            li = rand(B, H, S) * 0.5
+            lf = torch.nn.functional.logsigmoid(rand(B, H, S) + 2.0)
+            args = (q, k, v, li, lf)
+            got = mlstm_chunk(*args, chunk=chunk)
+            want = mlstm_chunk_plain(*args, chunk=chunk)
+            torch.cuda.synchronize()
+            errs, abs_errs = {}, {}
+            for name, g, w in zip(("h", "C", "n", "m"), (got[0],) + got[1],
+                                  (want[0],) + want[1]):
+                scale = 1.0 if name == "m" else float(w.abs().max())
+                torch.testing.assert_close(
+                    g, w, rtol=TOL, atol=TOL * scale,
+                    msg=lambda m, n=name: f"mlstm {label} {dt} {n}: {m}")
+                abs_errs[name] = float((g - w).abs().max())
+                errs[name] = abs_errs[name] / max(scale, 1e-30)
+            del got, want
+            big = S >= 512
+            it, plain_it = (10, 3) if big else (200, 20)
+            ms, call_ms = time_ms(lambda: mlstm_chunk(*args, chunk=chunk),
+                                  it, 2)
+            plain_ms, plain_call_ms = time_ms(
+                lambda: mlstm_chunk_plain(*args, chunk=chunk), plain_it, 1)
+            bound_ms, bound_by = mlstm_bound(B, H, S, Dk, Dv, min(chunk, S),
+                                             q.element_size())
+            # the three kernels' device us a call (None: markers lost)
+            split = _device_kernels(lambda: mlstm_chunk(*args, chunk=chunk),
+                                    3) if big else None
+            rows.append(dict(
+                case=f"{label}_{'f32' if dt == 'float32' else 'bf16'}",
+                B=B, H=H, S=S, Dk=Dk, Dv=Dv, W=min(chunk, S), dtype=dt,
+                rel_err=errs, abs_err=abs_errs,
+                max_abs_err=max(abs_errs.values()), ms=ms,
+                plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms,
+                bound_by=bound_by, call_ms=call_ms,
+                plain_call_ms=plain_call_ms,
+                us_by_kernel=split and {
+                    (re.search(r"mlstm_[a-z]+_kernel", n) or [n])[0]: us / 3
+                    for n, (_, us) in split.items()}))
+            log(f"mlstm_chunk {json.dumps(rows[-1])}")
+            del q, k, v, li, lf, args
+            torch.cuda.empty_cache()
+    return {"mlstm_chunk": rows}
+
+
 def _wrappers() -> dict:
     from repro_torch.kernels.csvec_insert import csvec_insert
     from repro_torch.kernels.csvec_quant import csvec_quant
@@ -714,13 +826,15 @@ def _wrappers() -> dict:
     from repro_torch.kernels.flash_attention import (
         flash_attention_bwd, flash_attention_fwd,
     )
+    from repro_torch.kernels.mlstm_chunk import mlstm_chunk
     from repro_torch.kernels.psparse_update import psparse_update
     from repro_torch.kernels.sketch_update import sketch_update
     return {"sketch_update": sketch_update, "psparse_update": psparse_update,
             "csvec_insert": csvec_insert, "csvec_topk": csvec_topk,
             "csvec_quant": csvec_quant,
             "flash_attention": flash_attention_fwd,
-            "flash_attention_bwd": flash_attention_bwd}
+            "flash_attention_bwd": flash_attention_bwd,
+            "mlstm_chunk": mlstm_chunk}
 
 
 def reset_counts() -> None:
@@ -756,12 +870,16 @@ def phase_serve(dev, cfg, batch: int, prompt_len: int, new_tokens: int,
     import gc
     import torch
     from repro_torch.kernels.sketch_update import sketch_update
-    from repro_torch.models.transformer import cast_params, init_params
+    from repro_torch.models import ssm
+    from repro_torch.models.transformer import (
+        ATTN_KINDS, cast_params, init_params,
+    )
     from repro_torch.serve import ServeEngine
     from repro_torch.telemetry import TelemetryLog, read_jsonl
 
     gc.collect()
     torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(0)
     params = cast_params(init_params(gen, cfg), cfg.dtype, dev)
     prompts = torch.randint(0, cfg.vocab_size, (batch, prompt_len),
@@ -796,9 +914,12 @@ def phase_serve(dev, cfg, batch: int, prompt_len: int, new_tokens: int,
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
 
     # an update a layer each token step (prefill, decodes, refill); a
-    # flash forward a layer each prefill and refill, none a decode
+    # flash forward an attention layer and an mlstm_chunk an mLSTM layer
+    # each prefill and refill, none a decode
     want = cfg.num_layers * (1 + (new_tokens - 1) + 1)
-    flash = {"flash_attention": 2 * cfg.num_layers}
+    kinds = cfg.layer_types
+    flash = {"flash_attention": 2 * sum(k in ATTN_KINDS for k in kinds),
+             "mlstm_chunk": 2 * kinds.count("mlstm")}
     check_counts(f"serve {cfg.name} (gaussian monitor)", launches,
                  {"sketch_update": want, **flash})
     mon = eng._slots["mon"]
@@ -848,6 +969,31 @@ def phase_serve(dev, cfg, batch: int, prompt_len: int, new_tokens: int,
             if rep:
                 prefill[on].append((e.spans["prefill"] - before) * 1e3)
 
+    # the sLSTM loop's share of one more prefill of the unmonitored
+    # engine, each sLSTM layer timed between two synchronisations
+    slstm = None
+    if "slstm" in kinds:
+        inner, spent = ssm.slstm_apply, []
+
+        def timed(*a, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            res = inner(*a, **kw)
+            torch.cuda.synchronize()
+            spent.append(time.perf_counter() - t)
+            return res
+
+        ssm.slstm_apply = timed
+        try:
+            torch.cuda.synchronize()
+            before = off.spans["prefill"]
+            off.start(prompts)
+            total = off.spans["prefill"] - before
+        finally:
+            ssm.slstm_apply = inner
+        slstm = dict(layers=len(spent), slstm_ms=sum(spent) * 1e3,
+                     prefill_ms=total * 1e3, share=sum(spent) / total)
+
     decode_steps = new_tokens - 1
     out = dict(
         arch=cfg.name, batch=batch, prompt_len=prompt_len,
@@ -863,7 +1009,8 @@ def phase_serve(dev, cfg, batch: int, prompt_len: int, new_tokens: int,
         decode_tok_s_psparse=batch * decode_steps / ps_eng.spans["decode"],
         launches=launches, kernel_launches=kernel_launches,
         psparse_launches=ps_launches, flags=recs[-1].flags,
-        psparse_flags=ps_flags)
+        psparse_flags=ps_flags, slstm_prefill=slstm,
+        phase_s=time.perf_counter() - t_phase)
     log(f"serve {cfg.name}: " + json.dumps(out))
     del eng, off, ps_eng, params
     return out
@@ -1392,9 +1539,12 @@ def phase_launcher(dev) -> dict:
     return out
 
 
-def phase_device_vs_cpu(dev) -> dict:
-    """Reduced tinyllama in f32 on the card and on the CPU, from the same
-    weights, projections and monitor tree."""
+def phase_device_vs_cpu(dev, arch="tinyllama-1.1b", S0=8, refill_len=8,
+                        max_context=32, tol=TOL, scaled=False) -> dict:
+    """A reduced model in f32 served on the card and on the CPU, from the
+    same weights, projections and monitor tree: tokens equal, logits and
+    sketches within rtol ``tol`` and atol ``tol`` (times max|CPU| when
+    ``scaled``)."""
     import torch
     from repro_torch.configs import get_arch, reduced
     from repro_torch.models.transformer import init_params
@@ -1403,18 +1553,19 @@ def phase_device_vs_cpu(dev) -> dict:
         NodeSpec, gaussian_projections, init_node_tree,
     )
 
-    cfg = reduced(get_arch("tinyllama-1.1b"))
-    B, S0, k = 2, 8, 9
+    cfg = reduced(get_arch(arch))
+    B, k = 2, 9
     gen = torch.Generator().manual_seed(2)
     params = init_params(gen, cfg)
     tree = init_node_tree(gen, {"res": NodeSpec(cfg.d_model, cfg.num_layers)},
                           num_tokens=B, k_max=k)
-    proj = {n: gaussian_projections(gen, n, k) for n in (B * S0, S0)}
+    proj = {n: gaussian_projections(gen, n, k) for n in (B * S0, refill_len)}
     prompts = torch.randint(0, cfg.vocab_size, (B, S0), generator=gen)
-    refill_prompt = torch.randint(0, cfg.vocab_size, (S0,), generator=gen)
+    refill_prompt = torch.randint(0, cfg.vocab_size, (refill_len,),
+                                  generator=gen)
 
     def drive(device):
-        eng = ServeEngine(cfg=cfg, params=params, max_context=32,
+        eng = ServeEngine(cfg=cfg, params=params, max_context=max_context,
                           monitor=True, device=device, projections=proj,
                           initial_tree=tree)
         toks = [eng.start(prompts)]
@@ -1429,17 +1580,29 @@ def phase_device_vs_cpu(dev) -> dict:
         return ([t.cpu() for t in toks], torch.stack(logits).cpu(),
                 [t.cpu() for t in (node.x, node.y, node.z)])
 
+    from repro_torch.models.transformer import ATTN_KINDS
+    reset_counts()
     toks_d, logits_d, sk_d = drive(dev)
+    launches = read_counts()
+    kinds = cfg.layer_types       # 8 token steps: prefill, 6 decodes, refill
+    check_counts(f"serve {cfg.name} on the card against the CPU", launches,
+                 {"sketch_update": 8 * cfg.num_layers,
+                  "flash_attention": 2 * sum(k in ATTN_KINDS for k in kinds),
+                  "mlstm_chunk": 2 * kinds.count("mlstm")})
     toks_c, logits_c, sk_c = drive("cpu")
     if not all(torch.equal(a, b) for a, b in zip(toks_d, toks_c)):
-        raise AssertionError("device and CPU tokens differ")
-    torch.testing.assert_close(logits_d, logits_c, rtol=TOL, atol=TOL)
-    err = float((logits_d - logits_c).abs().max())
-    for a, b in zip(sk_d, sk_c):
-        torch.testing.assert_close(a, b, rtol=TOL, atol=TOL)
+        raise AssertionError(f"{cfg.name}: device and CPU tokens differ")
+    err = rel = 0.0
+    for a, b in [(logits_d, logits_c)] + list(zip(sk_d, sk_c)):
+        scale = float(b.abs().max()) if scaled else 1.0
+        torch.testing.assert_close(a, b, rtol=tol, atol=tol * scale)
         err = max(err, float((a - b).abs().max()))
-    log(f"device vs cpu: tokens equal, max abs diff {err:.3e}")
-    return dict(max_abs_diff=err)
+        rel = max(rel, float((a - b).abs().max()) / max(
+            float(b.abs().max()), 1e-30))
+    log(f"device vs cpu ({cfg.name}, S0 {S0}): tokens equal, max abs diff "
+        f"{err:.3e}, {rel:.3e} of max; launches {launches}")
+    return dict(arch=cfg.name, prompt_len=S0, max_abs_diff=err,
+                max_diff_of_max=rel, launches=launches)
 
 
 def main() -> int:
@@ -1473,6 +1636,7 @@ def main() -> int:
     kernel_rows = phase_kernels(dev)
     kernel_rows.update(phase_cs_kernels(dev))
     kernel_rows.update(phase_flash(dev))
+    kernel_rows.update(phase_mlstm(dev))
     saved_bytes = phase_saved_bytes(dev)
     serve = phase_serve(dev, get_arch("tinyllama-1.1b"), batch=8,
                         prompt_len=128, new_tokens=32, refill_len=64,
@@ -1483,7 +1647,13 @@ def main() -> int:
     serve_gemma = phase_serve(dev, gemma, batch=2, prompt_len=2048,
                               new_tokens=16, refill_len=1100,
                               max_context=2304)
+    # xlstm-1.3b at full width and all 48 layers, random bf16 weights
+    serve_xlstm = phase_serve(dev, get_arch("xlstm-1.3b"), **XLSTM_SERVE)
     dvc = phase_device_vs_cpu(dev)
+    # reduced xlstm, two 256-token chunks a prompt
+    dvc_xlstm = phase_device_vs_cpu(dev, "xlstm-1.3b", S0=512, refill_len=16,
+                                    max_context=530, tol=XLSTM_DVC_TOL,
+                                    scaled=True)
     mnist = phase_train_mnist(dev)
     pair = phase_monitor_pair(dev)
     train_dvc = phase_train_device_vs_cpu(dev)
@@ -1496,6 +1666,10 @@ def main() -> int:
                "serve/psparse": serve["psparse_launches"],
                "serve_gemma3/gaussian": serve_gemma["launches"],
                "serve_gemma3/psparse": serve_gemma["psparse_launches"],
+               "serve_xlstm/gaussian": serve_xlstm["launches"],
+               "serve_xlstm/psparse": serve_xlstm["psparse_launches"],
+               "serve_vs_cpu/tinyllama": dvc["launches"],
+               "serve_vs_cpu/xlstm": dvc_xlstm["launches"],
                **{f"mnist_mlp/{k}": v["launches"] for k, v in mnist.items()},
                **{k: v["launches"] for k, v in pair.items()},
                **{f"lm_step_vs_cpu/{k}": v["launches"]
@@ -1524,7 +1698,10 @@ def main() -> int:
                    "src/repro_torch/csrc/flash_attention.cu",
                    "gradient of src/repro/kernels/ref.py::"
                    "flash_attention_ref; no Pallas backward",
-                   "tinyllama_ctx")}
+                   "tinyllama_ctx"),
+               "mlstm_chunk": ("src/repro_torch/csrc/mlstm_chunk.cu",
+                               "src/repro/kernels/mlstm_chunk.py:74",
+                               "serve_bf16")}
     kernels = []
     for name, (source, replaces, main_case) in sources.items():
         rows = kernel_rows[name]
@@ -1546,7 +1723,8 @@ def main() -> int:
         card=card, build_s=build_s, torch=torch.__version__,
         cuda=torch.version.cuda, kernels=kernels,
         flash_saved_bytes=saved_bytes, serve=serve, serve_gemma3=serve_gemma,
-        device_vs_cpu=dvc, mnist_mlp=mnist, monitor_pair=pair,
+        serve_xlstm=serve_xlstm, device_vs_cpu=dvc,
+        device_vs_cpu_xlstm=dvc_xlstm, mnist_mlp=mnist, monitor_pair=pair,
         train_device_vs_cpu=train_dvc, lm_step_device_vs_cpu=lm_step_dvc,
         lm_train=lm, lm_launcher=launcher),
         indent=1))

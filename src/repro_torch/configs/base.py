@@ -35,6 +35,8 @@ class ArchConfig:
     rope_theta: float = 10000.0
     norm_eps: float = 1e-6
     tie_embeddings: bool = False
+    # recurrent blocks
+    conv_width: int = 4              # temporal conv width in recurrent blocks
     # paper technique in training: sketched backprop on the dense FFN
     # ("backprop"), monitoring-only residual nodes ("monitor"), or none
     sketch_mode: str = "backprop"

@@ -16,6 +16,8 @@ its plain PyTorch version (taken for CPU tensors) and a launch counter:
                     backward (replaces src/repro/kernels/
                     flash_attention.py; the backward is the gradient of
                     src/repro/kernels/ref.py::flash_attention_ref)
+    mlstm_chunk     chunkwise stabilised mLSTM forward from a zero state
+                    (replaces src/repro/kernels/mlstm_chunk.py)
 
 The package re-exports nothing: a function re-exported under its
 module's name would hide the module (``repro_torch.kernels.psparse_update``

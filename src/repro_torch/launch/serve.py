@@ -2,6 +2,11 @@
 
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch tinyllama-1.1b --monitor [--device cpu] [--reduced]
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch xlstm-1.3b --reduced --device cpu --prompt-len 16
+
+An arch with mLSTM blocks (xlstm-1.3b) takes prompts of at most 256
+tokens or a multiple of 256.
 
 Runs on the CUDA device unless ``--device`` names another. ``--monitor``
 updates the per-layer activation sketches in every serve step and prints

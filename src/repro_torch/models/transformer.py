@@ -1,5 +1,6 @@
-"""Decoder stack for the dense-attention architectures (counterpart of
-the attention subset of ``repro.models.transformer``).
+"""Decoder stack for the dense-attention architectures and xlstm's
+mLSTM/sLSTM blocks (counterpart of that subset of
+``repro.models.transformer``).
 
 Parameters are ``{"embed", "final_norm", "layers": [block, ...]}`` with
 one dict per layer, in layer order; the reference's scanned layout
@@ -20,6 +21,12 @@ Monitoring (paper §4.6 in the serving path): with
 ``SketchSettings.serve_monitor``, every layer's residual-stream output
 feeds that layer's "res" EMA triple in prefill and decode. The nodes
 have no consumer, so the generated tokens do not depend on them.
+
+Recurrent blocks (``models/ssm.py``) run eval, prefill and decode; a
+block with ``mlp_type="none"`` has no FFN. Training them, and the
+reference's ``mlstm_c``/``mlstm_n`` carry nodes that come with it, is
+not ported yet: ``mode="train"`` and ``sketch_groups`` raise for such
+archs rather than differ from the reference.
 """
 from __future__ import annotations
 
@@ -31,6 +38,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.sketch import validate_proj_kind
 from repro_torch.models import attention as attn
+from repro_torch.models import ssm
 from repro_torch.models.layers import (
     embed_apply, embed_init, mlp_apply, mlp_init, rmsnorm_apply,
     rmsnorm_init, unembed_apply,
@@ -43,6 +51,12 @@ from repro_torch.sketches.linear import sketched_matmul
 
 Tensor = torch.Tensor
 ATTN_KINDS = ("full", "swa", "local", "global")
+RECURRENT_KINDS = ("mlstm", "slstm")
+# the leaves the reference casts to f32, not to the compute type, at use
+F32_LEAVES = ("b_gates", "b_s", "r_s")
+RECURRENT_TRAINING = ("training archs with recurrent blocks is not ported "
+                      "yet: ROADMAP open item 1, xlstm training (an mLSTM "
+                      "backward kernel and the mlstm_c/mlstm_n carry nodes)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -76,6 +90,9 @@ def sketch_groups(cfg: ArchConfig) -> dict[str, int]:
     """{node name: width} of the sketched activation nodes of a layer."""
     if cfg.sketch_mode == "none":
         return {}
+    if "mlstm" in cfg.pattern:
+        raise NotImplementedError(f"{cfg.name}: the sketch groups of "
+                                  f"{RECURRENT_TRAINING}")
     if cfg.sketch_mode == "monitor":
         return {"res": cfg.d_model}
     groups = {"ffn_in": cfg.d_model}
@@ -104,23 +121,34 @@ def init_lm_sketch_state(gen: torch.Generator, cfg: ArchConfig,
                           proj_density=st.proj_density)
 
 
+def check_seq_len(cfg: ArchConfig, S: int) -> None:
+    """Raises ValueError unless every block kind of ``cfg`` can prefill
+    S tokens at once (mLSTM: ``ssm.check_prompt_len``)."""
+    if "mlstm" in cfg.pattern:
+        ssm.check_prompt_len(S)
+
+
 def _check_ported(cfg: ArchConfig) -> None:
     kinds = set(cfg.pattern)
-    if not kinds <= set(ATTN_KINDS) or cfg.mlp_type == "none":
+    if not kinds <= set(ATTN_KINDS + RECURRENT_KINDS):
         raise NotImplementedError(
-            f"{cfg.name}: only dense-attention blocks with a dense MLP are "
-            f"ported (pattern {cfg.pattern}, mlp {cfg.mlp_type!r}); the "
-            f"others are ROADMAP A13")
+            f"{cfg.name}: only attention, mLSTM and sLSTM blocks are "
+            f"ported (pattern {cfg.pattern}); the others are ROADMAP A13")
 
 
-def _block_init(gen, cfg: ArchConfig, dtype) -> dict:
+def _block_init(gen, cfg: ArchConfig, kind: str, dtype) -> dict:
     dev = gen.device
-    return {
-        "norm1": rmsnorm_init(cfg.d_model, dtype, dev),
-        "attn": attn.attn_init(gen, cfg, dtype),
-        "norm2": rmsnorm_init(cfg.d_model, dtype, dev),
-        "mlp": mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.mlp_type, dtype),
-    }
+    p = {"norm1": rmsnorm_init(cfg.d_model, dtype, dev)}
+    if kind in ATTN_KINDS:
+        p["attn"] = attn.attn_init(gen, cfg, dtype)
+    elif kind == "mlstm":
+        p["mix"] = ssm.mlstm_init(gen, cfg, dtype)
+    else:
+        p["mix"] = ssm.slstm_init(gen, cfg, dtype)
+    if cfg.mlp_type != "none":
+        p["norm2"] = rmsnorm_init(cfg.d_model, dtype, dev)
+        p["mlp"] = mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.mlp_type, dtype)
+    return p
 
 
 def init_params(gen: torch.Generator, cfg: ArchConfig) -> dict:
@@ -131,8 +159,8 @@ def init_params(gen: torch.Generator, cfg: ArchConfig) -> dict:
         "embed": embed_init(gen, cfg.vocab_size, cfg.d_model, dtype,
                             cfg.tie_embeddings),
         "final_norm": rmsnorm_init(cfg.d_model, dtype, gen.device),
-        "layers": [_block_init(gen, cfg, dtype)
-                   for _ in range(cfg.num_layers)],
+        "layers": [_block_init(gen, cfg, kind, dtype)
+                   for kind in cfg.layer_types],
     }
 
 
@@ -140,11 +168,17 @@ def num_params(cfg: ArchConfig) -> int:
     """Parameters of ``init_params(gen, cfg)``, counted from the config
     without allocating them."""
     _check_ported(cfg)
-    d, hd = cfg.d_model, cfg.resolved_head_dim
-    attn_w = 2 * d * cfg.num_heads * hd + 2 * d * cfg.num_kv_heads * hd
-    mlp_w = (3 if cfg.mlp_type == "swiglu" else 2) * d * cfg.d_ff
+    d, hd, H = cfg.d_model, cfg.resolved_head_dim, cfg.num_heads
+    inner, _, dk, _ = ssm.mlstm_dims(cfg)
+    mix = {"mlstm": 3 * d * inner + 2 * inner * H * dk + 2 * inner * H
+           + 2 * H + cfg.conv_width * inner,
+           "slstm": 5 * d * d + 4 * d * (d // H) + 4 * d}
+    attn_w = 2 * d * H * hd + 2 * d * cfg.num_kv_heads * hd
+    mlp_w = 0 if cfg.mlp_type == "none" else \
+        (3 if cfg.mlp_type == "swiglu" else 2) * d * cfg.d_ff + d
     embed = (1 if cfg.tie_embeddings else 2) * cfg.vocab_size * d
-    return embed + d + cfg.num_layers * (attn_w + mlp_w + 2 * d)
+    return embed + d + sum(mix.get(kind, attn_w) + mlp_w + d
+                           for kind in cfg.layer_types)
 
 
 def reference_leaves(params: dict, cfg: ArchConfig) -> list[list[tuple]]:
@@ -172,21 +206,35 @@ def flat_paths(params: dict, cfg: ArchConfig) -> list[tuple]:
 
 
 def cast_params(params, dtype, device):
-    """The same nested dict with every tensor on ``device`` in ``dtype``
-    (the forward casts weights to its compute dtype at each use; a copy
-    cast once gives the same values)."""
+    """The same nested dict with every tensor on ``device`` in ``dtype``,
+    but the ``F32_LEAVES`` in float32 (the forward casts weights to its
+    compute dtype at each use, those to f32; a copy cast once gives the
+    same values)."""
     if isinstance(params, dict):
-        return {k: cast_params(v, dtype, device) for k, v in params.items()}
+        return {k: cast_params(v, torch.float32 if k in F32_LEAVES
+                               else dtype, device)
+                for k, v in params.items()}
     if isinstance(params, list):
         return [cast_params(v, dtype, device) for v in params]
     return params.to(device=device, dtype=dtype)
 
 
+def _block_cache(cfg: ArchConfig, kind: str, batch: int, seq_len_ctx: int,
+                 device) -> dict:
+    if kind in ATTN_KINDS:
+        return attn.init_attn_cache(cfg, kind, batch, seq_len_ctx, cfg.dtype,
+                                    device)
+    if kind == "mlstm":
+        return ssm.init_mlstm_cache(cfg, batch, cfg.dtype, device)
+    return ssm.init_slstm_cache(cfg, batch, cfg.dtype, device)
+
+
 def init_cache(cfg: ArchConfig, batch: int, seq_len_ctx: int,
                device) -> list[dict]:
-    """One {"k", "v"} cache per layer, sized for ``seq_len_ctx``."""
-    return [attn.init_attn_cache(cfg, kind, batch, seq_len_ctx, cfg.dtype,
-                                 device)
+    """One cache per layer, by block kind: {"k", "v"} sized for
+    ``seq_len_ctx``, mLSTM's {"C", "m_n", "m_m", "conv"} or sLSTM's
+    {"s_c", "s_n", "s_m", "s_h"}."""
+    return [_block_cache(cfg, kind, batch, seq_len_ctx, device)
             for kind in cfg.layer_types]
 
 
@@ -234,10 +282,19 @@ def _apply_block(kind, p, x, *, cfg, positions, mode, cache, seq_len_ctx,
     """One decoder block. ``sk`` holds this layer's nodes of the
     sketched FFN in train mode. Returns (x, new_cache, new nodes)."""
     h = rmsnorm_apply(p["norm1"], x, cfg.norm_eps)
-    mix, new_cache = attn.attn_apply(
-        p["attn"], h, cfg=cfg, layer_type=kind, positions=positions,
-        mode=mode, cache=cache, seq_len_ctx=seq_len_ctx)
+    if kind in ATTN_KINDS:
+        mix, new_cache = attn.attn_apply(
+            p["attn"], h, cfg=cfg, layer_type=kind, positions=positions,
+            mode=mode, cache=cache, seq_len_ctx=seq_len_ctx)
+    elif kind == "mlstm":
+        mix, new_cache = ssm.mlstm_apply(p["mix"], h, cfg=cfg, mode=mode,
+                                         cache=cache)
+    else:
+        mix, new_cache = ssm.slstm_apply(p["mix"], h, cfg=cfg, mode=mode,
+                                         cache=cache)
     x = x + mix
+    if cfg.mlp_type == "none":
+        return x, new_cache, {}
     h2 = rmsnorm_apply(p["norm2"], x, cfg.norm_eps)
     if sk is None:
         return x + mlp_apply(p["mlp"], h2, cfg.mlp_type), new_cache, {}
@@ -270,6 +327,8 @@ def forward(
     MoE balance loss of the reference) is 0 for these dense archs.
     """
     _check_ported(cfg)
+    if mode == "train" and set(cfg.pattern) & set(RECURRENT_KINDS):
+        raise NotImplementedError(f"{cfg.name}: {RECURRENT_TRAINING}")
     B, S = tokens.shape
     dt = cfg.dtype
     d = cfg.d_model

@@ -13,7 +13,13 @@ engine's. Telemetry drains on the host into the schema shared with the
 JAX package.
 
 The engine runs on CUDA unless ``device`` says otherwise; without CUDA
-it raises rather than fall back to the CPU. Caches are updated in place.
+it raises rather than fall back to the CPU. Attention caches are updated
+in place; recurrent ones (xlstm's mLSTM and sLSTM state) are replaced
+each step, and a refill writes every cache entry of its slot. Archs with
+mLSTM blocks prefill prompts of at most one 256-token chunk or a whole
+number of chunks; other lengths raise ``ValueError`` before any work.
+``max_context`` bounds every arch's sequence, xlstm's too, though its
+caches do not grow with it.
 """
 from __future__ import annotations
 
@@ -30,7 +36,7 @@ from repro_torch.core.monitor import (
 from repro_torch.core.sketch import validate_proj_kind
 from repro_torch.device import resolve_device
 from repro_torch.models.transformer import (
-    SketchSettings, cast_params, forward,
+    SketchSettings, cast_params, check_seq_len, forward,
 )
 from repro_torch.sketches import (
     NodeSpec, NodeTree, gaussian_projections, init_node_tree,
@@ -261,6 +267,10 @@ class ServeEngine:
             raise ValueError(f"sequence of {length} tokens exceeds "
                              f"max_context={self.max_context}")
 
+    def _check_prompt(self, length: int) -> None:
+        self._check_context(length)
+        check_seq_len(self.cfg, length)
+
     # -- slot lifecycle -----------------------------------------------
 
     def start(self, prompts: Tensor) -> Tensor:
@@ -268,7 +278,7 @@ class ServeEngine:
         returns the (B,) first generated tokens."""
         prompts = torch.as_tensor(prompts).to(self.device, torch.long)
         B, S0 = prompts.shape
-        self._check_context(S0)
+        self._check_prompt(S0)
         mon = proj = None
         if self.monitor:
             mon = self._init_monitor(B)
@@ -305,7 +315,7 @@ class ServeEngine:
         slot = int(slot)
         if not 0 <= slot < len(self._host_pos):
             raise ValueError(f"slot {slot} outside 0..{len(self._host_pos)-1}")
-        self._check_context(prompt.shape[-1])
+        self._check_prompt(prompt.shape[-1])
         proj = self._proj_for(prompt.shape[-1]) if self.monitor else None
         cache, tok, pos, mon = refill_step(
             self._params, s["cache"], s["tok"], s["pos"], s["mon"], slot,

@@ -41,6 +41,7 @@ def test_port_loads_without_jax():
         "import repro_torch.train.loop, repro_torch.launch.train\n"
         "import repro_torch.checkpoint.checkpointer\n"
         "import repro_torch.kernels.flash_attention\n"
+        "import repro_torch.models.ssm, repro_torch.kernels.mlstm_chunk\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
         "assert not any(m == 'repro' or m.startswith('repro.')\n"
         "               for m in sys.modules), 'repro was imported'\n")
@@ -116,7 +117,7 @@ def test_configs_match_reference(name):
         assert ours.tail_types == ref.tail_types
 
 
-@pytest.mark.parametrize("name", ["mixtral-8x22b", "xlstm-1.3b",
+@pytest.mark.parametrize("name", ["mixtral-8x22b", "qwen3-moe-30b-a3b",
                                   "recurrentgemma-2b"])
 def test_unported_archs_name_their_roadmap_item(name):
     jax_get_arch(name)                  # exists in the reference
