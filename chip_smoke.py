@@ -34,7 +34,14 @@ nvcc and nvidia-smi. Phases, each of which raises on failure:
    2048 and refill B 1 x S 512 at Dk 512, Dv 1024), each with f32 and
    with bf16 inputs widened in the kernel: h, C and n within rtol 1e-4,
    atol 1e-4 * max|plain|, m within 1e-4 (the reference's tolerance for
-   its Pallas kernel), no library call computing the function; then
+   its Pallas kernel), no library call computing the function;
+   ``ring_allreduce`` at W 2, 3, 4 and 8 x N 3, 129, 1000 and 2^20 on
+   both wires (tests/test_ring.py's draw) and at the DP runs' buffers
+   (phase 9's fused dense wire at W 4, N 1.109e9, fp32; its int8 sketch
+   wire at W 2): y, every replica and every residual row equal to the
+   plain version's bit for bit, the int8 ledger dequant(y) + sum_d res_d
+   = sum_d x_d within 8 W ulps of the largest shard element, beside
+   ``xs.sum(0)`` on the fp32 wire (no library call on the int8); then
    the bytes autograd keeps for one attention call at tinyllama-1.1b's
    context (B 4, S 2048) through the plain version and through the
    kernel, which must keep q, k, v, o and lse and nothing of size S x S;
@@ -90,17 +97,34 @@ nvcc and nvidia-smi. Phases, each of which raises on failure:
 8. the LM launcher (``python -m repro_torch.launch.train --reduced
    --compress countsketch``'s ``main``) for 6 steps, checkpointing into
    a temporary directory that is removed afterwards;
-9. print ``{"kernels": [...]}``, the nvidia-smi line, and last
+9. data-parallel LM training: tinyllama-1.1b at full width, global B 8 x
+   S 128, W workers in one process, 10 steps each of (a) the fused
+   layout, fp32 sketch wire through the ring, dense gradients, W 4, and
+   (b) the overlap layout, int8 sketch wire through the ring, the fp32
+   count sketch with p2 2, W 2: losses finite, learning (last-5 mean
+   below the first-5's), peak under 80 GB; after (b) one more step whose
+   int8 ring inputs and output are held to the ledger; one step of each
+   profiled;
+10. reduced tinyllama, W 4, B 8 x S 16, 3 steps of each setting on the
+   card and on the CPU from one state: losses, parameters and trees
+   (on the int8 wire the tree plus the workers' ledgers) within TOL;
+11. the DP launcher (``--reduced --dp 4 --dp-collective overlap
+   --sketch-wire-dtype int8 --ring-wire --compress countsketch --cs-p2
+   2``) for 4 steps, then resumed to 6 from its ``per_worker_v1``
+   checkpoint;
+12. print ``{"kernels": [...]}``, the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 
-Every run of a path (3, 4, 5, 6's LM step, 7, 8) sets the kernels'
+Every run of a path (3, 4, 5, 6's LM step, 7–11) sets the kernels'
 launch counts to 0 just before it and checks them just after: each
 monitored token step or train step launches one update kernel per sketched node,
 the projection kind's; each compressed LM step one insert and one top-k,
 and one quant with the int8 table; each prefill, refill and train step
 one flash forward an attention layer and each prefill and refill one
 mlstm_chunk an mLSTM layer, each train step one flash backward a layer,
-a decode step none.
+a decode step none. A DP step counts these per worker (the overlap
+layout's increment sweep adds a forward), one top-k, and one ring merge
+(fused) or two (overlap: the sketch, then the gradient wire).
 
 Exits non-zero, printing no result, without a CUDA device or without the
 repository's sources beside it. Measurements also go to
@@ -135,7 +159,9 @@ PREFILL_SAMPLES = 5
 # tinyllama's d=2048 and k=9 (prefill T=B*S0=1024, decode T=B=8, refill
 # T=S0=64), a ragged case, the paper's largest k=33, and the trainer's
 # nodes (MNIST_MLP: T=128, d=512, k=33; the 16-layer monitoring pair:
-# T=128, d=1024, k=17; f32 A)
+# T=128, d=1024, k=17; f32 A), the LM trainer's FFN nodes at B 8 x S 128
+# (T=1024, d=2048 and 5632, k=17) and each DP worker's share of them
+# (DP_RUNS: T=256 at W 4, T=512 at W 2)
 SKETCH_UPDATE_CASES = [
     ("prefill", 1024, 2048, 9, "bfloat16"),
     ("prefill", 1024, 2048, 9, "float32"),
@@ -148,6 +174,10 @@ SKETCH_UPDATE_CASES = [
     ("monitor16", 128, 1024, 17, "float32"),
     ("lm_ffn_in", 1024, 2048, 17, "bfloat16"),
     ("lm_ffn_h", 1024, 5632, 17, "bfloat16"),
+    ("dp_w4_ffn_in", 256, 2048, 17, "bfloat16"),
+    ("dp_w4_ffn_h", 256, 5632, 17, "bfloat16"),
+    ("dp_w2_ffn_in", 512, 2048, 17, "bfloat16"),
+    ("dp_w2_ffn_h", 512, 5632, 17, "bfloat16"),
 ]
 # psparse_update at density 0.1: the trainer's nodes, the psparse serving
 # prefill and a ragged case (m = clamp(round(0.1 T), k, T) support rows)
@@ -162,7 +192,7 @@ PSPARSE_CASES = [
 DENSITY = 0.1
 # the CUDA sources, one nvcc each
 KERNELS = ("sketch_update", "psparse_update", "csvec_insert", "csvec_topk",
-           "csvec_quant", "flash_attention", "mlstm_chunk")
+           "csvec_quant", "flash_attention", "mlstm_chunk", "ring_allreduce")
 # the count-sketch kernels: (label, r, c, n, ks). "train" is the LM train
 # step's geometry: tinyllama-1.1b's flat dimension, the table that
 # resolve_countsketch sizes for it (5 x 2^23), cs_k 256 and 2 x 256 p2
@@ -174,13 +204,17 @@ CS_CASES = [
 ]
 
 # flash attention: (label, B, Hq, Hkv, S, D, window, dtype). tinyllama's
-# train step (B 8 x S 128) and its own context (B 4 x S 2048), gemma3's
+# train step (B 8 x S 128), each DP worker's share of it (B 2 at W 4, B 4
+# at W 2; the backward's dk/dv split differs with B) and its own context
+# (B 4 x S 2048), gemma3's
 # local (window 1024) and global layers at B 2 x S 2048, granite-34b's
 # MQA and stablelm-12b's head_dim 160 at S 512, the reduced configs'
 # f32 head_dim 16 at a ragged S and past a 32-token window, and head_dim
 # 64, 128 and 160 in f32 over several tiles, held at 1e-4
 FLASH_CASES = [
     ("train_s128", 8, 32, 4, 128, 64, None, "bfloat16"),
+    ("dp_w4_s128", 2, 32, 4, 128, 64, None, "bfloat16"),
+    ("dp_w2_s128", 4, 32, 4, 128, 64, None, "bfloat16"),
     ("tinyllama_ctx", 4, 32, 4, 2048, 64, None, "bfloat16"),
     ("gemma3_local", 2, 32, 16, 2048, 128, 1024, "bfloat16"),
     ("gemma3_global", 2, 32, 16, 2048, 128, None, "bfloat16"),
@@ -828,13 +862,14 @@ def _wrappers() -> dict:
     )
     from repro_torch.kernels.mlstm_chunk import mlstm_chunk
     from repro_torch.kernels.psparse_update import psparse_update
+    from repro_torch.kernels.ring_allreduce import ring_allreduce
     from repro_torch.kernels.sketch_update import sketch_update
     return {"sketch_update": sketch_update, "psparse_update": psparse_update,
             "csvec_insert": csvec_insert, "csvec_topk": csvec_topk,
             "csvec_quant": csvec_quant,
             "flash_attention": flash_attention_fwd,
             "flash_attention_bwd": flash_attention_bwd,
-            "mlstm_chunk": mlstm_chunk}
+            "mlstm_chunk": mlstm_chunk, "ring_allreduce": ring_allreduce}
 
 
 def reset_counts() -> None:
@@ -1539,6 +1574,399 @@ def phase_launcher(dev) -> dict:
     return out
 
 
+# the ring all-reduce: the grid of tests/test_ring.py's sizes and a
+# million elements at W 2, 3, 4 and 8, both wires, then the DP runs'
+# full-width buffers (run (a)'s fused dense buffer at W 4 on the fp32
+# wire; run (b)'s sketch increments at W 2 on the int8 wire and its
+# gradient wire, the count-sketch table and four scalars, at W 2 on the
+# fp32 wire)
+RING_WORKERS = (2, 3, 4, 8)
+RING_SIZES = (3, 129, 1000, 1_048_576)
+# the DP runs: tinyllama-1.1b at full width, global B 8 x S 128, W workers
+# in one process: (a) fused, fp32 sketch wire, ring, dense gradients; (b)
+# overlap, int8 sketch wire, ring, an fp32 count sketch with p2 = 2 (its
+# per-worker {u, v} are 8.8 GB a worker, so W 2)
+DP_RUNS = {"fused_w4": dict(workers=4, dp_collective="fused",
+                            sketch_wire_dtype="fp32", compression=None),
+           "overlap_w2": dict(workers=2, dp_collective="overlap",
+                              sketch_wire_dtype="int8",
+                              compression=dict(mode="countsketch",
+                                               cs_p2=2))}
+DP_STEPS = 10
+
+
+def ring_bound(W: int, N: int, wire: str) -> tuple[float, str]:
+    """The W shards read once and the W replicas written once (and on the
+    int8 wire the W residual rows) at 3.35 TB/s."""
+    return (12 if wire == "int8" else 8) * W * N / PEAK_BYTES_S * 1e3, \
+        "bytes"
+
+
+def _ring_shards(dev, W: int, N: int, seed: int):
+    """test_ring.py's draw: standard normal rows times 10^U{-3..3} per
+    worker (numpy for the grid; on the card for the full-width sizes)."""
+    import numpy as np
+    import torch
+    if N <= RING_SIZES[-1]:
+        rng = np.random.default_rng(seed)
+        xs = (rng.standard_normal((W, N)) * 10.0 ** rng.integers(
+            -3, 4, size=(W, 1))).astype(np.float32)
+        return torch.from_numpy(xs).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    xs = torch.randn((W, N), generator=gen, device=dev)
+    xs *= 10.0 ** torch.randint(-3, 4, (W, 1), generator=gen, device=dev)
+    return xs
+
+
+def _ring_case(dev, label: str, W: int, N: int, wire: str, seed: int,
+               iters: int) -> dict:
+    """The kernel against its plain version, bit for bit (every replica
+    and residual row; the plain version on the CPU for the grid, on the
+    card at full width), the int8 ledger, then the timings."""
+    import torch
+    from repro_torch.kernels.ring_allreduce import (
+        ring_allreduce, ring_allreduce_plain,
+    )
+    xs = _ring_shards(dev, W, N, seed)
+    where = xs.device if N > RING_SIZES[-1] else torch.device("cpu")
+    want_y, want_res = ring_allreduce_plain(xs.to(where), wire)
+    y, res = ring_allreduce(xs, wire, replicas=True)
+    torch.cuda.synchronize()
+    for d in range(W):
+        if not torch.equal(y[d].to(where), want_y):
+            raise AssertionError(f"ring {label}: replica {d} differs from "
+                                 f"the plain version")
+    if not torch.equal(res.to(where), want_res):
+        raise AssertionError(f"ring {label}: residuals differ")
+    ledger = 0.0
+    if wire == "int8":
+        total = xs.double().sum(0)
+        led = y[0].double() + res.double().sum(0)
+        ledger = float((led - total).abs().max())
+        limit = 8 * W * float(xs.abs().max()) * 2.0 ** -24
+        if ledger > limit:
+            raise AssertionError(f"ring {label}: ledger off by {ledger:.3e}"
+                                 f" > {limit:.3e}")
+    del y, res, want_y, want_res
+    torch.cuda.empty_cache()
+    ms, call_ms = time_ms(lambda: ring_allreduce(xs, wire, replicas=True),
+                          iters, 2)
+    plain_ms, plain_call_ms = time_ms(
+        lambda: ring_allreduce_plain(xs, wire), iters, 2)
+    lib_ms = lib_call_ms = None
+    if wire == "fp32":
+        lib_ms, lib_call_ms = time_ms(lambda: xs.sum(0), iters, 2)
+    bound_ms, bound_by = ring_bound(W, N, wire)
+    row = dict(case=label, W=W, N=N, wire=wire, max_abs_err=0.0,
+               ledger_max_abs=ledger, ms=ms, plain_ms=plain_ms,
+               library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by,
+               call_ms=call_ms, plain_call_ms=plain_call_ms,
+               library_call_ms=lib_call_ms)
+    log(f"ring_allreduce {json.dumps(row)}")
+    del xs
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_ring(dev) -> dict[str, list[dict]]:
+    """ring_allreduce at the grid and at the DP runs' full-width buffers:
+    bitwise against its plain version, replicas equal, the int8 ledger
+    dequant(y) + sum_d res_d = sum_d x_d within 8 W ulps of the largest
+    shard element; timed (CUDA events and torch.profiler) beside its
+    bound, its plain version and, on the fp32 wire, ``xs.sum(0)``."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models.transformer import num_params, sketch_groups
+    from repro_torch.optim.compression import (
+        CompressionConfig, resolve_countsketch,
+    )
+    rows = []
+    for W in RING_WORKERS:
+        for N in RING_SIZES:
+            for wire in ("fp32", "int8"):
+                rows.append(_ring_case(dev, f"W{W}_N{N}_{wire}", W, N, wire,
+                                       W * 7 + N, 20 if N > 10**5 else 100))
+    cfg = get_arch("tinyllama-1.1b")
+    sketch = sum(3 * cfg.num_layers * w * 17
+                 for w in sketch_groups(cfg).values())
+    fused, overlap = DP_RUNS["fused_w4"], DP_RUNS["overlap_w2"]
+    cs = resolve_countsketch(CompressionConfig(**overlap["compression"]),
+                             num_params(cfg))
+    # the segments n (1), scalars (3) and the sketch or the table
+    rows.append(_ring_case(dev, "fused_w4_fp32", fused["workers"],
+                           num_params(cfg) + sketch + 4, "fp32", 11, 3))
+    rows.append(_ring_case(dev, "overlap_w2_int8", overlap["workers"],
+                           sketch, "int8", 12, 20))
+    rows.append(_ring_case(dev, "overlap_w2_cs_fp32", overlap["workers"],
+                           cs.cs_rows * cs.cs_cols + 4, "fp32", 13, 20))
+    return {"ring_allreduce": rows}
+
+
+def _dp_run_config(kind: str, steps: int, batch: int = LM_BATCH,
+                   seq: int = LM_SEQ):
+    from repro_torch.models.transformer import SketchSettings
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.optim.compression import CompressionConfig
+    from repro_torch.train.state import RunConfig
+    spec = dict(DP_RUNS[kind])
+    comp = spec.pop("compression")
+    workers = spec.pop("workers")
+    return RunConfig(
+        seq_len=seq, global_batch=batch, optimizer=AdamWConfig(lr=3e-4),
+        warmup_steps=min(20, steps // 5 + 1), total_steps=steps,
+        sketch=SketchSettings(enabled=True, k_max=17),
+        compression=CompressionConfig(**comp) if comp else None,
+        dp_axis_name="data", dp_workers=workers, ring_wire=True, **spec)
+
+
+def _dp_expected(run, layers: int, steps: int) -> dict:
+    """Launches of ``steps`` DP steps: each worker's sketched forward
+    updates 2 nodes a layer (the overlap's increment sweep; its second
+    forward consumes the merged tree), one flash forward a layer a
+    forward, one backward a layer; a compressed step inserts each
+    worker's table and takes one top-k; the ring merges once (fused) or
+    twice (overlap: the int8 sketch, then the fp32 gradient wire)."""
+    W, overlap = run.dp_workers, run.dp_collective == "overlap"
+    want = {"sketch_update": 2 * layers * W * steps,
+            "flash_attention": (2 if overlap else 1) * layers * W * steps,
+            "flash_attention_bwd": layers * W * steps,
+            "ring_allreduce": (2 if overlap else 1) * steps}
+    if run.compression is not None:
+        want.update(csvec_insert=W * steps, csvec_topk=steps)
+    return want
+
+
+def _capture_int8_ring():
+    """Wrap the step's flat-segment merge so that its int8 ring calls keep
+    a copy of their inputs (the workers' adjusted increments) and their
+    output. Returns (the record, a function undoing the wrap)."""
+    from repro_torch.optim.flat import tree_map
+    from repro_torch.train import step as step_mod
+    orig = step_mod.psum_flat_segments
+    seen: dict = {}
+
+    def wrapped(trees, **kw):
+        if kw.get("ring") == "int8":
+            trees = [tree_map(lambda t: t.clone(), t) for t in trees]
+            seen["in"], seen["out"] = trees, orig(trees, **kw)
+            return seen["out"]
+        return orig(trees, **kw)
+
+    step_mod.psum_flat_segments = wrapped
+    return seen, lambda: setattr(step_mod, "psum_flat_segments", orig)
+
+
+def _ledger_check(seen: dict) -> dict:
+    """merged + sum_w residual_w = the f32 sum of the workers' adjusted
+    increments, within 8 W ulps of their largest element, leaf by leaf."""
+    import torch
+    from repro_torch.optim.flat import get_path, leaf_paths
+    trees, (merged, res) = seen["in"], seen["out"]
+    W = len(trees)
+    worst = 0.0
+    for p in leaf_paths(merged):
+        xs = torch.stack([get_path(t, p) for t in trees]).double()
+        led = get_path(merged, p).double() + get_path(res, p).double().sum(0)
+        err = float((led - xs.sum(0)).abs().max())
+        limit = 8 * W * float(xs.abs().max()) * 2.0 ** -24
+        if err > limit:
+            raise AssertionError(f"sketch wire ledger {p}: {err:.3e} > "
+                                 f"{limit:.3e}")
+        worst = max(worst, err / max(float(xs.abs().max()), 1e-30))
+    return dict(leaves=len(leaf_paths(merged)), max_err_of_max=worst)
+
+
+def dp_run(dev, cfg, kind: str, steps: int = DP_STEPS,
+           batch: int = LM_BATCH, seq: int = LM_SEQ) -> dict:
+    """One counted, timed run of the W-worker DP step from a fresh state,
+    as ``lm_run``; then, on the int8 sketch wire, one more step whose
+    ring inputs and output are held to the ledger, and one profiled."""
+    import gc
+    import torch
+    from repro_torch.data.pipeline import PipelineConfig, host_batch
+    from repro_torch.train.state import init_train_state
+    from repro_torch.train.step import make_dp_train_step
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    run = _dp_run_config(kind, steps, batch, seq)
+    pipe = PipelineConfig(seed=0, global_batch=batch, seq_len=seq,
+                          vocab=cfg.vocab_size)
+    state = init_train_state(0, cfg, run, device=dev)
+    step = make_dp_train_step(cfg, run)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    losses, stamps = [], [time.perf_counter()]
+    for s in range(steps):
+        tokens, labels = host_batch(pipe, s, device=dev)
+        state, m = step(state, {"tokens": tokens, "labels": labels})
+        losses.append(float(m["loss"]))
+        stamps.append(time.perf_counter())
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    what = f"dp {kind} W={run.dp_workers} B={batch} S={seq}"
+    check_counts(what, launches, _dp_expected(run, cfg.num_layers, steps))
+    if not all(math.isfinite(v) for v in losses) or state.skipped:
+        raise AssertionError(f"{what}: losses {losses}, skipped "
+                             f"{state.skipped}")
+    if peak * 2**20 >= PEAK_LIMIT_BYTES:
+        raise AssertionError(f"{what}: peak {peak:.0f} MiB over 80 GB")
+    step_ms = [(b - a) * 1e3 for a, b in zip(stamps[:-1], stamps[1:])]
+    out = dict(workers=run.dp_workers, layout=run.dp_collective,
+               sketch_wire=run.sketch_wire_dtype, ring_wire=True,
+               compression=DP_RUNS[kind]["compression"], batch=batch,
+               seq=seq, steps=steps, step_ms=statistics.median(step_ms[1:]),
+               step_ms_samples=step_ms, peak_mem_mib=peak, launches=launches,
+               losses=losses, loss_first5=statistics.mean(losses[:5]),
+               loss_last5=statistics.mean(losses[-5:]))
+    if not out["loss_last5"] < out["loss_first5"]:
+        raise AssertionError(f"{what} did not learn: mean loss "
+                             f"{out['loss_first5']:.4f} -> "
+                             f"{out['loss_last5']:.4f}")
+    if run.sketch_wire_dtype == "int8":
+        seen, undo = _capture_int8_ring()
+        try:
+            tokens, labels = host_batch(pipe, steps, device=dev)
+            state, _ = step(state, {"tokens": tokens, "labels": labels})
+            out["ledger"] = _ledger_check(seen)
+        finally:
+            undo()
+        del seen
+    tokens, labels = host_batch(pipe, steps + 1, device=dev)
+    state, out["profile"] = _profile_step(state, step, {"tokens": tokens,
+                                                        "labels": labels})
+    out["profile"]["idle_share"] = max(
+        0.0, 1 - out["profile"]["device_ms"] / out["step_ms"])
+    log(f"{what}: " + json.dumps({k: v for k, v in out.items()
+                                  if k not in ("step_ms_samples",
+                                               "losses")}))
+    del state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_dp_train(dev) -> dict:
+    """tinyllama-1.1b at full width, the DP_RUNS for DP_STEPS steps each:
+    counted, learning, under 80 GB, ring launches every step."""
+    from repro_torch.configs import get_arch
+    cfg = get_arch("tinyllama-1.1b")
+    return {kind: dp_run(dev, cfg, kind) for kind in DP_RUNS}
+
+
+def phase_dp_vs_cpu(dev) -> dict:
+    """Reduced tinyllama, W 4, B 8 x S 16, 3 steps of each DP_RUNS
+    setting on the card (the kernels) and on the CPU (their plain
+    versions), from the same state: losses within rtol TOL, parameters
+    within TOL * max|CPU|; the fp32 sketch wire's tree within TOL * max,
+    the int8 wire's tree plus the workers' ledgers (an int8 code may move
+    one step where the increments differ in their last bits)."""
+    import torch
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.data.pipeline import PipelineConfig, host_batch
+    from repro_torch.optim.flat import FlatLayout
+    from repro_torch.train.state import init_train_state
+    from repro_torch.train.step import make_dp_train_step
+
+    cfg = reduced(get_arch("tinyllama-1.1b"))
+    B, S, steps = 8, 16, 3
+    pipe = PipelineConfig(seed=3, global_batch=B, seq_len=S,
+                          vocab=cfg.vocab_size)
+    out = {}
+    for kind in DP_RUNS:
+        run = dataclasses.replace(_dp_run_config(kind, steps, B, S),
+                                  dp_workers=4)
+        cpu0 = init_train_state(0, cfg, run, device="cpu")
+
+        def drive(where):
+            state = init_train_state(0, cfg, run, device=where,
+                                     params=cpu0.params, sketch=cpu0.sketch)
+            step = make_dp_train_step(cfg, run)
+            reset_counts()
+            losses = []
+            for s in range(steps):
+                tokens, labels = host_batch(pipe, s)
+                state, m = step(state, {"tokens": tokens.to(where),
+                                        "labels": labels.to(where)})
+                losses.append(float(m["loss"]))
+            torch.cuda.synchronize()
+            return state, losses, read_counts()
+
+        got, loss_d, launches = drive(dev)
+        want, loss_c, _ = drive(torch.device("cpu"))
+        check_counts(f"dp {kind} on the card against the CPU", launches,
+                     _dp_expected(run, cfg.num_layers, steps))
+        torch.testing.assert_close(torch.tensor(loss_d), torch.tensor(loss_c),
+                                   rtol=TOL, atol=0)
+        lay = FlatLayout(want.params)
+        p_d, p_c = lay.ravel(got.params).cpu(), lay.ravel(want.params)
+        torch.testing.assert_close(p_d, p_c, rtol=0,
+                                   atol=TOL * float(p_c.abs().max()))
+        tree_err = 0.0
+        for n, node in want.sketch.nodes.items():
+            for a in "xyz":
+                t_c = getattr(node, a)
+                t_d = getattr(got.sketch.nodes[n], a).cpu()
+                if run.sketch_wire_dtype == "int8":
+                    t_c = t_c + want.opt["sketch_err"][n][a].sum(0)
+                    t_d = t_d + got.opt["sketch_err"][n][a].cpu().sum(0)
+                scale = float(t_c.abs().max())
+                torch.testing.assert_close(t_d, t_c, rtol=TOL,
+                                           atol=TOL * scale)
+                tree_err = max(tree_err, float((t_d - t_c).abs().max())
+                               / max(scale, 1e-30))
+        out[kind] = dict(losses_card=loss_d, losses_cpu=loss_c,
+                         params_max_abs_diff=float((p_d - p_c).abs().max()),
+                         tree_max_diff_of_max=tree_err, launches=launches)
+        log(f"dp {kind} device vs cpu: " + json.dumps(out[kind]))
+    return out
+
+
+def phase_dp_launcher(dev) -> dict:
+    """``launch.train --reduced --dp 4 --dp-collective overlap
+    --sketch-wire-dtype int8 --ring-wire --compress countsketch --cs-p2 2``
+    on the card for 4 steps, checkpointing every 2, then again to 6 steps
+    from the checkpoint: the per-worker ledgers restore
+    (``per_worker_v1``, 4 workers), two ring merges a step."""
+    import tempfile
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.launch import train as train_launcher
+
+    layers = reduced(get_arch("tinyllama-1.1b")).num_layers
+    flags = ["--reduced", "--dp", "4", "--dp-collective", "overlap",
+             "--sketch-wire-dtype", "int8", "--ring-wire", "--compress",
+             "countsketch", "--cs-p2", "2", "--ckpt-every", "2"]
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        reset_counts()
+        first, h1 = train_launcher.main(flags + ["--steps", "4",
+                                                 "--ckpt-dir", ckpt_dir])
+        meta = Checkpointer(ckpt_dir).metadata()
+        again, h2 = train_launcher.main(flags + ["--steps", "6",
+                                                 "--ckpt-dir", ckpt_dir])
+        launches = read_counts()
+    if (len(h1), len(h2), again.step) != (4, 2, 6) or again.skipped:
+        raise AssertionError(f"dp launcher: {len(h1)} + {len(h2)} steps, "
+                             f"at step {again.step}")
+    if (meta.get("residual_layout"), meta.get("dp_workers")) != (
+            "per_worker_v1", 4):
+        raise AssertionError(f"dp launcher checkpoint metadata {meta}")
+    if tuple(again.opt["err"]["u"].shape[:1]) != (4,):
+        raise AssertionError("dp launcher: per-worker err not restored")
+    check_counts("dp launcher", launches, {
+        "sketch_update": 2 * layers * 4 * 6, "flash_attention":
+        2 * layers * 4 * 6, "flash_attention_bwd": layers * 4 * 6,
+        "csvec_insert": 4 * 6, "csvec_topk": 6, "ring_allreduce": 2 * 6})
+    losses = [h["loss"] for h in h1 + h2]
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"dp launcher losses {losses}")
+    out = dict(steps=6, resumed_at=4, losses=losses, launches=launches,
+               metadata={k: meta[k] for k in ("residual_layout",
+                                              "dp_workers")})
+    log("dp launcher: " + json.dumps(out))
+    return out
+
+
 def phase_device_vs_cpu(dev, arch="tinyllama-1.1b", S0=8, refill_len=8,
                         max_context=32, tol=TOL, scaled=False) -> dict:
     """A reduced model in f32 served on the card and on the CPU, from the
@@ -1637,6 +2065,7 @@ def main() -> int:
     kernel_rows.update(phase_cs_kernels(dev))
     kernel_rows.update(phase_flash(dev))
     kernel_rows.update(phase_mlstm(dev))
+    kernel_rows.update(phase_ring(dev))
     saved_bytes = phase_saved_bytes(dev)
     serve = phase_serve(dev, get_arch("tinyllama-1.1b"), batch=8,
                         prompt_len=128, new_tokens=32, refill_len=64,
@@ -1660,6 +2089,12 @@ def main() -> int:
     lm_step_dvc = phase_lm_step_device_vs_cpu(dev)
     lm = phase_lm_train(dev)
     launcher = phase_launcher(dev)
+    t_dp = time.perf_counter()
+    dp = phase_dp_train(dev)
+    dp_dvc = phase_dp_vs_cpu(dev)
+    dp_launcher = phase_dp_launcher(dev)
+    dp_phases_s = time.perf_counter() - t_dp
+    log(f"data-parallel phases: {dp_phases_s:.1f} s")
 
     # launches on every counted run of the paths, and per path
     by_path = {"serve/gaussian": serve["launches"],
@@ -1675,7 +2110,10 @@ def main() -> int:
                **{f"lm_step_vs_cpu/{k}": v["launches"]
                   for k, v in lm_step_dvc.items()},
                **{f"lm/{k}": v["launches"] for k, v in lm.items()},
-               "lm_launcher": launcher["launches"]}
+               "lm_launcher": launcher["launches"],
+               **{f"dp/{k}": v["launches"] for k, v in dp.items()},
+               **{f"dp_vs_cpu/{k}": v["launches"] for k, v in dp_dvc.items()},
+               "dp_launcher": dp_launcher["launches"]}
     sources = {"sketch_update": ("src/repro_torch/csrc/sketch_update.cu",
                                  "src/repro/kernels/sketch_update.py:60",
                                  "prefill"),
@@ -1701,7 +2139,10 @@ def main() -> int:
                    "tinyllama_ctx"),
                "mlstm_chunk": ("src/repro_torch/csrc/mlstm_chunk.cu",
                                "src/repro/kernels/mlstm_chunk.py:74",
-                               "serve_bf16")}
+                               "serve_bf16"),
+               "ring_allreduce": ("src/repro_torch/csrc/ring_allreduce.cu",
+                                  "src/repro/kernels/ring_allreduce.py:209",
+                                  "fused_w4_fp32")}
     kernels = []
     for name, (source, replaces, main_case) in sources.items():
         rows = kernel_rows[name]
@@ -1726,7 +2167,9 @@ def main() -> int:
         serve_xlstm=serve_xlstm, device_vs_cpu=dvc,
         device_vs_cpu_xlstm=dvc_xlstm, mnist_mlp=mnist, monitor_pair=pair,
         train_device_vs_cpu=train_dvc, lm_step_device_vs_cpu=lm_step_dvc,
-        lm_train=lm, lm_launcher=launcher),
+        lm_train=lm, lm_launcher=launcher, dp_train=dp,
+        dp_device_vs_cpu=dp_dvc, dp_launcher=dp_launcher,
+        dp_phases_s=dp_phases_s),
         indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

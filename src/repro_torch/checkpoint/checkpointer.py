@@ -13,10 +13,13 @@ A state is any nesting of dataclasses, dicts, lists and tuples. Its
 leaves are tensors and Python numbers; they are saved as numpy arrays
 (bf16 as f32) in walk order, and ``restore`` puts them back into the
 structure, dtypes and devices of a template state. Anything else (None,
-strings, devices) is taken from the template. The per-worker residual
-gather and scatter of the data-parallel reference are ROADMAP A11; the
-pre-NodeTree checkpoint migration (``sketches/compat.py``) is out of
-scope (ROADMAP A14).
+strings, devices) is taken from the template; a leaf keeps the saved
+shape. The data-parallel state holds its per-worker ledgers stacked on a
+leading (W, ...) axis, the reference's ``per_worker_v1`` layout as its
+``gather_per_worker`` makes it, so no gather or scatter is needed;
+``train.loop`` writes the layout's metadata and splits the ledgers on a
+restart at another worker count. The pre-NodeTree checkpoint migration
+(``sketches/compat.py``) is out of scope (ROADMAP A14).
 """
 from __future__ import annotations
 
@@ -31,6 +34,9 @@ import numpy as np
 import torch
 
 _NUMBERS = (bool, int, float)
+# the metadata value of checkpoints whose per-worker ledgers are stacked
+# (W, ...) by worker
+RESIDUAL_LAYOUT = "per_worker_v1"
 
 
 def _walk(obj, path: str = ""):

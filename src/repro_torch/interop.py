@@ -68,11 +68,21 @@ def adamw_state_from_jax(state: dict, device="cpu") -> dict:
 
 
 def error_feedback_from_jax(err, device="cpu"):
-    """Compression error feedback: countsketch's flat {u, v}, or top-k's
-    tree shaped like the LM parameters."""
+    """Compression error feedback: countsketch's flat {u, v} (or, from a
+    data-parallel run, its per-worker ledgers stacked (W, D) as
+    ``checkpoint.checkpointer.gather_per_worker`` stacks them), or
+    top-k's tree shaped like the LM parameters."""
     if set(err) == {"u", "v"}:
         return {k: _tensor(v, device) for k, v in err.items()}
     return params_from_jax(err, device)
+
+
+def sketch_err_from_jax(ledger, device="cpu") -> dict:
+    """The int8 sketch wire's per-worker residual ledgers, {node: {"x",
+    "y", "z"}} with (W, ...) leaves stacked per worker as
+    ``gather_per_worker`` stacks them."""
+    return {name: {a: _tensor(ledger[name][a], device) for a in "xyz"}
+            for name in sorted(ledger)}
 
 
 def csvec_params_from_jax(params) -> tuple[tuple[int, ...], ...]:

@@ -18,6 +18,10 @@ its plain PyTorch version (taken for CPU tensors) and a launch counter:
                     src/repro/kernels/ref.py::flash_attention_ref)
     mlstm_chunk     chunkwise stabilised mLSTM forward from a zero state
                     (replaces src/repro/kernels/mlstm_chunk.py)
+    ring_allreduce  the data-parallel merge of W workers' flat buffers:
+                    the pipelined chain on an fp32 or int8 wire, run
+                    over W regions of one card
+                    (replaces src/repro/kernels/ring_allreduce.py)
 
 The package re-exports nothing: a function re-exported under its
 module's name would hide the module (``repro_torch.kernels.psparse_update``

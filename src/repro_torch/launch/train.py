@@ -1,17 +1,24 @@
-"""LM training launcher, one device (counterpart of
+"""LM training launcher on one device (counterpart of
 ``repro.launch.train``).
 
     PYTHONPATH=src python -m repro_torch.launch.train \\
         --arch tinyllama-1.1b --reduced --steps 20 --device cpu
     PYTHONPATH=src python -m repro_torch.launch.train \\
         --reduced --compress countsketch --cs-p2 2 --wire-dtype int8
+    PYTHONPATH=src python -m repro_torch.launch.train --reduced \\
+        --dp 4 --dp-collective overlap --sketch-wire-dtype int8 \\
+        --ring-wire --compress countsketch --cs-p2 2 --device cpu
 
 Runs on the CUDA device unless ``--device`` names another: sketched
 backprop on the FFN (``--no-sketch`` for exact backprop), AdamW with
 warmup-cosine, the NaN guard, checkpoints every ``--ckpt-every`` steps,
-and optional count-sketch (or top-k) gradient compression. The
-reference's data-parallel and mesh flags raise, naming the ROADMAP item
-that ports them.
+and optional count-sketch (or top-k) gradient compression. ``--dp W``
+runs the data-parallel step with W workers in this process, in the
+``--dp-collective`` layout, with the sketch increments on an fp32 or
+int8 wire (``--sketch-wire-dtype``; ``--wire-dtype`` is the count-sketch
+table's) and, with ``--ring-wire``, merged through the ring kernel. The
+reference's mesh flags (``--dp-pods``, ``--dp-merge reduce_scatter``,
+``--debug-mesh``, ``--multi-pod``) raise, naming ROADMAP A14.
 """
 from __future__ import annotations
 
@@ -23,13 +30,10 @@ from repro_torch.models.transformer import SketchSettings
 from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.optim.compression import CompressionConfig
 from repro_torch.train.loop import LoopConfig, run_training
-from repro_torch.train.state import RunConfig
+from repro_torch.train.state import ConfigError, RunConfig
 
-# flag -> the ROADMAP item that ports it
-NOT_PORTED = {
-    "dp": "A11", "dp_pods": "A11", "ring_wire": "A11",
-    "debug_mesh": "A14", "multi_pod": "A14",
-}
+# the reference's mesh flags, which ROADMAP A14 ports
+NOT_PORTED = ("dp_pods", "debug_mesh", "multi_pod")
 
 
 def main(argv=None):
@@ -60,17 +64,29 @@ def main(argv=None):
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda)")
-    ap.add_argument("--dp", type=int, default=0, metavar="W")
+    ap.add_argument("--dp", type=int, default=0, metavar="W",
+                    help="W data-parallel workers, run in this process "
+                         "(the global batch must divide by W)")
+    ap.add_argument("--dp-collective", default="fused",
+                    choices=["fused", "per_node", "overlap"],
+                    help="data-parallel collective layout")
+    ap.add_argument("--sketch-wire-dtype", default="fp32",
+                    choices=["fp32", "int8"],
+                    help="precision of the sketch increments on the "
+                         "data-parallel wire")
+    ap.add_argument("--ring-wire", action="store_true",
+                    help="merge the flat-segment buffer through the ring "
+                         "all-reduce kernel instead of the psum")
+    ap.add_argument("--dp-merge", default="psum",
+                    choices=["psum", "reduce_scatter"])
     ap.add_argument("--dp-pods", type=int, default=0, metavar="P")
-    ap.add_argument("--ring-wire", action="store_true")
     ap.add_argument("--debug-mesh", action="store_true")
     ap.add_argument("--multi-pod", action="store_true")
     args = ap.parse_args(argv)
-    for flag, item in NOT_PORTED.items():
+    for flag in NOT_PORTED:
         if getattr(args, flag):
             raise NotImplementedError(
-                f"--{flag.replace('_', '-')} is not ported yet: ROADMAP "
-                f"{item}")
+                f"--{flag.replace('_', '-')} is not ported yet: ROADMAP A14")
 
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(name)s %(message)s")
@@ -81,14 +97,22 @@ def main(argv=None):
     if args.compress != "none":
         compression = CompressionConfig(mode=args.compress, cs_p2=args.cs_p2,
                                         wire_dtype=args.wire_dtype)
-    run = RunConfig(
-        seq_len=args.seq_len, global_batch=args.batch,
-        optimizer=AdamWConfig(lr=args.lr),
-        warmup_steps=min(20, args.steps // 5 + 1), total_steps=args.steps,
-        sketch=SketchSettings(enabled=not args.no_sketch, k_max=17,
-                              proj_kind=args.proj_kind,
-                              proj_density=args.proj_density),
-        compression=compression)
+    try:
+        run = RunConfig(
+            seq_len=args.seq_len, global_batch=args.batch,
+            optimizer=AdamWConfig(lr=args.lr),
+            warmup_steps=min(20, args.steps // 5 + 1),
+            total_steps=args.steps,
+            sketch=SketchSettings(enabled=not args.no_sketch, k_max=17,
+                                  proj_kind=args.proj_kind,
+                                  proj_density=args.proj_density),
+            compression=compression,
+            dp_axis_name="data" if args.dp else None,
+            dp_workers=args.dp or 1, dp_collective=args.dp_collective,
+            dp_merge=args.dp_merge, sketch_wire_dtype=args.sketch_wire_dtype,
+            ring_wire=args.ring_wire)
+    except ConfigError as e:
+        raise SystemExit(f"invalid flag combination: {e}")
     loop = LoopConfig(num_steps=args.steps, ckpt_every=args.ckpt_every,
                       ckpt_dir=args.ckpt_dir, log_every=10)
     state, hist = run_training(cfg, run, loop, device=args.device)

@@ -45,7 +45,8 @@ from repro_torch.models.layers import (
 )
 from repro_torch.optim.flat import leaf_paths
 from repro_torch.sketches import (
-    NodeSpec, NodeTree, SketchNode, init_node_tree, proj_triple_update,
+    NodeSpec, NodeTree, SketchNode, init_node_tree, proj_triple_increment,
+    proj_triple_update,
 )
 from repro_torch.sketches.linear import sketched_matmul
 
@@ -70,8 +71,12 @@ class SketchSettings:
     factored: bool = True           # low-rank weight-gradient products
     proj_kind: str = "gaussian"     # gaussian | psparse
     proj_density: float = 0.1       # psparse nonzero fraction p
-    # the reference's data-parallel layouts (per-node psums inside the
-    # forward, deferred increments, a pre-merged tree): ROADMAP A11
+    # the data-parallel layouts (train.step): per-node psums
+    # (``dp_axis``, run by the step as the phases below), deferred
+    # increments (``dp_defer``: the forward emits each node's local
+    # (1-beta)-scaled increments and consumes the incoming tree, merged
+    # through the previous step) and a pre-merged tree (``dp_premerged``:
+    # the forward consumes the tree as given and emits nothing)
     dp_axis: str | None = None
     dp_defer: bool = False
     dp_premerged: bool = False
@@ -80,10 +85,23 @@ class SketchSettings:
 
     def __post_init__(self):
         validate_proj_kind(self.proj_kind)
-        if self.dp_axis is not None or self.dp_defer or self.dp_premerged:
-            raise NotImplementedError(
-                "the data-parallel sketch layouts (dp_axis, dp_defer, "
-                "dp_premerged) are not ported yet: ROADMAP A11")
+        if self.dp_defer and self.dp_axis is not None:
+            raise ValueError(
+                "SketchSettings.dp_defer (fused one-psum step) and "
+                "dp_axis (per-node psum inside the forward) are "
+                "mutually exclusive collective layouts")
+        if self.dp_premerged and (self.dp_defer or
+                                  self.dp_axis is not None):
+            raise ValueError(
+                "SketchSettings.dp_premerged consumes an already-merged "
+                "tree: it excludes both dp_defer (increment emission) "
+                "and dp_axis (per-node psums inside the forward)")
+        if self.serve_monitor and (self.dp_defer or self.dp_premerged
+                                   or self.dp_axis is not None):
+            raise ValueError(
+                "SketchSettings.serve_monitor is the single-program "
+                "serving path: it excludes the DP training layouts "
+                "(dp_axis / dp_defer / dp_premerged)")
 
 
 def sketch_groups(cfg: ArchConfig) -> dict[str, int]:
@@ -181,6 +199,22 @@ def num_params(cfg: ArchConfig) -> int:
                            for kind in cfg.layer_types)
 
 
+def num_reference_leaves(cfg: ArchConfig) -> int:
+    """``len(reference_leaves(init_params(gen, cfg), cfg))``, counted from
+    the config without allocating the parameters: the embedding's leaves
+    (and the untied head's), the final norm's, then each block's norm1,
+    mixer and, with an MLP, norm2 and its weights, once a pattern
+    position (stacked over the groups) and once a tail layer."""
+    _check_ported(cfg)
+    P, G = len(cfg.pattern), cfg.num_groups
+    mlp = {"none": 0, "swiglu": 4, "gelu": 3}[cfg.mlp_type]
+    mix = {"mlstm": 8, "slstm": 4}
+    kinds = cfg.layer_types[:P] if G else ()
+    kinds = [*kinds, *cfg.layer_types[G * P:]]
+    return (1 if cfg.tie_embeddings else 2) + 1 + sum(
+        1 + mix.get(kind, 4) + mlp for kind in kinds)
+
+
 def reference_leaves(params: dict, cfg: ArchConfig) -> list[list[tuple]]:
     """The reference's parameter leaves, in the order
     ``jax.flatten_util.ravel_pytree`` lays out its stacked tree, each as
@@ -245,34 +279,45 @@ def _monitor_active(mode: str, st: SketchSettings) -> bool:
 
 
 def _update_triple(node: SketchNode, a: Tensor, proj, k_active,
-                   st: SketchSettings) -> SketchNode:
-    """One layer's node, updated on activation ``a`` (T, d)."""
+                   st: SketchSettings) -> tuple[SketchNode, SketchNode]:
+    """One layer's node on activation ``a`` (T, d): (the node the layer
+    consumes, the node it emits). Plainly both are the updated node;
+    under ``dp_defer`` the layer consumes the incoming node and emits its
+    local increments; under ``dp_premerged`` both are the incoming
+    node."""
+    if st.dp_premerged:
+        return node, node
+    if st.dp_defer:
+        ix, iy, iz = proj_triple_increment(node.x, node.y, node.z, a, proj,
+                                           node.psi, st.beta, k_active)
+        return node, SketchNode(x=ix, y=iy, z=iz, psi=node.psi)
     xs, ys, zs = proj_triple_update(node.x, node.y, node.z, a, proj,
                                     node.psi, st.beta, k_active)
-    return SketchNode(x=xs, y=ys, z=zs, psi=node.psi)
+    new = SketchNode(x=xs, y=ys, z=zs, psi=node.psi)
+    return new, new
 
 
 def _apply_sketched_mlp(p, x, cfg, sk, proj, omega, k_active,
                         st: SketchSettings):
     """Dense FFN with sketched backprop on both matmuls; returns (y,
-    {"ffn_in", "ffn_h"} updated nodes of this layer)."""
+    {"ffn_in", "ffn_h"} emitted nodes of this layer)."""
     B, S, d = x.shape
     xf = x.reshape(B * S, d)
-    n_in = _update_triple(sk["ffn_in"], xf, proj, k_active, st)
+    c_in, n_in = _update_triple(sk["ffn_in"], xf, proj, k_active, st)
 
     def mm(a, w, t):
         return sketched_matmul(a, w.to(a.dtype), t.x, t.y, t.z, omega,
                                k_active, st.recon_mode, st.ridge, st.factored)
 
     if cfg.mlp_type == "swiglu":
-        g = mm(xf, p["w_gate"], n_in)
-        u = mm(xf, p["w_up"], n_in)
+        g = mm(xf, p["w_gate"], c_in)
+        u = mm(xf, p["w_up"], c_in)
         h = F.silu(g.float()).to(x.dtype) * u
     else:
-        h = F.gelu(mm(xf, p["w_up"], n_in).float(),
+        h = F.gelu(mm(xf, p["w_up"], c_in).float(),
                    approximate="tanh").to(x.dtype)
-    n_h = _update_triple(sk["ffn_h"], h, proj, k_active, st)
-    return mm(h, p["w_down"], n_h).reshape(B, S, d), {"ffn_in": n_in,
+    c_h, n_h = _update_triple(sk["ffn_h"], h, proj, k_active, st)
+    return mm(h, p["w_down"], c_h).reshape(B, S, d), {"ffn_in": n_in,
                                                       "ffn_h": n_h}
 
 
@@ -327,6 +372,11 @@ def forward(
     MoE balance loss of the reference) is 0 for these dense archs.
     """
     _check_ported(cfg)
+    if settings.dp_axis is not None:
+        raise ValueError(
+            "SketchSettings.dp_axis: one worker's forward cannot psum "
+            "across workers; train.step runs the per-node layout as a "
+            "dp_defer sweep, the merge and a dp_premerged sweep")
     if mode == "train" and set(cfg.pattern) & set(RECURRENT_KINDS):
         raise NotImplementedError(f"{cfg.name}: {RECURRENT_TRAINING}")
     B, S = tokens.shape
@@ -365,7 +415,7 @@ def forward(
             new_sk = {"res": _update_triple(
                 SketchNode(x=res.x[l], y=res.y[l], z=res.z[l],
                            psi=res.psi[l]),
-                x.reshape(B * S, d), proj, k_active, settings)}
+                x.reshape(B * S, d), proj, k_active, settings)[1]}
         for name, node in new_sk.items():
             for acc, t in zip(new[name], (node.x, node.y, node.z)):
                 acc.append(t)

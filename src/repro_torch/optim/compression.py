@@ -9,8 +9,9 @@ Two modes, selected by ``CompressionConfig.mode``:
                 ``optim.sketched_sgd``), whose table a data-parallel
                 wire would merge exactly.
 
-The port runs the single-worker case; the data-parallel wire is ROADMAP
-A11. Shapes are static in both modes.
+Here the single-worker case; the data-parallel step (``train.step``)
+merges the workers' tables, or their dense gradients before top-k.
+Shapes are static in both modes.
 """
 from __future__ import annotations
 

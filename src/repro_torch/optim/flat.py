@@ -88,9 +88,19 @@ class FlatLayout:
 
     def unravel(self, flat: Tensor):
         """The tree over ``flat``: every leaf is a view into it."""
-        out = tree_map(lambda t: None, self._template)
-        offset = 0
-        for path, shape, size in zip(self.paths, self.shapes, self.sizes):
-            _set_path(out, path, flat[offset:offset + size].view(shape))
+        views, offset = [], 0
+        for shape, size in zip(self.shapes, self.sizes):
+            views.append(flat[offset:offset + size].view(shape))
             offset += size
+        return self.tree_of(views)
+
+    def tree_of(self, leaves):
+        """The tree holding ``leaves``, given in layout order."""
+        out = tree_map(lambda t: None, self._template)
+        for path, leaf in zip(self.paths, leaves):
+            _set_path(out, path, leaf)
         return out
+
+    def leaves(self, tree) -> list[Tensor]:
+        """The tree's leaves in layout order."""
+        return [get_path(tree, p) for p in self.paths]

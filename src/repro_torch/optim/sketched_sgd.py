@@ -21,9 +21,13 @@ sketch, top-k and quantisation go through the kernels ``csvec_insert``,
 The gradient tree is flattened in the order of a ``FlatLayout``; the LM
 step passes the reference's ``ravel_pytree`` order
 (``models.transformer.flat_paths``), so hash coefficients injected from
-the reference put every coordinate in the same buckets. With a data
--parallel axis the table would be merged across workers; that wire is
-ROADMAP A11 and ``axis_name`` raises.
+the reference put every coordinate in the same buckets.
+
+Data parallel (``train.step``): each worker's ``countsketch_local``
+sketches its own residual, the step merges the tables, and
+``countsketch_finish_dp`` recovers the update once from the merged table
+(the p2 round psums the workers' exact values at the common candidates)
+and takes each worker's new {u, v} from its own local state.
 
 Memory: at tinyllama-1.1b's D = 1.1e9 each flat vector is 4.4 GB. The
 step makes u, v_pre and the dense update, and derives the new v and u
@@ -87,20 +91,24 @@ class CountsketchLocal:
 
 
 def countsketch_local(grads, err_state, cfg, layout: FlatLayout | None = None,
-                      params=None) -> CountsketchLocal:
+                      params=None, out: dict | None = None
+                      ) -> CountsketchLocal:
     """Everything before the table merge: momentum and error feedback in
     flat space, the sketch of the residual, and (int8 wire) its
     per-row quantise/dequantise. ``params`` overrides the hash
-    coefficients of ``grad_csvec`` (the tests inject the reference's)."""
+    coefficients of ``grad_csvec`` (the tests inject the reference's);
+    ``out`` ({"u", "v"} (D,) tensors) receives u and v_pre instead of
+    new tensors."""
     from repro_torch.optim.compression import resolve_countsketch
 
     layout = layout or FlatLayout(grads)
     flat = layout.ravel(grads)
     cfg = resolve_countsketch(cfg, layout.dim)
-    u = err_state["u"] * cfg.cs_momentum
+    out = out or {"u": None, "v": None}
+    u = torch.mul(err_state["u"], cfg.cs_momentum, out=out["u"])
     u += flat
     del flat
-    v_pre = err_state["v"] + u
+    v_pre = torch.add(err_state["v"], u, out=out["v"])
     cs = grad_csvec(cfg, layout.dim, v_pre.device)
     if params is not None:
         cs = dataclasses.replace(cs, params=params)
@@ -128,18 +136,28 @@ def countsketch_nominate(local: CountsketchLocal, merged: CSVec):
     return cand, local.v_pre[cand]
 
 
-def _apply_update(local: CountsketchLocal, sel_idx: Tensor, sel_val: Tensor):
-    """The dense update and the new {u, v}: v_new = v_pre - update and
-    u_new = u * (1 - sent), taken in place on this step's v_pre and u at
-    the k sent coordinates (everywhere else both are unchanged)."""
+def _dense_update(local: CountsketchLocal, sel_idx: Tensor, sel_val: Tensor):
     update = torch.zeros(local.dim, dtype=torch.float32,
                          device=local.v_pre.device)
     update[sel_idx] = sel_val
+    return update
+
+
+def _new_state(local: CountsketchLocal, sel_idx: Tensor, sel_val: Tensor):
+    """The new {u, v}: v_new = v_pre - update and u_new = u * (1 - sent),
+    taken in place on this step's v_pre and u at the k sent coordinates
+    (everywhere else both are unchanged)."""
     new_v = local.v_pre
     new_v[sel_idx] -= sel_val
     new_u = local.u
     new_u[sel_idx[sel_val != 0.0]] = 0.0
-    return update, {"u": new_u, "v": new_v}
+    return {"u": new_u, "v": new_v}
+
+
+def _apply_update(local: CountsketchLocal, sel_idx: Tensor, sel_val: Tensor):
+    """The dense update and the new {u, v}."""
+    return (_dense_update(local, sel_idx, sel_val),
+            _new_state(local, sel_idx, sel_val))
 
 
 def _stats(local: CountsketchLocal, merged: CSVec, extra: int = 0) -> dict:
@@ -150,16 +168,21 @@ def _stats(local: CountsketchLocal, merged: CSVec, extra: int = 0) -> dict:
             "compression_ratio": wire / (local.dim * 4)}
 
 
+def _select(local: CountsketchLocal, cand, exact, workers):
+    """The top k of the merged exact values (ties to the earlier
+    candidate, as ``lax.top_k``): (coordinates, values / workers)."""
+    exact = exact / workers
+    pos = select_topk(exact.abs(), min(local.cfg.cs_k, local.dim))
+    return cand[pos], exact[pos]
+
+
 def countsketch_complete(local: CountsketchLocal, merged: CSVec, cand,
                          exact, *, workers):
     """The p2 round's second half: the top k of the merged exact values
     (ties to the earlier candidate, as ``lax.top_k``), the update and
     the new {u, v}. Returns ``(update (dim,), sel_idx (k,), sel_val
     (k,), state, stats)``."""
-    k = min(local.cfg.cs_k, local.dim)
-    exact = exact / workers
-    pos = select_topk(exact.abs(), k)
-    sel_idx, sel_val = cand[pos], exact[pos]
+    sel_idx, sel_val = _select(local, cand, exact, workers)
     update, state = _apply_update(local, sel_idx, sel_val)
     return (update, sel_idx, sel_val, state,
             _stats(local, merged, cand.shape[0] * 4))
@@ -181,16 +204,64 @@ def countsketch_finish(local: CountsketchLocal, merged: CSVec, *,
     return local.unravel(update), state, _stats(local, merged)
 
 
+def countsketch_nominate_dp(locals_: list, merged: CSVec):
+    """The p2 round's first half over the workers: the candidates, the
+    same for every worker (the merged table is), and each worker's exact
+    residual values at them."""
+    cfg, dim = locals_[0].cfg, locals_[0].dim
+    n_cand = min(cfg.cs_p2 * min(cfg.cs_k, dim), dim)
+    _, cand = _recover_candidates(merged, n_cand, cfg)
+    return cand, [local.v_pre[cand] for local in locals_]
+
+
+def countsketch_complete_dp(locals_: list, merged: CSVec, cand, exact, *,
+                            workers):
+    """The p2 round's second half over the workers, from the psum of
+    their exact values: ``(update (dim,), sel_idx, sel_val, [each
+    worker's new {u, v}], stats)``, as ``countsketch_complete``."""
+    sel_idx, sel_val = _select(locals_[0], cand, exact, workers)
+    update = _dense_update(locals_[0], sel_idx, sel_val)
+    states = [_new_state(local, sel_idx, sel_val) for local in locals_]
+    return (update, sel_idx, sel_val, states,
+            _stats(locals_[0], merged, cand.shape[0] * 4))
+
+
+def countsketch_finish_dp(locals_: list, merged: CSVec, *, workers):
+    """``countsketch_finish`` across the workers, the reference's with
+    ``axis_name``: the update (a gradient tree of views into one flat
+    vector) recovered once from the merged table, with the p2 round's
+    psum of exact values when ``cs_p2 > 0``, and each worker's new
+    {u, v} from its own local state. Returns (update tree, states,
+    stats)."""
+    from repro_torch.parallel.collectives import traced_psum
+
+    local, cfg = locals_[0], locals_[0].cfg
+    if cfg.cs_p2 > 0:
+        cand, exacts = countsketch_nominate_dp(locals_, merged)
+        exact = traced_psum(exacts, name="cs_p2_values")
+        update, _, _, states, stats = countsketch_complete_dp(
+            locals_, merged, cand, exact, workers=workers)
+        return local.unravel(update), states, stats
+    est, sel_idx = _recover_candidates(merged, min(cfg.cs_k, local.dim), cfg)
+    sel_val = est / workers
+    states = [_new_state(lc, sel_idx, sel_val) for lc in locals_]
+    return (local.unravel(_dense_update(local, sel_idx, sel_val)), states,
+            _stats(local, merged))
+
+
 def compress_grads_countsketch(grads, err_state, cfg, *,
                                axis_name: str | None = None,
                                layout: FlatLayout | None = None,
                                params=None):
     """Returns (compressed grads tree, new {u, v} state, stats): the
-    single-worker case, where the merge is the identity."""
+    single-worker case, where the merge is the identity. One call sees
+    one worker's gradients, so ``axis_name`` raises: the workers' merge
+    is ``countsketch_local`` on each and ``countsketch_finish_dp``."""
     if axis_name is not None:
-        raise NotImplementedError(
-            "countsketch over a data-parallel axis is not ported yet: "
-            "ROADMAP A11")
+        raise ValueError(
+            "compress_grads_countsketch compresses one worker's gradients; "
+            "over a data-parallel axis train.step runs countsketch_local "
+            "on each worker and countsketch_finish_dp on the merged table")
     local = countsketch_local(grads, err_state, cfg, layout, params)
     return countsketch_finish(local, local.cs)
 

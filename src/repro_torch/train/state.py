@@ -1,11 +1,18 @@
 """Train state and run configuration of the LM trainer (counterpart of
-``repro.train.state``), single device.
+``repro.train.state``).
 
-``RunConfig`` keeps the reference's fields. The data-parallel, ring,
-merge and sketch-wire fields exist so that a config reads the same in
-both packages, and any value but the single-device default raises,
-naming the ROADMAP item that ports it (A11 data parallelism, A14 mesh
-sharding).
+``RunConfig`` keeps the reference's fields and its one compatibility
+matrix (``validate``): every invalid combination raises ``ConfigError``
+naming the fields in conflict, as the reference's does. The data
+-parallel step runs W workers in one process (``train.step``); what is
+not ported, the reduce-scatter merge and a dp group over a tuple of mesh
+axes, raises ``NotImplementedError`` naming ROADMAP A14.
+
+The state holds the replicated quantities once (parameters, AdamW
+moments, the sketch tree) and the per-worker ones stacked on a leading
+(W, ...) axis: the count sketch's error feedback {u, v} and the int8
+sketch wire's residual ledger ``opt["sketch_err"]``, which is also the
+layout the checkpoints keep ("per_worker_v1").
 """
 from __future__ import annotations
 
@@ -29,6 +36,8 @@ from repro_torch.optim.compression import (
 )
 from repro_torch.optim.flat import tree_map
 from repro_torch.sketches import NodeTree, node_paths, tree_to
+from repro_torch.core.sketch import PROJ_KINDS
+from repro_torch.sketches.wire import tree_increment_leaves
 
 
 class ConfigError(ValueError):
@@ -54,8 +63,13 @@ class RunConfig:
     compression: CompressionConfig | None = None
     monitor_window: int = 32
     nan_guard: bool = True
-    # the reference's data-parallel and mesh fields; only the
-    # single-device values are ported
+    # data parallelism (train.step): the worker axis' name (None: one
+    # worker), its W workers, the collective layout ("fused": one flat
+    # psum a step; "per_node": one psum a node leaf; "overlap": the
+    # sketch merge before the backward, the gradient wire after), the
+    # merge ("psum"; "reduce_scatter" is ROADMAP A14), the sketch
+    # increments' wire dtype, the ring kernel in place of the psum, and
+    # the p2 round beside the optimizer's dense pass
     dp_axis_name: str | tuple[str, ...] | None = None
     dp_workers: int = 1
     dp_collective: str = "fused"
@@ -67,7 +81,26 @@ class RunConfig:
     def __post_init__(self):
         self.validate()
 
-    def validate(self) -> None:
+    def _field(self, name: str):
+        obj = self
+        for part in name.split("."):
+            obj = getattr(obj, part)
+        return obj
+
+    def _conflict(self, a: str, b: str, why: str):
+        raise ConfigError(
+            (a, b),
+            f"RunConfig: {a}={self._field(a)!r} incompatible with "
+            f"{b}={self._field(b)!r}: {why}")
+
+    def validate(self, *, consumed: bool | None = None) -> None:
+        """The reference's cross-field compatibility matrix: every invalid
+        combination raises one ``ConfigError`` naming its fields. Run at
+        construction; the one row that needs the architecture (a
+        reduce_scatter merge of a sketched-backprop tree needs the
+        overlap layout) checks again when ``make_train_step`` passes
+        ``consumed``. A valid combination the port has not ported raises
+        ``NotImplementedError`` naming ROADMAP A14."""
         if self.dp_workers < 1:
             raise ConfigError(
                 ("dp_workers",),
@@ -89,20 +122,96 @@ class RunConfig:
                 f"RunConfig: sketch_wire_dtype="
                 f"{self.sketch_wire_dtype!r} invalid: must be 'fp32' "
                 f"or 'int8'")
-        not_ported = {
-            "dp_axis_name": (self.dp_axis_name is not None, "A11"),
-            "dp_workers": (self.dp_workers != 1, "A11"),
-            "dp_collective": (self.dp_collective != "fused", "A11"),
-            "sketch_wire_dtype": (self.sketch_wire_dtype != "fp32", "A11"),
-            "ring_wire": (self.ring_wire, "A11 (with the ring kernel, B7)"),
-            "dp_merge": (self.dp_merge != "psum", "A14"),
-        }
-        for name, (set_, item) in not_ported.items():
-            if set_:
-                raise NotImplementedError(
-                    f"RunConfig.{name}={getattr(self, name)!r}: "
-                    f"data-parallel and sharded training are not ported "
-                    f"yet: ROADMAP {item}")
+        if self.sketch.proj_kind not in PROJ_KINDS:
+            raise ConfigError(
+                ("sketch.proj_kind",),
+                f"RunConfig: sketch.proj_kind="
+                f"{self.sketch.proj_kind!r} invalid: must be one of "
+                f"{PROJ_KINDS}")
+        if self.dp_workers > 1 and self.global_batch % self.dp_workers:
+            self._conflict(
+                "global_batch", "dp_workers",
+                "the global batch must be divisible by the worker count")
+        if self.sketch.dp_premerged:
+            self._conflict(
+                "sketch.dp_premerged", "dp_collective",
+                "dp_premerged is internal to the overlap step's phase "
+                "2 — select it with dp_collective='overlap', never "
+                "directly")
+        if self.sketch.dp_defer:
+            if self.dp_collective not in ("fused", "overlap"):
+                self._conflict(
+                    "sketch.dp_defer", "dp_collective",
+                    "a deferred forward emits raw increments that only "
+                    "the flat-segment layouts (fused/overlap) ever merge")
+            if self.dp_axis_name is None:
+                self._conflict(
+                    "sketch.dp_defer", "dp_axis_name",
+                    "a deferred forward emits raw increments that only "
+                    "the flat-segment DP psums ever merge — the "
+                    "single-program step has none")
+        if self.dp_merge == "reduce_scatter":
+            if self.sketch.enabled and self.dp_axis_name is None:
+                self._conflict(
+                    "dp_merge", "dp_axis_name",
+                    "the single-program path has no worker shards to "
+                    "scatter over")
+            if self.dp_collective == "per_node":
+                self._conflict(
+                    "dp_merge", "dp_collective",
+                    "per_node merges inside the forward and cannot "
+                    "scatter; reduce_scatter needs the flat-segment "
+                    "layouts (fused/overlap)")
+            if consumed and self.dp_collective != "overlap":
+                self._conflict(
+                    "dp_merge", "dp_collective",
+                    "a sketched-backprop (consumed) tree requires "
+                    "dp_collective='overlap': the fused layout consumes "
+                    "the previous step's merged triple, which no worker "
+                    "holds under the scattered layout")
+        if self.sketch_wire_dtype == "int8":
+            if self.dp_axis_name is None:
+                self._conflict(
+                    "sketch_wire_dtype", "dp_axis_name",
+                    "int8 quantizes the cross-worker wire — it needs a "
+                    "dp axis")
+            if self.dp_collective == "per_node":
+                self._conflict(
+                    "sketch_wire_dtype", "dp_collective",
+                    "int8 needs the flat-segment layouts (fused/overlap); "
+                    "per_node psums per leaf inside the forward")
+            if self.dp_merge != "psum":
+                self._conflict(
+                    "sketch_wire_dtype", "dp_merge",
+                    "the int8 wire is defined for the psum merge; the "
+                    "reduce_scatter tiles stay f32")
+        if self.ring_wire:
+            if self.dp_axis_name is None or \
+                    not isinstance(self.dp_axis_name, str):
+                self._conflict(
+                    "ring_wire", "dp_axis_name",
+                    "the ring runs on ONE logical ring — a single-axis "
+                    "dp_axis_name (tuple supergroups and the "
+                    "single-program case have no ring order)")
+            if self.dp_collective == "per_node":
+                self._conflict(
+                    "ring_wire", "dp_collective",
+                    "the ring carries the flat-segment buffer; per_node "
+                    "has none")
+            if self.dp_merge != "psum":
+                self._conflict(
+                    "ring_wire", "dp_merge",
+                    "the ring replaces the psum merge; reduce_scatter "
+                    "keeps its own schedule")
+        if self.dp_merge == "reduce_scatter":
+            raise NotImplementedError(
+                "RunConfig.dp_merge='reduce_scatter' (the sharded sketch "
+                "merge) is not ported yet: ROADMAP A14")
+        if isinstance(self.dp_axis_name, tuple):
+            raise NotImplementedError(
+                f"RunConfig.dp_axis_name={self.dp_axis_name!r}: a dp "
+                f"group over a tuple of mesh axes is not ported yet: "
+                f"ROADMAP A14")
 
 
 @dataclasses.dataclass
@@ -133,7 +242,10 @@ def init_train_state(seed: int, cfg, run: RunConfig, *, device=None,
     and then the sketch tree drawn from a generator seeded with ``seed``,
     unless given (the tests pass the reference's), AdamW moments, the
     compression's error feedback, and a monitor ring with one row per
-    node-stack entry."""
+    node-stack entry. The projections are sized for one worker's tokens,
+    ``global_batch // dp_workers * seq_len``; with a dp axis the count
+    sketch's {u, v} and the int8 sketch wire's ledger are (W, ...) zeros,
+    one row a worker."""
     run = finalize_run(cfg, run)
     device = resolve_device(device)
     gen = torch.Generator(device=device)
@@ -145,13 +257,23 @@ def init_train_state(seed: int, cfg, run: RunConfig, *, device=None,
     opt = init_adamw(params, run.optimizer)
     if run.compression is not None:
         opt["err"] = init_error_feedback(params, run.compression)
+        if run.dp_axis_name is not None and \
+                run.compression.mode == "countsketch":
+            opt["err"] = {k: v.expand(run.dp_workers, -1).clone()
+                          for k, v in opt["err"].items()}
     if sketch is None:
-        sketch = init_lm_sketch_state(gen, cfg, run.sketch,
-                                      run.global_batch * run.seq_len)
+        sketch = init_lm_sketch_state(
+            gen, cfg, run.sketch,
+            run.global_batch // run.dp_workers * run.seq_len)
     elif run.sketch.enabled:
         sketch = tree_to(sketch, device)
     else:
         sketch = None
+    if sketch is not None and run.sketch_wire_dtype == "int8":
+        opt["sketch_err"] = tree_map(
+            lambda t: torch.zeros((run.dp_workers,) + tuple(t.shape),
+                                  dtype=t.dtype, device=t.device),
+            tree_increment_leaves(sketch))
     n_rows = (len(node_paths(sketch)) if sketch is not None
               else max(1, len(sketch_groups(cfg))) * cfg.num_layers)
     return TrainState(params=params, opt=opt, sketch=sketch,

@@ -406,8 +406,19 @@ def test_countsketch_compression_matches_reference(p2, wire):
 
 
 def test_data_parallel_axis_names_its_roadmap_item():
+    """The data-parallel wire is ported: one call of the single-worker
+    compressor refuses an axis and names the workers' path, whose finish
+    over one worker is the single-worker result bit for bit."""
     _, tg = _grad_trees(0)
-    cfg = TC.CompressionConfig(mode="countsketch", cs_cols=128)
-    with pytest.raises(NotImplementedError, match="A11"):
-        TS.compress_grads_countsketch(tg, TC.init_error_feedback(tg, cfg),
-                                      cfg, axis_name="data")
+    cfg = TC.CompressionConfig(mode="countsketch", cs_cols=128, cs_p2=2)
+    err = TC.init_error_feedback(tg, cfg)
+    with pytest.raises(ValueError, match="countsketch_finish_dp"):
+        TS.compress_grads_countsketch(tg, err, cfg, axis_name="data")
+    want, want_state, _ = TS.compress_grads_countsketch(tg, err, cfg)
+    local = TS.countsketch_local(tg, err, cfg)
+    got, states, _ = TS.countsketch_finish_dp([local], local.cs, workers=1.0)
+    from repro_torch.optim.flat import tree_leaves
+    for a, b in zip(tree_leaves(got), tree_leaves(want)):
+        assert torch.equal(a, b)
+    for k in ("u", "v"):
+        assert torch.equal(states[0][k], want_state[k])

@@ -42,6 +42,8 @@ def test_port_loads_without_jax():
         "import repro_torch.checkpoint.checkpointer\n"
         "import repro_torch.kernels.flash_attention\n"
         "import repro_torch.models.ssm, repro_torch.kernels.mlstm_chunk\n"
+        "import repro_torch.kernels.ring_allreduce, repro_torch.parallel\n"
+        "import repro_torch.parallel.collectives, repro_torch.sketches.wire\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
         "assert not any(m == 'repro' or m.startswith('repro.')\n"
         "               for m in sys.modules), 'repro was imported'\n")

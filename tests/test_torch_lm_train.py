@@ -308,6 +308,54 @@ def test_one_sketched_step_grads_and_tree_match_reference():
                                        atol=1e-6 * float(w.abs().max()))
 
 
+def test_one_psparse_sketched_step_grads_and_tree_match_reference():
+    """The same with psparse projections (density 0.1) at S 64, so the
+    tree binds 256 tokens and each projection column reads 25 of them:
+    the reference's seeds-only tree carried over, the psparse update's
+    plain version against the reference's jnp path."""
+    Bp, Sp = 4, 64
+    jcfg, tcfg = _cfgs()
+    kw = dict(seq_len=Sp, global_batch=Bp, warmup_steps=2, total_steps=STEPS)
+    jrun = JRunConfig(**kw, optimizer=JAdamWConfig(lr=1e-3),
+                      sketch=JSketchSettings(enabled=True, k_max=K_MAX,
+                                             proj_kind="psparse"))
+    trun = RunConfig(**kw, optimizer=AdamWConfig(lr=1e-3),
+                     sketch=SketchSettings(enabled=True, k_max=K_MAX,
+                                           proj_kind="psparse"))
+    jstate = jax_init_train_state(jax.random.PRNGKey(6), jcfg, jrun)
+    state = _port_state(jstate, tcfg, trun)
+    assert state.sketch.proj.num_tokens == Bp * Sp
+    tok, lab = jax_lm_batch(jax.random.PRNGKey(7), Bp, Sp, jcfg.vocab_size)
+    tb = {"tokens": torch.tensor(_np(tok), dtype=torch.int64),
+          "labels": torch.tensor(_np(lab), dtype=torch.int64)}
+
+    def loss_fn(params, sketch):
+        out = jax_forward(params, tok, cfg=jcfg, mode="train",
+                          sketch_state=sketch, settings=jrun.sketch)
+        ce = jax_cross_entropy(out["logits"], lab, jrun.z_weight)
+        return ce + jrun.aux_weight * out["aux"], out["sketch_state"]
+
+    (jloss, jtree), jgrads = jax.value_and_grad(loss_fn, has_aux=True)(
+        jstate.params, jstate.sketch)
+    loss, _, _, grads, tree = make_train_step(tcfg, trun).loss_and_grads(
+        state, tb)
+    np.testing.assert_allclose(float(loss), float(jloss), rtol=1e-6)
+    want = interop.params_from_jax(_tree_np(jgrads))
+    lay = FlatLayout(want)
+    for gl, wl in zip(lay.unravel(lay.ravel(grads)).values(), want.values()):
+        for g, w in zip(jax.tree.leaves(gl), jax.tree.leaves(wl)):
+            torch.testing.assert_close(g, w, rtol=1e-4,
+                                       atol=1e-5 * float(w.abs().max()))
+    wtree = interop.tree_from_jax(_tree_np(jtree))
+    assert tree.step == wtree.step == 1
+    for name in ("ffn_in", "ffn_h"):
+        for a in ("x", "y", "z"):
+            w = getattr(wtree.nodes[name], a)
+            torch.testing.assert_close(getattr(tree.nodes[name], a), w,
+                                       rtol=1e-5,
+                                       atol=1e-6 * float(w.abs().max()))
+
+
 def test_forward_train_and_eval_logits_match_reference():
     jcfg, tcfg = _cfgs()
     from repro.models.transformer import init_params as jax_init_params
@@ -476,21 +524,25 @@ def test_launcher_rerun_of_a_finished_run_takes_no_step(tmp_path, capsys):
 
 
 def test_data_parallel_and_mesh_options_name_their_roadmap_item(monkeypatch):
-    for kw, item in ((dict(dp_axis_name="data"), "A11"),
-                     (dict(dp_workers=2), "A11"),
-                     (dict(sketch_wire_dtype="int8"), "A11"),
-                     (dict(ring_wire=True), "A11"),
-                     (dict(dp_merge="reduce_scatter"), "A14")):
-        with pytest.raises(NotImplementedError, match=item):
+    """Data parallelism over one worker axis is ported (test_torch_dp.py);
+    the sharded merge and dp groups over several mesh axes raise naming
+    ROADMAP A14, in RunConfig and in the launcher."""
+    for kw in (dict(dp_merge="reduce_scatter", dp_axis_name="data",
+                    dp_workers=2, dp_collective="overlap"),
+               dict(dp_axis_name=("pod", "data"), dp_workers=2)):
+        with pytest.raises(NotImplementedError, match="A14"):
             RunConfig(seq_len=8, global_batch=2, **kw)
-    with pytest.raises(NotImplementedError, match="A11"):
-        SketchSettings(dp_defer=True)
-    for flag, item in (("--dp", "A11"), ("--debug-mesh", "A14"),
-                       ("--multi-pod", "A14"), ("--ring-wire", "A11")):
-        argv = ["--reduced", "--device", "cpu", flag] + (
-            ["4"] if flag == "--dp" else [])
-        with pytest.raises(NotImplementedError, match=item):
+    RunConfig(seq_len=8, global_batch=2, dp_axis_name="data", dp_workers=2,
+              sketch_wire_dtype="int8", ring_wire=True)
+    assert SketchSettings(dp_defer=True).dp_defer
+    for flags in (["--dp-pods", "2"], ["--debug-mesh"], ["--multi-pod"],
+                  ["--dp", "2", "--dp-merge", "reduce_scatter",
+                   "--dp-collective", "overlap"]):
+        argv = ["--reduced", "--device", "cpu"] + flags
+        with pytest.raises(NotImplementedError, match="A14"):
             train_launcher.main(argv)
+    with pytest.raises(SystemExit, match="invalid flag combination"):
+        train_launcher.main(["--reduced", "--device", "cpu", "--ring-wire"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         train_launcher.main(["--reduced", "--steps", "1"])
