@@ -11,9 +11,25 @@ built at first use by ``kernels._build`` and called through ``ctypes``.
 
 Layout as the TPU kernel's: q (B, Hq, S, D), k and v (B, Hkv, S, D);
 query head h reads KV head h // (Hq // Hkv). Scores are f32, scaled by
-D^-1/2, masked (q >= k, and q - k < window) with -1e30; softmax
-and P V run in f32 and o comes back in q's type, with the row
-log-sum-exp lse = m + log(max(l, 1e-30)) in f32. Any S >= 1.
+D^-1/2, masked (q >= k, and q - k < window); o comes back in q's type,
+with the row log-sum-exp lse = m + log(max(l, 1e-30)) in f32. Any
+S >= 1. The plain versions compute the function in f32 throughout.
+
+The kernels take two paths, by the input type alone:
+
+- bf16 (head_dim 64, 128, 160): the tensor cores. Every product is a
+  ``wgmma`` with f32 accumulators on tiles that TMA brings into shared
+  memory through 4-D tensor maps of the tensors' own strides (so the
+  (b, h, s) strides and the base address must be multiples of 16 bytes);
+  a producer warpgroup streams tiles through a two-stage mbarrier ring
+  to two consumer warpgroups of 64 rows. P (forward and backward) and dS
+  are rounded to bf16 before their products, as the JAX model's chunked
+  scan rounds P, so the bf16 results differ from the f32 plain version
+  by that rounding as well as by the final rounding to bf16
+  (``BF16_TOL``, per row). bf16 at head_dim 16 is refused: only
+  the reduced configs have it, and they run in f32.
+- f32 (head_dim 16, 64, 128, 160): the f32 FMA kernels of the first
+  version, exact to the plain version but for the order of the sums.
 
 Bound on an H100 SXM: forward 4 D operations a live (q, k) pair, backward
 10 D (S (S + 1) / 2 live pairs a head, sum_i min(i + 1, w) with a
@@ -25,18 +41,16 @@ bytes, so operations bound it. The kernels skip whole tiles outside the
 causal frontier and the window (the TPU kernel's block skip, as loop
 bounds), keep the running max, sum and accumulator in registers, and
 save only o and lse for the backward: nothing of size S x S reaches
-device memory. This first version computes on the f32 FMA units, so
-bf16 inputs give the plain version's f32 arithmetic and differ from it
-only in summation order and the final rounding to bf16.
+device memory.
 
 ``flash_attention_fwd`` and ``flash_attention_bwd`` take the plain
 versions for CPU tensors and only for them; for CUDA tensors they launch
 the kernels or raise. ``flash_attention_fwd.launches`` counts forward
 launches; ``flash_attention_bwd.launches`` counts backward calls, each
-of which enqueues two or three kernels (the dq pass, which also writes
-delta = rowsum(do * o), then the dk/dv pass, and where that pass splits
-the query heads of a group over blocks, the ordered sum of its
-partials).
+of which enqueues two to four kernels (delta = rowsum(do * o), written
+by a pre-pass in bf16 and by the dq pass in f32; the dq pass; the dk/dv
+pass; and where that pass splits the query heads of a group over
+blocks, the ordered sum of its partials).
 """
 from __future__ import annotations
 
@@ -50,7 +64,36 @@ Tensor = torch.Tensor
 
 NEG_INF = -1e30
 HEAD_DIMS = (16, 64, 128, 160)     # the ported configs' head_dim (csrc)
+BF16_HEAD_DIMS = (64, 128, 160)    # those of the tensor-core kernels
 PLAIN_CHUNK = 1024                 # keys a step of the plain versions
+# bf16 o, dq, dk, dv of the kernels against the f32 plain versions. The
+# tensor-core kernels round P and dS to bf16 before their products and
+# the results to bf16. Each element may differ by BF16_TOL times (its
+# |plain| + the largest |plain| of its row along D): rows are query rows
+# for o and dq and keys for dk and dv, so that the late rows of a long
+# sequence, whose values are a small share of the first rows' (|o| of
+# row i falls as (i + 1)^-1/2), answer to their own scale. A row whose
+# largest is under ROW_FLOOR of the tensor's (dq's first row: zero but
+# for the rounding of dP - delta) answers to that floor instead. Over
+# chip_smoke.py's bf16 FLASH_CASES (NVIDIA H100 80GB HBM3, 700 W) the
+# largest row gap read 0.0078 (one bf16 ulp, 2^-7) and no element used
+# more than 0.49 of its allowance (a margin of 2), while each mutant of
+# tools/flash_mutants.py used 50 to 1,232 of it wherever it changes the
+# result (PERF.md).
+BF16_TOL = 1e-2
+ROW_FLOOR = 1e-3
+
+
+def bf16_gaps(got: Tensor, want: Tensor) -> tuple[float, float]:
+    """(gap, used) of a bf16 result against its plain version: the
+    largest |got - want| over its row's scale (as above), and the largest
+    share of its allowance that an element uses. The check passes where
+    used <= 1; a NaN or inf in ``got`` fails it."""
+    w = want.float().abs()
+    row = w.amax(dim=-1, keepdim=True).clamp_min(ROW_FLOOR * float(w.max()))
+    diff = (got.float() - want.float()).abs()
+    return (float((diff / row).max()),
+            float((diff / (BF16_TOL * (row + w))).max()))
 
 
 def _live(S: int, k0: int, k1: int, window: int | None, device) -> Tensor:
@@ -157,16 +200,27 @@ def _check(q: Tensor, k: Tensor, v: Tensor, window: int | None,
 
 def _check_cuda(D: int, **tensors: Tensor) -> None:
     """What the kernels take beyond ``_check``: a compiled head_dim, unit
-    stride along D, lse contiguous."""
-    if D not in HEAD_DIMS:
-        raise ValueError(f"head_dim {D} has no flash_attention kernel; "
-                         f"the kernels take {HEAD_DIMS}")
+    stride along D, lse contiguous; in bf16 (the tensor maps of the
+    tensor-core kernels) a head_dim of ``BF16_HEAD_DIMS`` and base
+    addresses and (b, h, s) strides of whole 16-byte units."""
+    bf16 = tensors["q"].dtype == torch.bfloat16
+    dims = BF16_HEAD_DIMS if bf16 else HEAD_DIMS
+    if D not in dims:
+        raise ValueError(f"head_dim {D} has no {tensors['q'].dtype} "
+                         f"flash_attention kernel; the kernels take {dims}")
     for name, t in tensors.items():
         if name == "lse":
             if not t.is_contiguous():
                 raise ValueError("lse must be contiguous")
-        elif t.stride(-1) != 1:
+            continue
+        if t.stride(-1) != 1:
             raise ValueError(f"{name} must have stride 1 along D, got "
+                             f"strides {t.stride()}")
+        if bf16 and (t.data_ptr() % 16 or any(
+                st % 8 for st, n in zip(t.stride()[:3], t.shape[:3])
+                if n > 1)):
+            raise ValueError(f"{name} must start and step (b, h, s) in "
+                             f"16-byte units for the tensor maps, got "
                              f"strides {t.stride()}")
 
 
@@ -184,6 +238,8 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.flash_attention_bwd_launch.argtypes = (
         [p] * 10 + [i] * 6 + [p, i, f, i, p, p])
     lib.flash_attention_bwd_launch.restype = i
+    lib.flash_attention_encode_us.argtypes = [p] + [i] * 4 + [p, i]
+    lib.flash_attention_encode_us.restype = ctypes.c_double
     lib.flash_attention_error_string.argtypes = [i]
     lib.flash_attention_error_string.restype = ctypes.c_char_p
 
@@ -224,11 +280,13 @@ def flash_attention_fwd(q: Tensor, k: Tensor, v: Tensor, *,
     return o, lse
 
 
-def dkdv_splits(B: int, hkv: int, S: int, G: int, sms: int) -> int:
+def dkdv_splits(B: int, hkv: int, S: int, G: int, sms: int,
+                keys: int = 64) -> int:
     """Slices of each KV head's G query heads that the dk/dv pass gives
     blocks of their own: enough for two blocks an SM (MQA's one KV head
-    leaves most SMs idle otherwise), at most G."""
-    blocks = -(-S // 64) * hkv * B
+    leaves most SMs idle otherwise), at most G. A block owns ``keys``
+    keys: 64 in the f32 kernels, 128 in the bf16 ones."""
+    blocks = -(-S // keys) * hkv * B
     return max(1, min(G, -(-2 * sms // blocks)))
 
 
@@ -249,8 +307,9 @@ def flash_attention_bwd(q: Tensor, k: Tensor, v: Tensor, o: Tensor,
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty_like(lse)
     _check_cuda(D, q=q, k=k, v=v, o=o, do=do, lse=lse, dq=dq, dk=dk, dv=dv)
-    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
-    splits = dkdv_splits(B, hkv, S, Hq // hkv, sms)
+    sms = _build.num_sms(q.device)
+    splits = dkdv_splits(B, hkv, S, Hq // hkv, sms,
+                         128 if q.dtype == torch.bfloat16 else 64)
     part = (torch.empty((2, splits, B, hkv, S, D), dtype=torch.float32,
                         device=q.device) if splits > 1 else None)
     lib = _build.load("flash_attention", _bind)

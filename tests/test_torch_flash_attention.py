@@ -11,9 +11,11 @@ Tolerances: f32 2e-5 (atol and rtol) against the kernel and the oracle,
 as ``tests/test_kernels.py`` holds the Pallas kernel; bf16 2e-2, the
 same; gradients in f32 rtol 1e-5, atol 1e-5 * max|reference| (sums in
 another order). The model's attention in train mode against the JAX
-``attn_apply`` in f32 at 1e-5. In bf16 the port keeps P in f32, as the
-TPU kernel does, where the JAX model's chunked scan rounds P to bf16:
-that gap is measured and held within 2e-2.
+``attn_apply`` in f32 at 1e-5. In bf16 the plain versions keep P in
+f32, as the TPU kernel does, where the JAX model's chunked scan rounds P
+to bf16: that gap is measured and held within 2e-2. (The card's bf16
+kernels round P as the scan does; tests/test_torch_flash_attention_cuda.py
+holds them against the plain versions.)
 """
 import dataclasses
 
@@ -176,6 +178,28 @@ def test_bf16_gap_to_the_reference_models_scan():
     np.testing.assert_allclose(got, want, rtol=2e-2, atol=2e-2)
 
 
+def test_bf16_gaps_hold_each_row_to_its_own_scale():
+    """The card's bf16 check (``bf16_gaps``) scales each row's allowance
+    by that row's largest plain value: 6% off in the late rows of a long
+    sequence, whose values are a small share of the first rows', fails
+    it, where an allowance scaled by the tensor's largest would pass;
+    the plain output rounded to bf16 passes; a row of rounding noise
+    (dq's first row is zero in exact arithmetic) answers to ROW_FLOOR of
+    the tensor's largest, not to its own."""
+    (q, k, v, _), _ = _inputs(13, 1, 2, 1, 512, 64)
+    o, _ = FA.flash_attention_plain(q, k, v)
+    assert FA.bf16_gaps(o.bfloat16(), o)[1] <= 1
+    late = o.clone()
+    late[:, :, 256:] *= 1.06
+    assert FA.bf16_gaps(late, o)[1] > 1
+    diff = (late - o).abs()
+    assert (diff <= FA.BF16_TOL * (o.abs().max() + o.abs())).all()
+    noisy, want = o.clone(), o.clone()
+    want[:, :, 0] = 1e-9
+    noisy[:, :, 0] = 2e-9
+    assert FA.bf16_gaps(noisy, want)[1] <= 1
+
+
 def test_autograd_function_saves_nothing_of_size_s_by_s():
     B, Hq, Hkv, S, D = 1, 4, 2, 96, 16
     (q, k, v, _), _ = _inputs(5, B, Hq, Hkv, S, D)
@@ -239,4 +263,13 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
         FA._check_cuda(32, q=q)
     with pytest.raises(ValueError, match="stride 1 along D"):
         FA._check_cuda(16, q=q.transpose(2, 3))
+    # the bf16 (tensor-core) kernels: no head_dim 16, and tensor maps
+    # step in 16-byte units
+    with pytest.raises(ValueError, match="head_dim 16 has no"):
+        FA._check_cuda(16, q=q.bfloat16())
+    rows_68 = torch.zeros((1, 4, 16, 68), dtype=torch.bfloat16)[..., :64]
+    with pytest.raises(ValueError, match="16-byte units"):
+        FA._check_cuda(64, q=rows_68)
+    FA._check_cuda(64, q=torch.zeros((1, 4, 16, 72),
+                                     dtype=torch.bfloat16)[..., :64])
 

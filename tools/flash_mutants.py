@@ -1,0 +1,147 @@
+#!/usr/bin/env python3
+"""Check that the bf16 flash tolerance still catches faults in the
+tensor-core kernels.
+
+    PYTHONPATH=src python3 tools/flash_mutants.py
+
+Each mutant is ``csrc/flash_attention.cu`` with one edit (a mask off by
+one row or one key, a live tile dropped, an interior tile dropped only
+for the rows or keys past 1024 of a long sequence), built by nvcc into
+a temporary directory (the checkout is not touched) and loaded in place
+of the library. The unedited source runs first as the control. Each
+runs every bf16 row of ``chip_smoke.FLASH_CASES`` (S 37 to tinyllama's
+2048) against the plain versions and prints one JSON line a (mutant,
+case): for o, dq, dk and dv (the backward given the plain forward's o
+and lse) the gap over each row's scale and the largest share of the
+allowance used (``flash_attention.bf16_gaps``), that share against an
+allowance scaled by the tensor's largest value instead of the row's,
+and whether the ``BF16_TOL`` check fails (a NaN fails it). Exits 1 if the control fails
+or a mutant passes every case. Needs a CUDA device and nvcc.
+"""
+from __future__ import annotations
+
+import concurrent.futures
+import json
+import subprocess
+import sys
+import tempfile
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+
+# (name, the source's text, its replacement, the occurrence to edit)
+MUTANTS = [
+    ("control", None, None, 0),
+    ("fwd_mask_drops_the_diagonal",
+     "if (col > row || (window > 0 && row - col >= window))",
+     "if (col >= row || (window > 0 && row - col >= window))", 0),
+    ("fwd_drops_the_first_live_tile",
+     "const int t0 = k_begin / BK, t1",
+     "const int t0 = k_begin / BK + 1, t1", 0),
+    ("dq_mask_drops_the_diagonal",
+     "const bool live = !edge || (col <= row &&",
+     "const bool live = !edge || (col < row &&", 0),
+    ("dkdv_window_one_row_wide",
+     "(window <= 0 || qpos - key < window)",
+     "(window <= 0 || qpos - key <= window)", 0),
+    ("dkdv_drops_the_diagonal_tile",
+     "const int t0 = k0 / BQ, nt",
+     "const int t0 = k0 / BQ + 1, nt", 0),
+    # the third key tile, for query tiles from row 1024 on only
+    ("fwd_late_rows_drop_an_interior_tile",
+     "const bool dead = r0 >= S ||",
+     "const bool dead = (q0 >= 1024 && t == t0 + 2) || r0 >= S ||", 0),
+    ("dq_late_rows_drop_an_interior_tile",
+     "const bool dead = r0 >= S ||",
+     "const bool dead = (q0 >= 1024 && t == t0 + 2) || r0 >= S ||", 1),
+    # the second query tile, for key blocks from key 1024 on only
+    ("dkdv_late_keys_drop_an_interior_tile",
+     "const bool dead = kc >= S ||",
+     "const bool dead = (k0 >= 1024 && i % nt == 1) || kc >= S ||", 0),
+]
+
+
+def mutate(src: str, old: str | None, new: str | None, nth: int) -> str:
+    if old is None:
+        return src
+    at = -1
+    for _ in range(nth + 1):
+        at = src.index(old, at + 1)        # raises if the text moved
+    return src[:at] + new + src[at + len(old):]
+
+
+def build(name: str, src: str, out: Path) -> Path:
+    from repro_torch.kernels import _build
+    cu = out / f"{name}.cu"
+    cu.write_text(src)
+    lib = out / f"lib{name}.so"
+    proc = subprocess.run(
+        [_build.nvcc(), *_build.NVCC_FLAGS, "-o", str(lib), str(cu)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if proc.returncode:
+        raise RuntimeError(f"nvcc failed for {name}:\n{proc.stdout}")
+    return lib
+
+
+def main() -> int:
+    import ctypes
+
+    import torch
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as FA
+
+    cases = [c for c in chip_smoke.FLASH_CASES if c[7] == "bfloat16"]
+    src = (_build.CSRC / "flash_attention.cu").read_text()
+    caught = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        with concurrent.futures.ThreadPoolExecutor(len(MUTANTS)) as pool:
+            libs = dict(zip([m[0] for m in MUTANTS], pool.map(
+                lambda m: build(m[0], mutate(src, *m[1:]), Path(tmp)),
+                MUTANTS)))
+        for name, lib_file in libs.items():
+            lib = ctypes.CDLL(str(lib_file))
+            FA._bind(lib)
+            _build._LIBS["flash_attention"] = lib
+            caught[name] = False
+            gen = torch.Generator(device="cuda").manual_seed(3)
+            for label, B, Hq, Hkv, S, D, window, _ in cases:
+                q, k, v, do = (torch.randn(
+                    (B, S, H, D), generator=gen, device="cuda").to(
+                    torch.bfloat16).transpose(1, 2)
+                    for H in (Hq, Hkv, Hkv, Hq))
+                # each pass on the plain forward's o and lse, so that a
+                # broken forward cannot spoil the backward's reference
+                o, _ = FA.flash_attention_fwd(q, k, v, window=window)
+                o_p, lse_p = FA.flash_attention_plain(q, k, v,
+                                                      window=window)
+                got = FA.flash_attention_bwd(q, k, v, o_p, lse_p, do,
+                                             window=window)
+                want = FA.flash_attention_bwd_plain(
+                    q, k, v, o_p, lse_p, do, window=window)
+                gaps, used, used_of_max = {}, {}, {}
+                for n, g, w in zip(("o", "dq", "dk", "dv"), (o, *got),
+                                   (o_p, *want)):
+                    gaps[n], used[n] = FA.bf16_gaps(g, w)
+                    # the same share against an allowance scaled by the
+                    # tensor's largest value in place of the row's
+                    g, w = g.float(), w.float()
+                    used_of_max[n] = float(((g - w).abs() / (FA.BF16_TOL * (
+                        w.abs().max() + w.abs()))).max())
+                fails = not all(u <= 1 for u in used.values())
+                caught[name] |= fails
+                print(json.dumps(dict(mutant=name, case=label, gaps=gaps,
+                                      used=used, used_of_max=used_of_max,
+                                      check_fails=fails)), flush=True)
+                del q, k, v, do, o, o_p, lse_p, got, want
+                torch.cuda.empty_cache()
+    _build._LIBS.pop("flash_attention", None)
+    ok = not caught["control"] and all(
+        v for k, v in caught.items() if k != "control")
+    print(json.dumps(dict(caught=caught, ok=ok)), flush=True)
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())
