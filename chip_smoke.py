@@ -12,9 +12,13 @@ nvcc and nvidia-smi. Phases, each of which raises on failure:
    shapes the paths give it, then time it (device time from
    torch.profiler, per-call time from CUDA events) beside its bound, its
    plain version and a library call computing the same function:
-   the sketch updates (rtol 1e-4, atol 1e-4 * max|plain|: the sums run in
-   another order) beside one torch.matmul of A^T against the (T, 3k)
-   projections; the count-sketch kernels at the LM train step's geometry
+   the sketch updates at SKETCH_UPDATE_CASES and PSPARSE_CASES, both
+   kernels of each (the tensor-core one for bf16 A with d % 8 == 0 and T
+   > 64, the FMA one otherwise), within rtol 1e-4, atol 1e-4 * max|plain| (the sums
+   run in another order; the tensor-core sketch_update carries each
+   projection as bf16 hi and lo parts) and two calls equal bit for bit,
+   beside one torch.matmul of A^T against the (T, 3k) projections; the
+   count-sketch kernels at the LM train step's geometry
    (r 5, c 2^23, the flat dimension of tinyllama-1.1b, k 256 and 512), a
    small ragged case and an even r: ``csvec_insert`` within the same
    tolerance (atomic sums) beside r ``index_add_`` calls over
@@ -164,7 +168,10 @@ PREFILL_SAMPLES = 5
 # nodes (MNIST_MLP: T=128, d=512, k=33; the 16-layer monitoring pair:
 # T=128, d=1024, k=17; f32 A), the LM trainer's FFN nodes at B 8 x S 128
 # (T=1024, d=2048 and 5632, k=17) and each DP worker's share of them
-# (DP_RUNS: T=256 at W 4, T=512 at W 2)
+# (DP_RUNS: T=256 at W 4, T=512 at W 2), the FFN nodes at tinyllama's
+# context (B 4 x S 2048: T=8192), a bf16 case ragged in T, d and k (the
+# tensor-core kernel's edges), bf16 at d 50 (the FMA kernel) and bf16 at
+# the largest k=64 (three 64-output warpgroups)
 SKETCH_UPDATE_CASES = [
     ("prefill", 1024, 2048, 9, "bfloat16"),
     ("prefill", 1024, 2048, 9, "float32"),
@@ -181,16 +188,26 @@ SKETCH_UPDATE_CASES = [
     ("dp_w4_ffn_h", 256, 5632, 17, "bfloat16"),
     ("dp_w2_ffn_in", 512, 2048, 17, "bfloat16"),
     ("dp_w2_ffn_h", 512, 5632, 17, "bfloat16"),
+    ("lm_ctx_ffn_in", 8192, 2048, 17, "bfloat16"),
+    ("lm_ctx_ffn_h", 8192, 5632, 17, "bfloat16"),
+    ("ragged_bf16", 1000, 1000, 17, "bfloat16"),
+    ("ragged_bf16_d50", 300, 50, 17, "bfloat16"),
+    ("k64", 1024, 2048, 64, "bfloat16"),
 ]
 # psparse_update at density 0.1: the trainer's nodes, the psparse serving
-# prefill and a ragged case (m = clamp(round(0.1 T), k, T) support rows)
+# prefill and decode step, a ragged case (m = clamp(round(0.1 T), k, T)
+# support rows), the LM's FFN nodes, a bf16 case ragged in T, d and k and
+# bf16 at k=64
 PSPARSE_CASES = [
     ("mnist_mlp", 128, 512, 33, "float32"),
     ("monitor16", 128, 1024, 17, "float32"),
     ("prefill", 1024, 2048, 9, "bfloat16"),
+    ("decode", 8, 2048, 9, "bfloat16"),
     ("ragged", 37, 50, 9, "float32"),
     ("lm_ffn_in", 1024, 2048, 17, "bfloat16"),
     ("lm_ffn_h", 1024, 5632, 17, "bfloat16"),
+    ("ragged_bf16", 1000, 1000, 17, "bfloat16"),
+    ("k64", 1024, 2048, 64, "bfloat16"),
 ]
 DENSITY = 0.1
 # the CUDA sources, one nvcc each
@@ -395,16 +412,19 @@ def bound(nbytes: int, flops: int, d: int, k: int, a_bytes: int):
 
 def measure(name: str, case: dict, kernel, plain, library, bound) -> dict:
     """Hold ``kernel()`` against ``plain()`` (rtol TOL, atol TOL *
-    max|plain|), then time the kernel, the plain version and the
-    library call."""
+    max|plain|) and against a second call of itself (bit for bit: the
+    splits are summed in a fixed order), then time the kernel, the plain
+    version and the library call."""
     import torch
-    got, want = kernel(), plain()
+    got, again, want = kernel(), kernel(), plain()
     torch.cuda.synchronize()
     err = 0.0
-    for g, w in zip(got, want):
+    for g, h, w in zip(got, again, want):
         scale = float(w.abs().max())
         torch.testing.assert_close(g, w, rtol=TOL, atol=TOL * scale)
         err = max(err, float((g - w).abs().max()))
+        if not torch.equal(g, h):
+            raise AssertionError(f"{name} {case}: two calls differ")
     ms, call_ms = time_ms(kernel, 200)
     plain_ms, plain_call_ms = time_ms(plain, 200)
     lib_ms, lib_call_ms = time_ms(library, 200)
@@ -930,6 +950,7 @@ def reset_counts() -> None:
     for fn in _wrappers().values():
         fn.launches = 0
     _wrappers()["sketch_update"].kernel_launches = 0
+    _wrappers()["psparse_update"].kernel_launches = 0
 
 
 def read_counts() -> dict[str, int]:
@@ -957,6 +978,7 @@ def phase_serve(dev, cfg, batch: int, prompt_len: int, new_tokens: int,
     them."""
     import gc
     import torch
+    from repro_torch.kernels.psparse_update import psparse_update
     from repro_torch.kernels.sketch_update import sketch_update
     from repro_torch.models import ssm
     from repro_torch.models.transformer import (
@@ -1037,6 +1059,7 @@ def phase_serve(dev, cfg, batch: int, prompt_len: int, new_tokens: int,
     ps_eng.refill(1, refill_prompt)
     torch.cuda.synchronize()
     ps_launches = read_counts()
+    ps_kernel_launches = psparse_update.kernel_launches
     check_counts(f"serve {cfg.name} (psparse monitor)", ps_launches,
                  {"psparse_update": want, **flash})
     if not _finite_tree(ps_eng._slots["mon"].tree):
@@ -1096,7 +1119,8 @@ def phase_serve(dev, cfg, batch: int, prompt_len: int, new_tokens: int,
         decode_tok_s_monitor_off=batch * decode_steps / off.spans["decode"],
         decode_tok_s_psparse=batch * decode_steps / ps_eng.spans["decode"],
         launches=launches, kernel_launches=kernel_launches,
-        psparse_launches=ps_launches, flags=recs[-1].flags,
+        psparse_launches=ps_launches,
+        psparse_kernel_launches=ps_kernel_launches, flags=recs[-1].flags,
         psparse_flags=ps_flags, slstm_prefill=slstm,
         phase_s=time.perf_counter() - t_phase)
     log(f"serve {cfg.name}: " + json.dumps(out))
@@ -1486,9 +1510,14 @@ def _profile_step(state, step, batch, top: int = 15):
     rows.sort(key=lambda r: -r[1])
     device_ms = sum(r[1] for r in rows)
     attention_ms = sum(ms for n, ms, _ in rows if "flash_" in n)
+    # the EMA update kernels and the sum of their splits
+    update_ms = sum(ms for n, ms, _ in rows if "sketch_update" in n
+                    or "psparse_update" in n or "ema::" in n)
     return state, dict(wall_ms=wall_ms, device_ms=device_ms,
                        attention_ms=attention_ms,
                        attention_share=attention_ms / max(device_ms, 1e-9),
+                       update_ms=update_ms,
+                       update_share=update_ms / max(device_ms, 1e-9),
                        top=[dict(name=n[:120], ms=ms, calls=c)
                             for n, ms, c in rows[:top]])
 
@@ -2225,6 +2254,7 @@ def main() -> int:
             library_ms=main_row["library_ms"], main_case=main_row,
             by_shape=rows))
     kernels[0]["kernel_launches"] = serve["kernel_launches"]
+    kernels[1]["kernel_launches"] = serve["psparse_kernel_launches"]
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(dict(
         card=card, build_s=build_s, torch=torch.__version__,

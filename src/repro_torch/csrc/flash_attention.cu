@@ -81,6 +81,8 @@
 #include <chrono>
 #include <cstdio>
 
+#include "hopper.cuh"
+
 namespace {
 
 constexpr int BQ = 64;            // query rows of a tile
@@ -541,6 +543,8 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v,
 // ---------------------------------------------------------------------
 namespace tc {
 
+using namespace hopper;
+
 using bf16 = __nv_bfloat16;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr int THREADS = 384;       // a producer warpgroup, two consumers
@@ -561,33 +565,6 @@ struct Cfg {
   static constexpr int DQ_BK = D == 64 ? 128 : 64;
   static constexpr int KV_BQ = D == 64 ? 128 : D == 128 ? 64 : 32;
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)),
-               "r"(count) : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-                   smem_u32(bar)), "r"(bytes) : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(
-                   smem_u32(bar)) : "memory");
-}
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
-  } while (!done);
-}
 
 // one (rows, AW) box at element coordinates (d0, h, s0, b) of a 4-D map
 // (D, H, S, B) into shared memory; rows past S arrive as zeros
@@ -643,31 +620,6 @@ __device__ __forceinline__ uint64_t mndesc(const uint8_t* tile, int rows,
   return make_desc<C::SW>(tile + kk * 16 * C::SW, rows * C::SW, 8 * C::SW);
 }
 
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
-}
-// keeps the compiler from moving a register's writes past a wgmma.fence
-// (before a batch) or its reads above the wait (after one); without it
-// ptxas inserts its own fences and serialises every wgmma
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-template <int N>
-__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
-}
-
 template <int R>
 __device__ __forceinline__ void reg_dealloc() {
   asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(R));
@@ -675,11 +627,6 @@ __device__ __forceinline__ void reg_dealloc() {
 template <int R>
 __device__ __forceinline__ void reg_alloc() {
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(R));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
 }
 
 // An m64nN f32 accumulator as a register A operand of the next product
@@ -890,10 +837,6 @@ template <> struct MMA<160> {
 
 
 constexpr int STAGES = 2;                 // the ring of streamed tiles
-
-__device__ __forceinline__ uint8_t* align_1024(uint8_t* p) {
-  return p + ((1024 - (smem_u32(p) & 1023)) & 1023);
-}
 
 __device__ __forceinline__ void init_barriers(uint64_t* bars, int stages,
                                               uint32_t full_count) {
@@ -1379,33 +1322,6 @@ flash_bwd_dkdv_tc_kernel(const __grid_constant__ CUtensorMap mk,
 
 constexpr int ERR_ENCODE = 10000;   // + the CUresult of a refused map
 constexpr int ERR_NO_ENCODE = 20000;
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType,
-                                cuuint32_t, void*, const cuuint64_t*,
-                                const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave,
-                                CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// the CUDA driver's cuTensorMapEncodeTiled, found once through the runtime
-// (no link against libcuda)
-EncodeTiled encode_fn() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
 
 // the 4-D map (D, H, S, B) of a bf16 tensor with (b, h, s) element
 // strides st, boxes of (AW, 1, rows, 1); 0 or an error code

@@ -8,216 +8,332 @@
 //   Y' = beta Y + (1-beta) A^T Omega
 //   Z' = beta Z + (1-beta) (A^T Phi) * psi        (psi per column)
 //
-// reading A once for all three thin products. A is bf16 or f32 and is
-// accumulated in f32; everything else is f32. k <= 64 (checked by the
-// Python wrapper, src/repro_torch/kernels/sketch_update.py).
+// reading A once for all three thin products and every column of k. A is
+// bf16 or f32; everything else is f32; k <= 64 (checked by the Python
+// wrapper, src/repro_torch/kernels/sketch_update.py, which also picks the
+// kernel and the T split).
 //
 // Bound on an H100 SXM (3.35 TB/s; 989 TFLOP/s bf16 on the tensor cores).
 // The call moves T*d*|A| + 3*T*k*4 + 6*d*k*4 bytes and does 6*T*d*k
-// flops. At the serving prefill shape (T=1024, d=2048, k=9, bf16 A) that
-// is 4.75 MB (1.42 us) and 113 MFLOP, which the tensor cores do in 0.23 us
-// even with each f32 projection split into bf16 high and low parts (as the
-// 1e-4 tolerance needs): the bound is set by bytes, by a wide margin. At
-// k=33 it is 6.22 MB (1.86 us). At decode (T=8) it is 0.48 MB (0.14 us),
-// far under the launch latency, so at decode the launch is the cost. This
-// kernel runs its products on the f32 FMA units (67 TFLOP/s, 1.7 us for
-// the prefill products), which alone keeps it above that bound.
+// flops. At the LM's FFN shapes (T 1024 or 8192, d 2048 or 5632, k 17,
+// bf16 A) the bytes bound it by a wide margin even with each f32
+// projection split into bf16 high and low parts (two products): 4.19 us
+// at T 1024, d 5632; 28.7 us at T 8192. The f32 FMA units (67 TFLOP/s)
+// could not keep up with the bytes there, hence the tensor cores.
 //
-// Design. The TPU kernel pads k to 128 lanes and T, d to its block grid,
-// and carries each (d_blk, k) output across the T axis because the TPU
-// grid runs in order. Here blocks run in parallel, so:
-//   * a block owns a 32-column d-tile (one column per lane, so a warp reads
-//     32 neighbouring elements of a row of A) and a 16-wide chunk of k
-//     (gridDim.z = ceil(k/16)); the ragged d and k edges are masked in the
-//     kernel, nothing is padded in device memory;
-//   * its 8 warps take interleaved rows of the block's T range, each lane
-//     keeping 3 x 16 f32 sums in registers; projection rows are staged in
-//     shared memory (zero past k), where all lanes of a warp read the same
-//     word (a broadcast);
-//   * d=2048 gives only 64 d-tiles for 132 SMs, so T is split across
-//     gridDim.y blocks (the wrapper aims at two blocks per SM, with at least
-//     64 rows each). One split writes the EMA epilogue directly; several
-//     write partial sums to a workspace that a second small kernel reduces
-//     in a fixed order (deterministic, no atomics) before the epilogue.
-// Occupancy: 256 threads and 28 KB of static shared memory a block, so up
-// to 8 blocks fit on an SM. Tensor cores (wgmma) and TMA are later work.
+// Two kernels (ema_update.cuh has the shared pieces), chosen by the
+// wrapper from A's dtype and shape:
+//   * bf16 A whose rows are whole 16-byte chunks (d % 8 == 0), T > 64:
+//     the tensor-core kernel below. A block owns 128 columns of d and all
+//     3k outputs, one consumer warpgroup for each 64 of them (k <= 21: one).
+//     The products are computed transposed, inc^T = P^T A, on wgmma
+//     m64n128k16 (A's tile, 64 rows by 128 columns as it lies in device
+//     memory, is the MN-major B operand). A producer warp fills a ring of
+//     STAGES slots under mbarriers: lane 0 streams the A tile by TMA
+//     (128-byte swizzle), and all 32 lanes copy the same rows of the three
+//     projections (contiguous in device memory) with coalesced cp.async,
+//     each lane's copies counted on the slot's full barrier. Each consumer
+//     reads its P^T fragments from the slot, splits each value into
+//     hi = bf16(P) and lo = bf16(P - hi), and runs hi and lo through wgmma
+//     into one f32 accumulator: P = hi + lo to about 2^-17 of |P|, and a
+//     bf16 product is exact in f32. A is read from device memory once;
+//     there is no k-chunk grid dimension.
+//   * f32 A, bf16 A with d % 8 != 0, or T <= 64: the FMA kernel
+//     (ema_update.cuh), 32 columns a block, A read once for every k.
+// Both split T across gridDim.y blocks where the d-tiles alone leave SMs
+// idle (the wrapper's plan, whole stages a split); the splits' partials
+// are then summed in a fixed order by a second small kernel
+// (deterministic, no atomics). On an H100 a one-kernel variant, the
+// splits as one thread-block cluster summed through distributed shared
+// memory, measured slower (PERF.md).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include <mutex>
 
-#include <cstddef>
+#include "ema_update.cuh"
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int TILE_D = 32;  // d columns per block, one per lane
-constexpr int WARPS = 8;    // warp w takes rows w, w + 8, ... of a stage
-constexpr int KC = 16;      // projection columns per block (gridDim.z chunks)
-constexpr int ROWS = 64;    // projection rows staged in shared memory at once
+using bf16 = __nv_bfloat16;
+using namespace hopper;
+using ema::Outs;
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
+constexpr int STAGES = 3;   // the ring of A and projection tiles
+
+// bytes of a stage's projection tile: rows [t0, t0 + 64) of the three
+// (T, k) projections, each as it lies in device memory
+__host__ __device__ constexpr int p_stage_bytes(int k) {
+  return 3 * ema::TC_ROWS * k * 4;
 }
 
-template <typename TA>
-__global__ void __launch_bounds__(TILE_D* WARPS)
-    sketch_update_partial(const TA* __restrict__ a,
-                          const float* __restrict__ ups,
-                          const float* __restrict__ omg,
-                          const float* __restrict__ phi,
-                          const float* __restrict__ psi,
-                          const float* __restrict__ x_in,
-                          const float* __restrict__ y_in,
-                          const float* __restrict__ z_in,
-                          float* __restrict__ x_out,
-                          float* __restrict__ y_out,
-                          float* __restrict__ z_out,
-                          float* __restrict__ ws, int T, int d, int k,
-                          int rows_per_split, float beta) {
-  __shared__ __align__(16) float proj[ROWS][3][KC];
-  __shared__ float red[WARPS][KC][TILE_D];
+// the dense projections: row r of A is row r; P[r, n] is column n % k of
+// projection n / k
+struct Dense {
+  const float* p0;
+  const float* p1;
+  const float* p2;
+  int k;
+  __device__ __forceinline__ int row(int r) const { return r; }
+  __device__ __forceinline__ float val(int r, int n) const {
+    const int mat = n / k;
+    return (mat == 0 ? p0 : (mat == 1 ? p1 : p2))[(size_t)r * k + n - mat * k];
+  }
+};
 
-  const int lane = threadIdx.x;
-  const int warp = threadIdx.y;
-  const int tid = warp * TILE_D + lane;
-  const int col = blockIdx.x * TILE_D + lane;
-  const int k0 = blockIdx.z * KC;
-  const int kc = min(KC, k - k0);
+// hi = bf16(P), lo = bf16(P - hi) of this thread's A fragments for one
+// stage, read from the stage's projection tile: register i of k-step kk
+// holds output row n[i & 1] (at off[i & 1] in the tile, or none where
+// off < 0) and rows 16 kk + 8 (i >> 1) + 2 tig and the next
+// (hopper.cuh, mma_m64n128k16_rs); rows from `rows` on (past T) are zero
+__device__ __forceinline__ void split_stage(const float* pt,
+                                            const int (&off)[2], int k,
+                                            int rows, int tig,
+                                            uint32_t (&hi)[4][4],
+                                            uint32_t (&lo)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int o = off[i & 1], t = 16 * kk + 8 * (i >> 1) + 2 * tig;
+      const float v0 = o >= 0 && t < rows ? pt[o + t * k] : 0.f;
+      const float v1 = o >= 0 && t + 1 < rows ? pt[o + (t + 1) * k] : 0.f;
+      const float h0 = __bfloat162float(__float2bfloat16_rn(v0));
+      const float h1 = __bfloat162float(__float2bfloat16_rn(v1));
+      hi[kk][i] = pack_bf16(h0, h1);
+      lo[kk][i] = pack_bf16(v0 - h0, v1 - h1);
+    }
+}
+
+// The producer warp: for each stage, once its slot is free, lane 0
+// streams the A tile by TMA and the stage's rows of the three projections
+// (each contiguous in device memory, 256 k bytes from the last stage's,
+// from a base the wrapper checks is 16-byte aligned) by 1-D bulk copies of
+// whole 16-byte chunks; lanes 1-3 copy the last floats of a ragged end
+// with cp.async, and every lane's copies are counted on the full barrier.
+__device__ __forceinline__ void produce(const CUtensorMap* ma,
+                                        const Dense& src, uint8_t* tiles,
+                                        float* ptiles, uint64_t* full,
+                                        uint64_t* empty, int T, int d0,
+                                        int t_begin, int nst) {
+  const int lane = threadIdx.x % 32, k = src.k, per = ema::TC_ROWS * k;
+  for (int i = 0; i < nst; ++i) {
+    const int s = i % STAGES, t0 = t_begin + i * ema::TC_ROWS;
+    if (i >= STAGES) mbar_wait(&empty[s], (i / STAGES - 1) & 1);
+    float* pt = ptiles + s * 3 * per;
+    const int valid = min(ema::TC_ROWS, T - t0) * k, whole = valid & ~3;
+    const float* g[3] = {src.p0 + (size_t)t0 * k, src.p1 + (size_t)t0 * k,
+                         src.p2 + (size_t)t0 * k};
+    if (lane == 0) {
+      uint8_t* tile = tiles + s * ema::TC_STAGE_BYTES;
+      mbar_expect_tx(&full[s], ema::TC_STAGE_BYTES + 3 * whole * 4);
+      tma_load_2d(tile, ma, &full[s], d0, t0);
+      tma_load_2d(tile + ema::TC_STAGE_BYTES / 2, ma, &full[s], d0 + 64, t0);
+      if (whole > 0)
+#pragma unroll
+        for (int mat = 0; mat < 3; ++mat)
+          bulk_load(pt + mat * per, g[mat], whole * 4, &full[s]);
+    } else if (whole + lane - 1 < valid) {
+#pragma unroll
+      for (int mat = 0; mat < 3; ++mat)
+        cp_async4(pt + mat * per + whole + lane - 1, g[mat] + whole + lane - 1,
+                  4);
+    }
+    cp_async_arrive(&full[s]);
+  }
+}
+
+// A consumer warpgroup: the products over this block's rows into acc.
+template <int MT>
+__device__ __forceinline__ void consume(float (&acc)[64], const uint8_t* tiles,
+                                        const float* ptiles, uint64_t* full,
+                                        uint64_t* empty, int k, int T,
+                                        int t_begin, int nst) {
+  const int c = threadIdx.x / 128, w = threadIdx.x % 128 / 32;
+  const int lane = threadIdx.x % 32, tig = lane % 4, per = ema::TC_ROWS * k;
+  // where this thread's two output rows sit in a projection tile
+  int off[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int n = 64 * c + 16 * w + lane / 4 + 8 * h, mat = n / k;
+    off[h] = n < 3 * k ? mat * per + n - mat * k : -1;
+  }
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  for (int i = 0; i < nst; ++i) {
+    const int s = i % STAGES;
+    mbar_wait(&full[s], (i / STAGES) & 1);
+    uint32_t hi[4][4], lo[4][4];
+    split_stage(ptiles + s * 3 * per, off, k,
+                T - t_begin - i * ema::TC_ROWS, tig, hi, lo);
+    const uint8_t* tile = tiles + s * ema::TC_STAGE_BYTES;
+    fence_regs(acc);
+    fence_regs(hi);
+    fence_regs(lo);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint64_t b = mn_desc128(tile, ema::TC_ROWS, kk);
+      mma_m64n128k16_rs(acc, hi[kk], b);
+      mma_m64n128k16_rs(acc, lo[kk], b);
+    }
+    wgmma_commit();
+    wgmma_wait();
+    fence_regs(acc);
+    fence_regs(hi);
+    fence_regs(lo);
+    mbar_arrive(&empty[s]);
+  }
+}
+
+template <int MT>
+__global__ void __launch_bounds__(128 * MT + 32)
+    sketch_update_tc(const __grid_constant__ CUtensorMap ma, Dense src,
+                     Outs o, int T, int rows_per_split) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* tiles = align_1024(smem_raw);
+  float* ptiles = reinterpret_cast<float*>(tiles + STAGES *
+                                           ema::TC_STAGE_BYTES);
+  uint64_t* full = reinterpret_cast<uint64_t*>(
+      reinterpret_cast<uint8_t*>(ptiles) + STAGES * p_stage_bytes(src.k));
+  uint64_t* empty = full + STAGES;
+  const int d0 = blockIdx.x * ema::TC_TILE_D;
   const int t_begin = blockIdx.y * rows_per_split;
   const int t_end = min(T, t_begin + rows_per_split);
-
-  float acc[3][KC];
-#pragma unroll
-  for (int m = 0; m < 3; ++m) {
-#pragma unroll
-    for (int c = 0; c < KC; ++c) acc[m][c] = 0.f;
-  }
-
-  for (int t0 = t_begin; t0 < t_end; t0 += ROWS) {
-    const int nrows = min(ROWS, t_end - t0);
-    for (int i = tid; i < ROWS * 3 * KC; i += TILE_D * WARPS) {
-      const int r = i / (3 * KC);
-      const int m = (i / KC) % 3;
-      const int c = i % KC;
-      const float* p = m == 0 ? ups : (m == 1 ? omg : phi);
-      proj[r][m][c] = (r < nrows && c < kc)
-                          ? p[(size_t)(t0 + r) * k + k0 + c]
-                          : 0.f;
+  const int nst = (t_end - t_begin + ema::TC_ROWS - 1) / ema::TC_ROWS;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1 + 32);   // the TMA's expect_tx, each lane's copies
+      mbar_init(&empty[s], 128 * MT);
     }
-    __syncthreads();
-    if (col < d) {
-#pragma unroll 4
-      for (int r = warp; r < nrows; r += WARPS) {
-        const float av = to_f32(a[(size_t)(t0 + r) * d + col]);
-#pragma unroll
-        for (int m = 0; m < 3; ++m) {
-#pragma unroll
-          for (int c = 0; c < KC; c += 4) {
-            const float4 pv =
-                *reinterpret_cast<const float4*>(&proj[r][m][c]);
-            acc[m][c + 0] = fmaf(av, pv.x, acc[m][c + 0]);
-            acc[m][c + 1] = fmaf(av, pv.y, acc[m][c + 1]);
-            acc[m][c + 2] = fmaf(av, pv.z, acc[m][c + 2]);
-            acc[m][c + 3] = fmaf(av, pv.w, acc[m][c + 3]);
-          }
-        }
-      }
-    }
-    __syncthreads();
+    mbar_fence_init();
   }
-
-  // Sum the 8 warps' partial sums of each matrix, one matrix at a time.
-  const float* in[3] = {x_in, y_in, z_in};
-  float* out[3] = {x_out, y_out, z_out};
-  const bool direct = gridDim.y == 1;
-#pragma unroll
-  for (int m = 0; m < 3; ++m) {
-#pragma unroll
-    for (int c = 0; c < KC; ++c) red[warp][c][lane] = acc[m][c];
-    __syncthreads();
-    for (int i = tid; i < KC * TILE_D; i += TILE_D * WARPS) {
-      const int c = i / TILE_D;
-      const int j = blockIdx.x * TILE_D + i % TILE_D;
-      if (c < kc && j < d) {
-        float s = 0.f;
-#pragma unroll
-        for (int w = 0; w < WARPS; ++w) s += red[w][c][i % TILE_D];
-        const size_t o = (size_t)j * k + k0 + c;
-        if (direct) {
-          const float inc = m == 2 ? s * psi[k0 + c] : s;
-          out[m][o] = beta * in[m][o] + (1.f - beta) * inc;
-        } else {
-          ws[((size_t)blockIdx.y * 3 + m) * d * k + o] = s;
-        }
-      }
-    }
-    __syncthreads();
+  __syncthreads();
+  if (threadIdx.x >= 128 * MT) {
+    produce(&ma, src, tiles, ptiles, full, empty, T, d0, t_begin, nst);
+    return;
   }
+  float acc[64];
+  consume<MT>(acc, tiles, ptiles, full, empty, src.k, T, t_begin, nst);
+  ema::tc_emit(acc, threadIdx.x / 128, o, d0);
 }
 
-// Sums the T-splits' partials in split order and applies the epilogue.
-__global__ void sketch_update_finalize(const float* __restrict__ ws,
-                                       const float* __restrict__ psi,
-                                       const float* __restrict__ x_in,
-                                       const float* __restrict__ y_in,
-                                       const float* __restrict__ z_in,
-                                       float* __restrict__ x_out,
-                                       float* __restrict__ y_out,
-                                       float* __restrict__ z_out, int d,
-                                       int k, int splits, float beta) {
-  const size_t n = (size_t)d * k;
-  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < 3 * n;
-       i += (size_t)gridDim.x * blockDim.x) {
-    const int m = (int)(i / n);
-    const size_t o = i % n;
-    float s = 0.f;
-    for (int sp = 0; sp < splits; ++sp) s += ws[((size_t)sp * 3 + m) * n + o];
-    const float* in = m == 0 ? x_in : (m == 1 ? y_in : z_in);
-    float* out = m == 0 ? x_out : (m == 1 ? y_out : z_out);
-    const float inc = m == 2 ? s * psi[o % k] : s;
-    out[o] = beta * in[o] + (1.f - beta) * inc;
+// ---- host side ----
+
+constexpr int ERR_ENCODE = 10000;   // + the CUresult of a refused map
+constexpr int ERR_NO_ENCODE = 20000;
+
+// A's 2-D map (d, T), boxes of (64 columns, 64 rows), 128-byte swizzle.
+// A map depends only on (pointer, T, d), so the last few are kept: a
+// caller that reuses its buffers encodes once.
+struct MapEntry {
+  const void* ptr;
+  int T, d;
+  CUtensorMap map;
+};
+constexpr int MAP_CACHE = 16;
+MapEntry map_cache[MAP_CACHE];
+int map_next = 0;
+std::mutex map_mutex;
+
+int a_map(CUtensorMap* map, const void* a, int T, int d) {
+  std::lock_guard<std::mutex> lock(map_mutex);
+  for (const MapEntry& e : map_cache)
+    if (e.ptr == a && e.T == T && e.d == d) {
+      *map = e.map;
+      return 0;
+    }
+  const EncodeTiled enc = encode_fn();
+  if (enc == nullptr) return ERR_NO_ENCODE;
+  const cuuint64_t dims[2] = {(cuuint64_t)d, (cuuint64_t)T};
+  const cuuint64_t strides[1] = {(cuuint64_t)d * 2};
+  const cuuint32_t box[2] = {64, ema::TC_ROWS};
+  const cuuint32_t step[2] = {1, 1};
+  const CUresult r = enc(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(a), dims,
+      strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  if (r != CUDA_SUCCESS) return ERR_ENCODE + (int)r;
+  map_cache[map_next] = MapEntry{a, T, d, *map};
+  map_next = (map_next + 1) % MAP_CACHE;
+  return 0;
+}
+
+template <int MT>
+int launch_tc(const CUtensorMap& map, const Dense& src, const Outs& o, int T,
+              int splits, int rows_per_split, cudaStream_t stream) {
+  // the rings at this k; the attribute allows the largest k's
+  const auto bytes = [](int k) {
+    return 1024 + STAGES * (ema::TC_STAGE_BYTES + p_stage_bytes(k)) +
+           2 * STAGES * (int)sizeof(uint64_t);
+  };
+  const size_t smem = bytes(src.k);
+  static bool ready[64] = {};   // the attribute is set once a device
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= 64 || !ready[dev]) {
+    err = cudaFuncSetAttribute(sketch_update_tc<MT>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               bytes(64));
+    if (err != cudaSuccess) return err;
+    // all of the SM's 228 KB as shared memory, so that two blocks fit
+    err = cudaFuncSetAttribute(sketch_update_tc<MT>,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+    if (err != cudaSuccess) return err;
+    if (dev < 64) ready[dev] = true;
   }
+  const dim3 grid((o.d + ema::TC_TILE_D - 1) / ema::TC_TILE_D, splits);
+  sketch_update_tc<MT><<<grid, 128 * MT + 32, smem, stream>>>(
+      map, src, o, T, rows_per_split);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launches the update on `stream`; returns cudaGetLastError() as an int
-// (0 on success). `ws` holds splits*3*d*k floats and is unused when
-// splits == 1.
+// Launches the update on `stream`; returns 0, a cudaError_t, or an
+// ERR_* code of the tensor map. `out` is (3, d, k); `ws` holds
+// splits*3*d*k floats and is unused when splits == 1. tensor_cores
+// selects the tensor-core kernel (bf16 A, d % 8 == 0, A 16-byte aligned)
+// and splits/rows_per_split its plan (rows a whole number of 64-row
+// stages), else the FMA kernel (rows a whole number of 32).
 int sketch_update_launch(const void* a, int a_is_bf16, const float* ups,
                          const float* omg, const float* phi,
                          const float* psi, const float* x_in,
-                         const float* y_in, const float* z_in, float* x_out,
-                         float* y_out, float* z_out, float* ws, int T, int d,
-                         int k, int splits, int rows_per_split, float beta,
+                         const float* y_in, const float* z_in, float* out,
+                         float* ws, int T, int d, int k, int tensor_cores,
+                         int splits, int rows_per_split, float beta,
                          void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 block(TILE_D, WARPS);
-  const dim3 grid((d + TILE_D - 1) / TILE_D, splits, (k + KC - 1) / KC);
-  if (a_is_bf16) {
-    sketch_update_partial<__nv_bfloat16><<<grid, block, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(a), ups, omg, phi, psi, x_in, y_in,
-        z_in, x_out, y_out, z_out, ws, T, d, k, rows_per_split, beta);
+  const Outs o{x_in, y_in, z_in, psi, out, ws, d, k, beta, 1.f};
+  const Dense src{ups, omg, phi, k};
+  int err;
+  if (tensor_cores) {
+    if (!a_is_bf16 || d % 8 != 0) return cudaErrorInvalidValue;
+    CUtensorMap map;
+    if ((err = a_map(&map, a, T, d))) return err;
+    const int mt = (3 * k + 63) / 64;
+    err = mt == 1   ? launch_tc<1>(map, src, o, T, splits, rows_per_split, s)
+          : mt == 2 ? launch_tc<2>(map, src, o, T, splits, rows_per_split, s)
+                    : launch_tc<3>(map, src, o, T, splits, rows_per_split, s);
+  } else if (a_is_bf16) {
+    err = ema::launch_fma(static_cast<const bf16*>(a), src, o, T, splits,
+                          rows_per_split, s);
   } else {
-    sketch_update_partial<float><<<grid, block, 0, s>>>(
-        static_cast<const float*>(a), ups, omg, phi, psi, x_in, y_in, z_in,
-        x_out, y_out, z_out, ws, T, d, k, rows_per_split, beta);
+    err = ema::launch_fma(static_cast<const float*>(a), src, o, T, splits,
+                          rows_per_split, s);
   }
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
-  const long long n = 3LL * d * k;
-  const int threads = 256;
-  const int blocks = (int)((n + threads - 1) / threads < 1024
-                               ? (n + threads - 1) / threads
-                               : 1024);
-  sketch_update_finalize<<<blocks, threads, 0, s>>>(
-      ws, psi, x_in, y_in, z_in, x_out, y_out, z_out, d, k, splits, beta);
-  return static_cast<int>(cudaGetLastError());
+  if (err != cudaSuccess || splits == 1) return err;
+  return ema::launch_finalize(o, splits, s);
 }
 
 const char* sketch_update_error_string(int code) {
+  if (code == ERR_NO_ENCODE)
+    return "the CUDA driver has no cuTensorMapEncodeTiled";
+  if (code >= ERR_ENCODE) return "cuTensorMapEncodeTiled refused A's map";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 

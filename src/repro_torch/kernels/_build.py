@@ -3,8 +3,10 @@
 ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 ``nvcc`` for Hopper (``sm_90a``) into ``_build/lib<name>-<hash>.so``
 beside the package (the directory is git-ignored), at first use, from
-the repository's sources alone. The hash covers the source and flags,
-so an edited source is rebuilt. Libraries are bound with ``ctypes``:
+the repository's sources alone. The hash covers the flags, the source
+and every ``csrc`` header it includes (``#include "..."``, followed
+through the headers), so an edited source or header is rebuilt.
+Libraries are bound with ``ctypes``:
 compiling against PyTorch's headers would take minutes per build.
 """
 from __future__ import annotations
@@ -12,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -36,9 +39,29 @@ def nvcc() -> str:
     return path
 
 
+_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.M)
+
+
+def sources(name: str) -> list[Path]:
+    """``csrc/<name>.cu`` and the local headers it includes, each once,
+    in the order they are first reached."""
+    seen: list[Path] = []
+    todo = [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.append(path)
+        todo += [path.parent / inc.decode()
+                 for inc in _INCLUDE.findall(path.read_bytes())]
+    return seen
+
+
 def lib_path(name: str) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    h.update((CSRC / f"{name}.cu").read_bytes())
+    for path in sources(name):
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 

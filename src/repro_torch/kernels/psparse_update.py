@@ -2,9 +2,9 @@
 kernel's wrapper and its plain PyTorch version.
 
 Replaces the TPU kernel ``src/repro/kernels/psparse_update.py::
-psparse_update``. The kernel is ``csrc/psparse_update.cu`` (CUDA C++ for
-``sm_90a``), built at first use by ``kernels._build`` and called through
-``ctypes``.
+psparse_update``. The kernels are in ``csrc/psparse_update.cu`` (CUDA C++
+for ``sm_90a``, with ``csrc/ema_update.cuh`` and ``csrc/hopper.cuh``),
+built at first use by ``kernels._build`` and called through ``ctypes``.
 
 Each implicit projection matrix (T, k) has m support rows. Support slot u
 of matrix ``mat`` sits at row ``row_mat(u)`` and holds
@@ -21,23 +21,29 @@ CountSketch. The update is
 
 and A^T Omega = A[rows]^T (alpha * sgn): only m rows of A take part.
 
-Bound on an H100 SXM (3.35 TB/s): a call must read the 3*m support rows
-(3*m*d*|A| bytes, fewer where rows repeat) and read and write the
-sketches (6*d*k*4 bytes); its 6*m*d*k flops are negligible. At the
-trainer's shapes (T=128, m=33, d=512, k=33 and T=128, m=17, d=1024,
-k=17, f32 A) that is 0.61 and 0.63 MB, 0.18 and 0.19 us; at the psparse
-serving prefill (T=1024, m=102, d=2048, k=9, bf16 A) 1.70 MB, 0.51 us.
-All are far under a launch's latency, so the kernel is latency-bound.
-The Pallas kernel builds one-hot (t_blk, m) tiles and reads all of A;
-this one regenerates the rows and signs from the 12 coefficients, which
-the wrapper passes as kernel arguments (host integers: no device read
-and no stream sync per call), and reads only the support rows (the
-source file has the details).
+Bound on an H100 SXM (3.35 TB/s): a call must read the distinct support
+rows (at most 3*m*d*|A| bytes) and read and write the sketches
+(6*d*k*4 bytes); its 6*m*d*k flops are negligible. At the LM's FFN
+shapes (T=1024, m=102, k=17, bf16 A) that is 0.58 and 1.58 us at d 2048
+and 5632; at the trainer's shapes (T=128, f32 A) 0.17 us. The Pallas
+kernel builds one-hot (t_blk, m) tiles and reads all of A; these
+regenerate the rows and signs from the 12 coefficients, which the
+wrapper passes as kernel arguments (host integers: no device read and
+no stream sync per call), and read only the support rows.
+
+Which kernel serves a call goes by A's dtype and shape alone, as in
+``sketch_update`` (``uses_tensor_cores``): bf16 A with d % 8 == 0 and
+T > 64 takes the tensor-core kernel, which gathers the support rows with
+cp.async and sums sgn^T A[rows] on wgmma (+-1 is exact in bf16; alpha is
+applied in the epilogue); the rest the FMA kernel. Both split the 3m
+support slots across blocks by ``sketch_update.launch_plan`` and sum the
+splits in a fixed order in a second kernel.
 
 ``psparse_update`` takes the plain version for CPU tensors and only for
-them; for CUDA tensors it launches the kernel or raises.
-``psparse_update.launches`` counts the calls that launched the kernel
-(one kernel per call).
+them; for CUDA tensors it launches a kernel or raises.
+``psparse_update.launches`` counts the calls that launched on the card,
+``psparse_update.kernel_launches`` the kernels they enqueued (two where
+the slots are split).
 """
 from __future__ import annotations
 
@@ -49,6 +55,9 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels._hash import MASK32 as _MASK32
 from repro_torch.kernels._hash import mul32 as _mul32
+from repro_torch.kernels.sketch_update import (
+    check_aligned, check_index_range, launch_plan, uses_tensor_cores,
+)
 
 Tensor = torch.Tensor
 
@@ -162,6 +171,13 @@ def _check(a, x_s, y_s, z_s, params, psi, m) -> tuple[int, int, int]:
         raise ValueError("params must be 3 rows of 4 uint32 coefficients")
     want = {"x_s": (d, k), "y_s": (d, k), "z_s": (d, k), "psi": (k,)}
     got = {"x_s": x_s, "y_s": y_s, "z_s": z_s, "psi": psi}
+    dev = a.device
+    # one pass over the common case; the loops below name what is wrong
+    if (tuple(t.shape for t in got.values()) == tuple(want.values())
+            and all(t.dtype == torch.float32 and t.device == dev
+                    and t.is_contiguous() for t in got.values())
+            and a.is_contiguous()):
+        return T, d, k
     for name, t in got.items():
         if tuple(t.shape) != want[name]:
             raise ValueError(f"{name} must have shape {want[name]}, got "
@@ -179,20 +195,22 @@ def _check(a, x_s, y_s, z_s, params, psi, m) -> tuple[int, int, int]:
 def _bind(lib: ctypes.CDLL) -> None:
     p, i, u, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
     lib.psparse_update_launch.argtypes = (
-        [p, i] + [p] * 7 + [u] * 12 + [i] * 4 + [f, f, p])
+        [p, i] + [p] * 6 + [u] * 12 + [i] * 7 + [f, f, p])
     lib.psparse_update_launch.restype = i
     lib.psparse_update_error_string.argtypes = [i]
     lib.psparse_update_error_string.restype = ctypes.c_char_p
 
 
 def psparse_update(a, x_s, y_s, z_s, params, psi, *, beta: float, m: int):
-    """Fused psparse EMA update; returns new f32 (x, y, z), each (d, k).
+    """Fused psparse EMA update; returns new f32 (x, y, z), each (d, k),
+    views of one (3, d, k) buffer.
 
     a (T, d) f32 or bf16; x/y/z (d, k) and psi (k,) f32, psi pre-masked;
     ``params`` 3 rows of 4 uint32 host integers; all tensors contiguous
     on one device; k <= 64. Column masking of the outputs is the
     caller's. CPU tensors take ``psparse_update_ref``; CUDA tensors
-    launch the kernel.
+    launch the tensor-core kernel when ``uses_tensor_cores(T, d,
+    a.dtype)``, else the FMA kernel.
     """
     T, d, k = _check(a, x_s, y_s, z_s, params, psi, m)
     if a.device.type == "cpu":
@@ -200,23 +218,31 @@ def psparse_update(a, x_s, y_s, z_s, params, psi, *, beta: float, m: int):
                                   m=m)
     if a.device.type != "cuda":
         raise ValueError(f"psparse_update runs on cpu or cuda, not {a.device}")
+    tc = uses_tensor_cores(T, d, a.dtype)
+    if tc:
+        check_aligned(a=a)
+    splits, per = launch_plan(3 * m, d, _build.num_sms(a.device), tc)
+    check_index_range(d, k, splits)
     lib = _build.load("psparse_update", _bind)
-    outs = [torch.empty((d, k), dtype=torch.float32, device=a.device)
-            for _ in range(3)]
+    out = torch.empty((3, d, k), dtype=torch.float32, device=a.device)
+    ws = (torch.empty((splits, 3, d, k), dtype=torch.float32,
+                      device=a.device) if splits > 1 else None)
     coeffs = [int(c) for row in params for c in row]
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.psparse_update_launch(
             a.data_ptr(), int(a.dtype == torch.bfloat16), psi.data_ptr(),
-            x_s.data_ptr(), y_s.data_ptr(), z_s.data_ptr(),
-            outs[0].data_ptr(), outs[1].data_ptr(), outs[2].data_ptr(),
-            *coeffs, T, d, k, m, psparse_scale(T, m), float(beta), stream)
+            x_s.data_ptr(), y_s.data_ptr(), z_s.data_ptr(), out.data_ptr(),
+            ws.data_ptr() if ws is not None else None, *coeffs, T, d, k, m,
+            int(tc), splits, per, psparse_scale(T, m), float(beta), stream)
     if err:
         raise RuntimeError(
             f"psparse_update kernel launch failed: "
             f"{lib.psparse_update_error_string(err).decode()} ({err})")
     psparse_update.launches += 1
-    return tuple(outs)
+    psparse_update.kernel_launches += 1 if splits == 1 else 2
+    return out.unbind(0)
 
 
 psparse_update.launches = 0
+psparse_update.kernel_launches = 0

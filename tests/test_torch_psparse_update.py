@@ -23,6 +23,7 @@ from repro_torch.kernels import psparse_update as P
 from repro_torch.sketches import (
     PsparseProjections, proj_triple_increment, proj_triple_update,
 )
+from test_torch_sketch_update import _chip_smoke_cases, plan_covers_once
 
 RTOL = 1e-5
 ATOL_REL = 1e-5
@@ -184,6 +185,41 @@ def test_cpu_wrapper_never_counts_a_launch():
     assert P.psparse_update.launches == before
 
 
+@pytest.mark.parametrize("case", _chip_smoke_cases("PSPARSE_CASES"),
+                         ids=lambda c: "-".join(map(str, c)))
+def test_launch_plan_covers_every_slot_once(case):
+    """At every chip_smoke.py psparse case: the kernel its dtype and
+    shape pick, and a split of the 3m support slots that counts each
+    slot once."""
+    _, T, d, k, dtype = case
+    tc = P.uses_tensor_cores(T, d, getattr(torch, dtype))
+    plan_covers_once(3 * P.psparse_dim(T, k, 0.1), d, tc)
+
+
+def test_sign_tiles_with_alpha_after_match_reference():
+    """The tensor-core kernel's arithmetic in plain PyTorch, for this
+    test only: bf16 A read exactly, +-1 sign tiles (exact in bf16),
+    A[rows]^T sgn summed in f32 and alpha applied after, against
+    repro.kernels.psparse_update.psparse_update_ref at the LM's shape."""
+    T, d, k = 1024, 2048, 17
+    a, x, y, z, c, psi, m = _case(T, d, k, 0.1, seed=11)
+    a16 = torch.from_numpy(a).to(torch.bfloat16)
+    alpha = P.psparse_scale(T, m)
+    got = []
+    for i, s in enumerate((x, y, z)):
+        rows = P.psparse_rows(_host(c)[i], m, T)
+        sgn = P.psparse_signs(_host(c)[i], m, k).to(torch.bfloat16)
+        inc = (a16.index_select(0, rows).float().T @ sgn.float()) * alpha
+        if i == 2:
+            inc = inc * torch.from_numpy(psi)[None, :]
+        got.append(BETA * torch.from_numpy(s) + (1 - BETA) * inc)
+    want = J.psparse_update_ref(jnp.asarray(a16.float().numpy()),
+                                *map(jnp.asarray, (x, y, z, c, psi)),
+                                beta=BETA, m=m)
+    for g, w in zip(got, want):
+        _close(g.numpy(), w)
+
+
 def test_wrapper_rejects_what_the_kernel_cannot_take():
     a, x, y, z, c, psi, m = _case(8, 16, P.MAX_K + 1, 0.5, seed=2)
     args = [torch.from_numpy(v) for v in (a, x, y, z)]
@@ -206,23 +242,47 @@ def test_wrapper_rejects_what_the_kernel_cannot_take():
                          m=m)
 
 
-@pytest.mark.requires_cuda
-@pytest.mark.parametrize("T,d,k,dtype", [(128, 512, 33, torch.float32),
-                                         (1024, 2048, 9, torch.bfloat16),
-                                         (37, 50, 9, torch.float32)])
-def test_cuda_kernel_matches_plain_version(T, d, k, dtype):
+# (T, d, k, dtype) on the card: the trainer's and the serving path's
+# shapes, then every tile edge of both kernels (d 50 on the FMA kernel in
+# both types; d 136 and 1000 end inside a tensor-core tile; k of one, two
+# and three 64-output warpgroups; T 8 gives fewer slots than a stage)
+CUDA_CASES = [(128, 512, 33, torch.float32), (1024, 2048, 9, torch.bfloat16),
+              (37, 50, 9, torch.float32)] + [
+    (T, d, k, dt) for T in (8, 300) for d in (50, 136, 1000)
+    for k in (1, 17, 64) for dt in (torch.float32, torch.bfloat16)]
+
+
+def _cuda_case(T, d, k, dtype, density, seed):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
-    a, x, y, z, c, psi, m = _case(T, d, k, 0.1, seed=T)
+    a, x, y, z, c, psi, m = _case(T, d, k, density, seed=seed)
     dev = torch.device("cuda")
     args = [torch.from_numpy(v).to(dev) for v in (a, x, y, z)]
     args[0] = args[0].to(dtype)
-    tpsi = torch.from_numpy(psi).to(dev)
+    return args, _host(c), torch.from_numpy(psi).to(dev), m
+
+
+def _cuda_check(args, c, tpsi, m):
+    """Two calls against the plain version on the CPU, and equal bit for
+    bit (the slot splits are summed in a fixed order)."""
     before = P.psparse_update.launches
-    got = P.psparse_update(*args, _host(c), tpsi, beta=BETA, m=m)
+    got = P.psparse_update(*args, c, tpsi, beta=BETA, m=m)
+    again = P.psparse_update(*args, c, tpsi, beta=BETA, m=m)
     torch.cuda.synchronize()
-    assert P.psparse_update.launches == before + 1
-    want = P.psparse_update_ref(*[t.cpu() for t in args], _host(c),
-                                tpsi.cpu(), beta=BETA, m=m)
-    for g, w in zip(got, want):
-        _close(g.cpu().numpy(), w.numpy())
+    assert P.psparse_update.launches == before + 2
+    want = P.psparse_update_ref(*[t.cpu() for t in args], c, tpsi.cpu(),
+                                beta=BETA, m=m)
+    for g, h, w in zip(got, again, want):
+        # the kernels' 1e-4 (chip_smoke.py's TOL): sums in another order
+        w = w.numpy()
+        np.testing.assert_allclose(g.cpu().numpy(), w, rtol=1e-4,
+                                   atol=1e-4 * max(float(np.abs(w).max()),
+                                                   1e-30))
+        assert torch.equal(g, h), "two calls differ"
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("T,d,k,dtype", CUDA_CASES)
+def test_cuda_kernel_matches_plain_version(T, d, k, dtype):
+    _cuda_check(*_cuda_case(T, d, k, dtype, 0.1, seed=T + d + k))
+

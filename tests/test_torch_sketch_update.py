@@ -6,6 +6,9 @@ rtol 1e-5, atol 1e-5 * max|reference| (f32 sums in different orders).
 The CUDA kernel itself runs only on the card, where ``chip_smoke.py``
 holds it against the plain version.
 """
+import importlib.util
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -15,7 +18,8 @@ from repro.kernels.ref import sketch_update_ref as jax_ref
 from repro.kernels.sketch_update import sketch_update as jax_kernel
 from repro.sketches.update import ema_triple_update as jax_ema_update
 from repro_torch.kernels.sketch_update import (
-    MAX_K, launch_plan, sketch_update, sketch_update_ref,
+    FMA_MAX_T, FMA_ROWS, MAX_K, TC_ROWS, TC_TILE_D, launch_plan,
+    sketch_update, sketch_update_ref, uses_tensor_cores,
 )
 from repro_torch.sketches.update import ema_triple_update
 
@@ -94,13 +98,46 @@ def test_cpu_wrapper_never_counts_a_launch():
     assert (sketch_update.launches, sketch_update.kernel_launches) == before
 
 
-@pytest.mark.parametrize("T,d,k", [(8, 2048, 9), (1024, 2048, 9),
-                                   (64, 2048, 9), (1024, 2048, 33),
-                                   (37, 50, 9), (1, 1, 1)])
-def test_launch_plan_covers_every_row_once(T, d, k):
-    splits, rows = launch_plan(T, d, k, num_sms=132)
-    assert splits >= 1 and (splits - 1) * rows < T <= splits * rows
-    assert splits == 1 or rows >= 64
+def _chip_smoke_cases(name):
+    """A case list of chip_smoke.py (its top level imports only the
+    standard library)."""
+    path = Path(__file__).resolve().parent.parent / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("_chip_smoke_cases", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return getattr(mod, name)
+
+
+def plan_covers_once(rows, d, tensor_cores, sms=132):
+    """The plan's splits partition [0, rows), each a whole number of the
+    kernel's stages and none empty; on the tensor cores the blocks take
+    at most one wave (one an SM) and at least half of it where the rows
+    allow."""
+    splits, per = launch_plan(rows, d, sms, tensor_cores)
+    step = TC_ROWS if tensor_cores else FMA_ROWS
+    assert per % step == 0 and splits >= 1
+    seen = np.zeros(rows, dtype=int)
+    for i in range(splits):
+        lo, hi = i * per, min(rows, (i + 1) * per)
+        assert lo < hi, "an empty split"
+        seen[lo:hi] += 1
+    assert (seen == 1).all()
+    if tensor_cores:
+        tiles = -(-d // TC_TILE_D)
+        assert splits == 1 or tiles * splits <= sms
+        assert 2 * splits > min(-(-rows // step), sms // tiles)
+    return splits
+
+
+@pytest.mark.parametrize("case", _chip_smoke_cases("SKETCH_UPDATE_CASES"),
+                         ids=lambda c: "-".join(map(str, c)))
+def test_launch_plan_covers_every_row_once(case):
+    """At every chip_smoke.py case: the kernel its dtype and shape pick,
+    and a T split that counts each row once."""
+    _, T, d, k, dtype = case
+    tc = uses_tensor_cores(T, d, getattr(torch, dtype))
+    assert tc == (dtype == "bfloat16" and d % 8 == 0 and T > FMA_MAX_T)
+    plan_covers_once(T, d, tc)
 
 
 def test_wrapper_rejects_what_the_kernel_cannot_take():
@@ -161,3 +198,63 @@ def test_pad_activation_rows_and_row_binding(rows):
     assert proj_num_tokens({"omega": torch.zeros(8, 3)}) == 8
     assert proj_num_tokens(PsparseProjections(((1, 0, 1, 0),) * 3, 8,
                                               3)) == 8
+
+
+def split_products(a, ups, omg, phi, psi, x, y, z, beta):
+    """The tensor-core kernel's arithmetic in plain PyTorch, for this
+    test only: bf16 A read exactly, each f32 projection carried as hi =
+    bf16(P) and lo = bf16(P - hi), A^T hi + A^T lo summed in f32, then
+    the epilogue. (f32 A takes the FMA kernel, whose products are the
+    plain version's f32 ones.)"""
+    at = a.float().T
+
+    def prod(p, keep_lo=True):
+        hi = p.to(torch.bfloat16).float()
+        lo = (p - hi).to(torch.bfloat16).float()
+        return at @ hi + (at @ lo if keep_lo else 0.0)
+
+    return (beta * x + (1 - beta) * prod(ups),
+            beta * y + (1 - beta) * prod(omg),
+            beta * z + (1 - beta) * prod(phi) * psi[None, :]), prod
+
+
+@pytest.mark.parametrize("shape", [(1024, 2048, 17)] + SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_split_arithmetic_matches_reference(shape):
+    """hi/lo of P on bf16 A against repro.kernels.ref.sketch_update_ref
+    at the reference tolerance; at the LM's shape, dropping the lo
+    product fails it, so the tolerance tells the split from rounding."""
+    a, x, y, z, ups, omg, phi, psi = _inputs(*shape, seed=3)
+    a = torch.from_numpy(a).to(torch.bfloat16)
+    t = [torch.from_numpy(v) for v in (ups, omg, phi, psi, x, y, z)]
+    got, prod = split_products(a, *t, BETA)
+    want = jax_ref(jnp.asarray(a.float().numpy()), *map(jnp.asarray, (
+        x, y, z, ups, omg, phi, psi)), BETA)
+    for g, w in zip(got, want):
+        _close(g.numpy(), w)
+    if shape == (1024, 2048, 17):
+        no_lo = BETA * t[4] + (1 - BETA) * prod(t[0], keep_lo=False)
+        with pytest.raises(AssertionError):
+            _close(no_lo.numpy(), want[0])
+
+
+def test_lib_path_covers_included_headers(tmp_path, monkeypatch):
+    """A library's name hashes its source and every csrc header the
+    source includes, followed through the headers: editing a header
+    rebuilds each library that includes it, and only those."""
+    import shutil
+
+    from repro_torch.kernels import _build
+    for path in _build.CSRC.iterdir():
+        shutil.copy(path, tmp_path / path.name)
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    assert [p.name for p in _build.sources("sketch_update")] == [
+        "sketch_update.cu", "ema_update.cuh", "hopper.cuh"]
+    names = ("sketch_update", "psparse_update", "flash_attention",
+             "csvec_insert")
+    before = {n: _build.lib_path(n) for n in names}
+    header = tmp_path / "hopper.cuh"
+    header.write_bytes(header.read_bytes() + b"\n// edited\n")
+    after = {n: _build.lib_path(n) for n in names}
+    assert [after[n] != before[n] for n in names] == [True, True, True,
+                                                       False]
