@@ -21,7 +21,8 @@ nvcc and nvidia-smi. Phases, each of which raises on failure:
    count-sketch kernels at the LM train step's geometry
    (r 5, c 2^23, the flat dimension of tinyllama-1.1b, k 256 and 512), a
    small ragged case and an even r: ``csvec_insert`` within the same
-   tolerance (atomic sums) beside r ``index_add_`` calls over
+   tolerance (atomic sums), with its plan's scratch and the kernels a
+   profiled call launches (two a chunk), beside r ``index_add_`` calls over
    precomputed buckets and signed values, ``csvec_topk`` exact (indices
    and values) beside ``torch.topk`` of a precomputed |estimate|,
    ``csvec_quant`` exact in q, scale and dhat and within one ulp of the
@@ -46,9 +47,13 @@ nvcc and nvidia-smi. Phases, each of which raises on failure:
    both wires (tests/test_ring.py's draw) and at the DP runs' buffers
    (phase 9's fused dense wire at W 4, N 1.109e9, fp32; its int8 sketch
    wire at W 2): y, every replica and every residual row equal to the
-   plain version's bit for bit, the int8 ledger dequant(y) + sum_d res_d
-   = sum_d x_d within 8 W ulps of the largest shard element, beside
-   ``xs.sum(0)`` on the fp32 wire (no library call on the int8); then
+   plain version's bit for bit, with and without replicas, the int8
+   ledger dequant(y) + sum_d res_d = sum_d x_d within 8 W ulps of the
+   largest shard element, the kernels a profiled call launches (one on
+   the fp32 wire, W + 1 on the int8); timed as the DP step calls it
+   (device 0's replica) beside ``xs.sum(0)`` on the fp32 wire (no
+   library call on the int8) and with every replica, each beside the
+   bound of the bytes it writes; then
    the bytes autograd keeps for one attention call at tinyllama-1.1b's
    context (B 4, S 2048) through the plain version and through the
    kernel, which must keep q, k, v, o and lse and nothing of size S x S;
@@ -295,6 +300,10 @@ PROJ_KINDS = ("gaussian", "psparse")
 # amplify f32 rounding by up to cond(Y^T Y); a QR column of the other
 # sign moves A~ by O(1)
 RECON_TOL = 1e-3
+# the names of each redesigned kernel family's kernels, as the profiler
+# shows them
+INSERT_KERNELS = ("csvec_insert_bin_records", "csvec_insert_sum_bins")
+RING_KERNELS = ("ring_fold_f32", "ring_amax0_int8", "ring_level_int8")
 PROFILE_TRIES = 3       # profiles of a timing before a short count is taken
 SPIN_CYCLES = 2_000_000  # about 1 ms of torch.cuda._sleep at 1.98 GHz
 
@@ -518,7 +527,9 @@ def phase_cs_kernels(dev) -> dict[str, list[dict]]:
     from repro_torch.countsketch.csvec import (
         CSVec, hash_buckets, hash_params, hash_signs, query,
     )
-    from repro_torch.kernels.csvec_insert import csvec_insert, csvec_insert_ref
+    from repro_torch.kernels.csvec_insert import (
+        csvec_insert, csvec_insert_ref, insert_plan,
+    )
     from repro_torch.kernels.csvec_quant import csvec_quant, csvec_quant_ref
     from repro_torch.kernels.csvec_topk import csvec_topk, csvec_topk_ref
     from repro_torch.models.transformer import num_params
@@ -545,11 +556,28 @@ def phase_cs_kernels(dev) -> dict[str, list[dict]]:
 
         # insert, and r index_add_ calls over precomputed buckets and
         # signed values, one row at a time
+        plan = insert_plan(n, r, c)
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
         got = csvec_insert(zeros, params, vec)
+        torch.cuda.synchronize()
+        # the scratch and the output table a call adds to what it is given
+        call_peak = torch.cuda.max_memory_allocated() - before
         table = csvec_insert_ref(zeros, params, vec)
         torch.cuda.synchronize()
         scale = float(table.abs().max())
         torch.testing.assert_close(got, table, rtol=TOL, atol=TOL * scale)
+        seen = _device_kernels(lambda: csvec_insert(zeros, params, vec), 1)
+        kernels = kernel_ms = None
+        if seen is not None:      # launches and device ms of each kernel
+            kernels = sum(k for name, (k, _) in seen.items()
+                          if any(n in name for n in INSERT_KERNELS))
+            kernel_ms = {k: sum(us for name, (_, us) in seen.items()
+                                if k in name) / 1e3
+                         for k in INSERT_KERNELS}
+        if kernels is not None and kernels != plan.kernels:
+            raise AssertionError(f"csvec_insert {label}: one call launched "
+                                 f"{kernels} kernels, not {plan.kernels}")
         ms, call_ms = time_ms(lambda: csvec_insert(zeros, params, vec), it, 1)
         plain_ms, plain_call_ms = time_ms(
             lambda: csvec_insert_ref(zeros, params, vec), plain_it, 0)
@@ -567,8 +595,13 @@ def phase_cs_kernels(dev) -> dict[str, list[dict]]:
             lib_ms, lib_call_ms = lib_ms + m1, lib_call_ms + m2
             del bj, svj
         rows["csvec_insert"].append(dict(
-            case, max_abs_err=float((got - table).abs().max()), ms=ms,
-            plain_ms=plain_ms, library_ms=lib_ms, call_ms=call_ms,
+            case, max_abs_err=float((got - table).abs().max()),
+            err_of_allowance=float(((got - table).abs() / (
+                TOL * (scale + table.abs()))).max()),
+            scratch_bytes=plan.scratch_bytes, call_peak_bytes=call_peak,
+            chunks=plan.chunks, bins=plan.nbins, kernels_per_call=kernels,
+            kernel_ms=kernel_ms,
+            ms=ms, plain_ms=plain_ms, library_ms=lib_ms, call_ms=call_ms,
             plain_call_ms=plain_call_ms, library_call_ms=lib_call_ms,
             **dict(zip(("bound_ms", "bound_by"),
                        bytes_or_ops(4 * n + 8 * r * c, 2 * r * n)))))
@@ -1677,11 +1710,25 @@ DP_RUNS = {"fused_w4": dict(workers=4, dp_collective="fused",
 DP_STEPS = 10
 
 
-def ring_bound(W: int, N: int, wire: str) -> tuple[float, str]:
-    """The W shards read once and the W replicas written once (and on the
-    int8 wire the W residual rows) at 3.35 TB/s."""
-    return (12 if wire == "int8" else 8) * W * N / PEAK_BYTES_S * 1e3, \
-        "bytes"
+def ring_bound(W: int, N: int, wire: str, replicas: bool
+               ) -> tuple[float, str]:
+    """The bytes the call must move at 3.35 TB/s: the W shards read once,
+    the merged vector written once (to each of the W replica rows when
+    ``replicas``), and on the int8 wire the W residual rows written once:
+    (4 W + 4) N on the fp32 wire as the DP step calls it, (8 W + 4) N on
+    the int8 wire."""
+    out_rows = (W if replicas else 1) + (W if wire == "int8" else 0)
+    return 4 * (W + out_rows) * N / PEAK_BYTES_S * 1e3, "bytes"
+
+
+def _ring_kernels_per_call(fn) -> int | None:
+    """The ring kernels (by name) in a profile of one call of ``fn``, or
+    None if the profiler lost its markers."""
+    seen = _device_kernels(fn, 1)
+    if seen is None:
+        return None
+    return sum(n for name, (n, _) in seen.items()
+               if any(k in name for k in RING_KERNELS))
 
 
 def _ring_shards(dev, W: int, N: int, seed: int):
@@ -1703,11 +1750,15 @@ def _ring_shards(dev, W: int, N: int, seed: int):
 def _ring_case(dev, label: str, W: int, N: int, wire: str, seed: int,
                iters: int) -> dict:
     """The kernel against its plain version, bit for bit (every replica
-    and residual row; the plain version on the CPU for the grid, on the
-    card at full width), the int8 ledger, then the timings."""
+    and residual row, with and without ``replicas``; the plain version
+    on the CPU for the grid, on the card at full width), the int8
+    ledger, the kernels one call launches against ``kernels_per_call``,
+    then the timings: the DP step's call (device 0's replica) beside
+    ``xs.sum(0)`` and the bound of what it writes, and the call that
+    writes every replica beside its own bound."""
     import torch
     from repro_torch.kernels.ring_allreduce import (
-        ring_allreduce, ring_allreduce_plain,
+        kernels_per_call, ring_allreduce, ring_allreduce_plain,
     )
     xs = _ring_shards(dev, W, N, seed)
     where = xs.device if N > RING_SIZES[-1] else torch.device("cpu")
@@ -1729,21 +1780,37 @@ def _ring_case(dev, label: str, W: int, N: int, wire: str, seed: int,
         if ledger > limit:
             raise AssertionError(f"ring {label}: ledger off by {ledger:.3e}"
                                  f" > {limit:.3e}")
+        del total, led
+    del y, res
+    torch.cuda.empty_cache()
+    y, res = ring_allreduce(xs, wire)
+    torch.cuda.synchronize()
+    if not (torch.equal(y.to(where), want_y)
+            and torch.equal(res.to(where), want_res)):
+        raise AssertionError(f"ring {label}: device 0's replica or the "
+                             f"residuals differ without replicas")
     del y, res, want_y, want_res
     torch.cuda.empty_cache()
-    ms, call_ms = time_ms(lambda: ring_allreduce(xs, wire, replicas=True),
-                          iters, 2)
+    kernels = _ring_kernels_per_call(lambda: ring_allreduce(xs, wire))
+    if kernels is not None and kernels != kernels_per_call(W, wire):
+        raise AssertionError(f"ring {label}: one call launched {kernels} "
+                             f"kernels, not {kernels_per_call(W, wire)}")
+    ms, call_ms = time_ms(lambda: ring_allreduce(xs, wire), iters, 2)
+    rep_ms, rep_call_ms = time_ms(
+        lambda: ring_allreduce(xs, wire, replicas=True), iters, 2)
     plain_ms, plain_call_ms = time_ms(
         lambda: ring_allreduce_plain(xs, wire), iters, 2)
     lib_ms = lib_call_ms = None
     if wire == "fp32":
         lib_ms, lib_call_ms = time_ms(lambda: xs.sum(0), iters, 2)
-    bound_ms, bound_by = ring_bound(W, N, wire)
+    bound_ms, bound_by = ring_bound(W, N, wire, False)
     row = dict(case=label, W=W, N=N, wire=wire, max_abs_err=0.0,
-               ledger_max_abs=ledger, ms=ms, plain_ms=plain_ms,
-               library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by,
-               call_ms=call_ms, plain_call_ms=plain_call_ms,
-               library_call_ms=lib_call_ms)
+               ledger_max_abs=ledger, kernels_per_call=kernels, ms=ms,
+               plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
+               bound_by=bound_by, replicas_ms=rep_ms,
+               replicas_bound_ms=ring_bound(W, N, wire, True)[0],
+               call_ms=call_ms, replicas_call_ms=rep_call_ms,
+               plain_call_ms=plain_call_ms, library_call_ms=lib_call_ms)
     log(f"ring_allreduce {json.dumps(row)}")
     del xs
     torch.cuda.empty_cache()
@@ -1754,8 +1821,10 @@ def phase_ring(dev) -> dict[str, list[dict]]:
     """ring_allreduce at the grid and at the DP runs' full-width buffers:
     bitwise against its plain version, replicas equal, the int8 ledger
     dequant(y) + sum_d res_d = sum_d x_d within 8 W ulps of the largest
-    shard element; timed (CUDA events and torch.profiler) beside its
-    bound, its plain version and, on the fp32 wire, ``xs.sum(0)``."""
+    shard element, the kernels a call launches; timed (CUDA events and
+    torch.profiler) as the DP step calls it and with every replica,
+    each beside the bound of what it writes, its plain version and, on
+    the fp32 wire, ``xs.sum(0)``."""
     from repro_torch.configs import get_arch
     from repro_torch.models.transformer import num_params, sketch_groups
     from repro_torch.optim.compression import (

@@ -2,48 +2,48 @@
 // Hopper (sm_90a).
 //
 // Replaces the TPU kernel src/repro/kernels/ring_allreduce.py::ring_allreduce
-// (its pallas_call), a remote-DMA ring between W chips. Here the W workers
-// of the data-parallel step live in one process on one card, so the W
-// "devices" of the ring are W regions of device memory. Device d owns its
-// shard row x[d] (N f32, read in chunks of S, zero past N), two receive
-// slots slot[d][0..1] (S f32, or S int8 plus scale[d][0..1]), its residual
-// row res[d] and its output row y[d]. A hop is one launch (two on the int8
-// wire), with the grid over (chunk elements, device): the launch boundary
-// is the barrier between hops, so no block waits on another.
+// (its pallas_call), a remote-DMA chain between W chips: chunk c of
+// ceil(N / W) elements (rounded up to 128, zero past N) is folded in device
+// order 0..W-1 along the chain, then broadcast back. Here the W workers of
+// the data-parallel step live in one process on one card, so the W shard
+// rows x[0..W-1] lie side by side in one memory. Nothing has to travel, and
+// this kernel computes the chain's result, not its wire: the fold, per
+// element and in device order. The transport across cards, whose hops go
+// through peer memory, is a kernel of its own (ROADMAP A item 6).
 //
-// Schedule, the reference's pipelined chain (not a rotated ring), 3W - 3
-// hops t = 0..3W-4 with double-buffered slots p = t % 2:
-//   stage   device 0 puts chunk t + 1 of its shard into device 1's slot
-//           (t + 1) % 2 during hop t (hop -1 stages chunk 0);
-//   reduce  device d >= 1 receives chunk c = t - (d - 1) in slot t % 2,
-//           adds its own chunk c and writes the sum into device
-//           (d + 1) % W's slot (t + 1) % 2; device W - 1 holds the final
-//           chunk, keeps it in y and starts the broadcast to device 0;
-//   bcast   device d < W - 1 receives final chunk c = t - (W - 1) - d,
-//           keeps it in y and, for d <= W - 3, forwards it raw.
-// So chunk c folds in device order 0..W-1: the fp32 wire is the left fold
-// x[0] + x[1] + ... + x[W-1] of every element, bit for bit.
+// fp32 wire: y = x[0] + x[1] + ... + x[W-1], a left fold of IEEE adds
+// (__fadd_rn), which is the chain's fold and the reference's psum order bit
+// for bit. One launch: a thread loads 4 elements of every row (16 bytes a
+// row where the rows are 16-byte aligned), folds them and writes y once, to
+// row 0 or, with `replicas`, to every replica row.
 //
-// int8 wire: device 0 quantises its chunk, each reduce step folds the
-// received codes in and requantises, the broadcast forwards the raw (int8,
-// scale) pairs. The arithmetic is that of the reference's compiled oracle,
-// every step an intrinsic so that nvcc cannot contract or reorder it:
-//   scale = __fmul_rn(amax, 1/127f)        amax = max |s| over the chunk
-//   q     = clamp(rint(__fdiv_rn(s, safe)), -127, 127),  safe = scale or 1
-//   s     = __fmaf_rn(q_in, scale_in, x)   (the fold; device 0: s = x)
-//   res   = __fmaf_rn(-q, scale, s)        (the device's residual)
-//   y     = __fmul_rn(q, scale)
-// The chunk's amax is a reduction across blocks: a first launch of the hop
-// computes s and folds max |s| in with atomicMax on its bits (|s| >= 0
-// orders as unsigned ints, so this is exact and order-free), and the second
-// launch computes s again instead of storing it.
+// int8 wire: at fold point d the running sum s_d is requantised per chunk:
+//   s_0 = x_0,  s_d = __fmaf_rn(q_{d-1}, sc_{d-1}, x_d)
+//   sc_d = __fmul_rn(amax_chunk |s_d|, fl(1/127))
+//   q_d  = clamp(rint(__fdiv_rn(s_d, safe)), -127, 127),  safe = sc_d or 1
+//   res_d = __fmaf_rn(-q_d, sc_d, s_d),   y = __fmul_rn(q_{W-1}, sc_{W-1})
+// the arithmetic of the reference's compiled oracle, every step an
+// intrinsic so that nvcc cannot contract or reorder it. The chunks do not
+// depend on one another, so every chunk's fold point d runs at once: W
+// levels instead of the chain's 3W - 3 hops. A level needs each chunk's
+// amax before it quantises, a reduction across blocks, so the amax of level
+// d + 1 is taken by level d's launch: it computes s_{d+1} from the q_d and
+// sc_d it has just made and folds max |s_{d+1}| in with atomicMax on the
+// bits (|s| >= 0 orders as unsigned ints, a NaN above every number: exact
+// and order-free). Between levels only the int8 codes (one byte an element,
+// in place) and the W x W amax words are kept. Launches: a memset of the
+// amax words, the amax of level 0, then one launch a level.
 //
-// Bound on an H100 SXM (3.35 TB/s): the function reads the W shards once and
-// writes the merged vector once per replica, 8 W N bytes (fp32), and the W
-// residual rows as well on the int8 wire, 12 W N bytes. At tinyllama-1.1b's
-// fused dense wire (N = 1.1e9, W = 4) that is 35 GB, 10.5 ms. The chain moves
-// more: each chunk crosses 2W - 2 slots (written and read once each), as on
-// the TPU. Loads and stores are 16 bytes a thread where aligned.
+// Bound on an H100 SXM (3.35 TB/s). The call reads the W shards once and
+// writes y once (4 W N + 4 N bytes on the fp32 wire as the DP step calls
+// it; 4 W N more for the W replica rows), and on the int8 wire also the W
+// residual rows (8 W N + 4 N). At tinyllama-1.1b's fused dense wire (N =
+// 1.109e9, W = 4) the fp32 call moves 22.2 GB, 6.62 ms. The fp32 kernel
+// moves just that. The int8 kernel moves more: each level reads its row,
+// the codes and the next row (for its amax) and writes the codes, 14 N
+// bytes a level and 4 N for level 0's amax, about 14 W N in all.
+//
+// Offsets are 64-bit: the fused buffer holds W N = 4.4e9 elements.
 
 #include <cuda_runtime.h>
 
@@ -54,49 +54,20 @@ namespace {
 constexpr int THREADS = 256;
 constexpr int VEC = 4;
 
-struct Geo {
-  const float* x;   // (W, N) shards
-  float* y;         // (W or 1, N) replicas
-  float* res;       // (W, N) residual rows (int8 wire)
-  void* slot;       // (W, 2, S) receive slots
-  float* scale;     // (W, 2) received scales (int8 wire)
-  unsigned* amax;   // (W,) |s| bits of the hop's chunk (int8 wire)
-  long long n;
-  int w, s, t, replicas;
-};
-
-// The role of device d at hop t: 0 none, 1 stage (device 0), 2 reduce,
-// 3 bcast; `c` the chunk it handles.
-__device__ __forceinline__ int role(const Geo& g, int d, int* c) {
-  const int W = g.w, t = g.t;
-  if (d == 0 && t + 1 < W) { *c = t + 1; return 1; }
-  if (t < 0) return 0;
-  if (d >= 1) {
-    const int cr = t - (d - 1);
-    if (cr >= 0 && cr < W) { *c = cr; return 2; }
-  }
-  if (d < W - 1) {
-    const int cb = t - (W - 1) - d;
-    if (cb >= 0 && cb < W) { *c = cb; return 3; }
-  }
-  return 0;
-}
-
 __device__ __forceinline__ bool aligned(long long n, long long idx) {
   return (n & 3) == 0 && idx + VEC <= n;
 }
 
-// x[d][c*S + i .. + VEC), zero past N
-__device__ __forceinline__ void load_x(const Geo& g, int d, long long idx,
-                                       float v[VEC]) {
-  const float* row = g.x + (long long)d * g.n;
-  if (aligned(g.n, idx)) {
+// row[idx .. idx + VEC), zero past n
+__device__ __forceinline__ void load_row(const float* row, long long n,
+                                         long long idx, float v[VEC]) {
+  if (aligned(n, idx)) {
     const float4 q = *reinterpret_cast<const float4*>(row + idx);
     v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
     return;
   }
 #pragma unroll
-  for (int k = 0; k < VEC; ++k) v[k] = idx + k < g.n ? row[idx + k] : 0.f;
+  for (int k = 0; k < VEC; ++k) v[k] = idx + k < n ? row[idx + k] : 0.f;
 }
 
 __device__ __forceinline__ void store_row(float* row, long long n,
@@ -110,82 +81,50 @@ __device__ __forceinline__ void store_row(float* row, long long n,
     if (idx + k < n) row[idx + k] = v[k];
 }
 
-// device d's output row, or nothing when only device 0's replica is kept
-__device__ __forceinline__ void store_y(const Geo& g, int d, long long idx,
-                                       const float v[VEC]) {
-  if (g.replicas)
-    store_row(g.y + (long long)d * g.n, g.n, idx, v);
-  else if (d == 0)
-    store_row(g.y, g.n, idx, v);
+// y's row 0, or every replica row
+__device__ __forceinline__ void store_y(float* y, long long n, int rows,
+                                        long long idx, const float v[VEC]) {
+  for (int d = 0; d < rows; ++d) store_row(y + (long long)d * n, n, idx, v);
 }
 
-__global__ void __launch_bounds__(THREADS) hop_f32(Geo g) {
-  const int d = blockIdx.y;
-  const int i = (blockIdx.x * THREADS + threadIdx.x) * VEC;
-  int c = 0;
-  const int r = role(g, d, &c);
-  if (r == 0 || i >= g.s) return;
-  const int W = g.w, last = g.t + 1 >= 3 * W - 3;
-  float* slots = static_cast<float*>(g.slot);
-  const int p = g.t & 1, p1 = (g.t + 1) & 1;
-  const long long idx = (long long)c * g.s + i;
-  float v[VEC];
-  if (r == 1) {
-    load_x(g, 0, idx, v);
-  } else {
-    const float4 m = *reinterpret_cast<const float4*>(
-        slots + ((long long)d * 2 + p) * g.s + i);
-    v[0] = m.x; v[1] = m.y; v[2] = m.z; v[3] = m.w;
-    if (r == 2) {
-      float xv[VEC];
-      load_x(g, d, idx, xv);
+__global__ void __launch_bounds__(THREADS)
+    ring_fold_f32(const float* __restrict__ x, float* __restrict__ y,
+                  long long n, int w, int rows) {
+  const long long idx =
+      ((long long)blockIdx.x * THREADS + threadIdx.x) * VEC;
+  if (idx >= n) return;
+  float s[VEC];
+  load_row(x, n, idx, s);
+#pragma unroll 8
+  for (int d = 1; d < w; ++d) {
+    float v[VEC];
+    load_row(x + (long long)d * n, n, idx, v);
 #pragma unroll
-      for (int k = 0; k < VEC; ++k) v[k] = __fadd_rn(v[k], xv[k]);
-      if (d == W - 1) store_y(g, d, idx, v);
-    } else {
-      store_y(g, d, idx, v);
-      if (d > W - 3) return;            // the chain ends at device W - 2
-    }
+    for (int k = 0; k < VEC; ++k) s[k] = __fadd_rn(s[k], v[k]);
   }
-  if (last) return;
-  const int dst = (d + 1) % W;
-  *reinterpret_cast<float4*>(slots + ((long long)dst * 2 + p1) * g.s + i) =
-      make_float4(v[0], v[1], v[2], v[3]);
+  store_y(y, n, rows, idx, s);
 }
 
-// s for a quantising role (stage or reduce) at element block i
-__device__ __forceinline__ void fold_in(const Geo& g, int d, int r,
-                                        long long idx, int i, float s[VEC]) {
-  load_x(g, d, idx, s);
-  if (r == 2) {
-    const int p = g.t & 1;
-    const char4 m = *reinterpret_cast<const char4*>(
-        static_cast<const int8_t*>(g.slot) + ((long long)d * 2 + p) * g.s + i);
-    const float sc = g.scale[d * 2 + p];
-    s[0] = __fmaf_rn((float)m.x, sc, s[0]);
-    s[1] = __fmaf_rn((float)m.y, sc, s[1]);
-    s[2] = __fmaf_rn((float)m.z, sc, s[2]);
-    s[3] = __fmaf_rn((float)m.w, sc, s[3]);
-  }
-}
+struct Int8Geo {
+  const float* x;   // (W, N) shards
+  float* y;         // (rows, N) replicas
+  float* res;       // (W, N) residual rows
+  int8_t* q;        // (W * S,) the running codes, in place
+  unsigned* amax;   // (W, W) |s| bits, [level][chunk]
+  long long n;
+  int w, s, rows;
+};
 
 __device__ __forceinline__ float nanmax(float m, float a) {
   return a <= m ? m : a;  // a NaN replaces m
 }
 
-__global__ void __launch_bounds__(THREADS) hop_int8_amax(Geo g) {
-  const int d = blockIdx.y;
-  const int i = (blockIdx.x * THREADS + threadIdx.x) * VEC;
-  int c = 0;
-  const int r = role(g, d, &c);
-  if (r != 1 && r != 2) return;         // uniform over the block
-  float m = 0.f;
-  if (i < g.s) {
-    float s[VEC];
-    fold_in(g, d, r, (long long)c * g.s + i, i, s);
-#pragma unroll
-    for (int k = 0; k < VEC; ++k) m = nanmax(m, fabsf(s[k]));
-  }
+__device__ __forceinline__ float scale_of(const Int8Geo& g, int d, int c) {
+  return __fmul_rn(__uint_as_float(g.amax[d * g.w + c]), 1.0f / 127.0f);
+}
+
+// max over the block of each thread's m, folded into *dst
+__device__ __forceinline__ void block_amax(float m, unsigned* dst) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
     m = nanmax(m, __shfl_down_sync(0xffffffffu, m, off));
@@ -196,85 +135,104 @@ __global__ void __launch_bounds__(THREADS) hop_int8_amax(Geo g) {
   if (threadIdx.x == 0) {
     float b = 0.f;
     for (int k = 0; k < THREADS / 32; ++k) b = nanmax(b, warp_max[k]);
-    atomicMax(g.amax + d, __float_as_uint(b));
+    atomicMax(dst, __float_as_uint(b));
   }
 }
 
-__global__ void __launch_bounds__(THREADS) hop_int8(Geo g) {
-  const int d = blockIdx.y;
+// level 0's amax: max |x_0| over each chunk (grid: chunk elements, chunk)
+__global__ void __launch_bounds__(THREADS) ring_amax0_int8(Int8Geo g) {
+  const int c = blockIdx.y;
   const int i = (blockIdx.x * THREADS + threadIdx.x) * VEC;
-  int c = 0;
-  const int r = role(g, d, &c);
-  if (r == 0 || i >= g.s) return;
-  const int W = g.w, last = g.t + 1 >= 3 * W - 3;
-  const int p = g.t & 1, p1 = (g.t + 1) & 1;
-  int8_t* slots = static_cast<int8_t*>(g.slot);
-  const long long idx = (long long)c * g.s + i;
-  char4 out;
-  float sc;
-  if (r == 3) {                         // forward the raw pair
-    out = *reinterpret_cast<const char4*>(slots + ((long long)d * 2 + p) *
-                                          g.s + i);
-    sc = g.scale[d * 2 + p];
-    const float v[VEC] = {__fmul_rn((float)out.x, sc),
-                          __fmul_rn((float)out.y, sc),
-                          __fmul_rn((float)out.z, sc),
-                          __fmul_rn((float)out.w, sc)};
-    store_y(g, d, idx, v);
-    if (d > W - 3) return;
-  } else {
+  float m = 0.f;
+  if (i < g.s) {
     float s[VEC];
-    fold_in(g, d, r, idx, i, s);
-    sc = __fmul_rn(__uint_as_float(g.amax[d]), 1.0f / 127.0f);
+    load_row(g.x, g.n, (long long)c * g.s + i, s);
+#pragma unroll
+    for (int k = 0; k < VEC; ++k) m = nanmax(m, fabsf(s[k]));
+  }
+  block_amax(m, g.amax + c);
+}
+
+// fold point d of every chunk: s_d, q_d, res_d (and y at the last level),
+// then the amax of s_{d+1}
+__global__ void __launch_bounds__(THREADS) ring_level_int8(Int8Geo g, int d) {
+  const int c = blockIdx.y;
+  const int i = (blockIdx.x * THREADS + threadIdx.x) * VEC;
+  const bool last = d == g.w - 1;
+  float m = 0.f;
+  if (i < g.s) {
+    const long long idx = (long long)c * g.s + i;
+    float s[VEC];
+    load_row(g.x + (long long)d * g.n, g.n, idx, s);
+    if (d > 0) {
+      const char4 p = *reinterpret_cast<const char4*>(g.q + idx);
+      const float sp = scale_of(g, d - 1, c);
+      s[0] = __fmaf_rn((float)p.x, sp, s[0]);
+      s[1] = __fmaf_rn((float)p.y, sp, s[1]);
+      s[2] = __fmaf_rn((float)p.z, sp, s[2]);
+      s[3] = __fmaf_rn((float)p.w, sp, s[3]);
+    }
+    const float sc = scale_of(g, d, c);
     const float safe = sc > 0.f ? sc : 1.f;
-    float q[VEC], rs[VEC], v[VEC];
+    float q[VEC], rs[VEC];
 #pragma unroll
     for (int k = 0; k < VEC; ++k) {
       q[k] = fminf(fmaxf(rintf(__fdiv_rn(s[k], safe)), -127.f), 127.f);
       rs[k] = __fmaf_rn(-q[k], sc, s[k]);
-      v[k] = __fmul_rn(q[k], sc);
     }
     store_row(g.res + (long long)d * g.n, g.n, idx, rs);
-    if (d == W - 1) store_y(g, d, idx, v);
-    out = make_char4((int8_t)q[0], (int8_t)q[1], (int8_t)q[2], (int8_t)q[3]);
+    if (last) {
+      float v[VEC];
+#pragma unroll
+      for (int k = 0; k < VEC; ++k) v[k] = __fmul_rn(q[k], sc);
+      store_y(g.y, g.n, g.rows, idx, v);
+    } else {
+      *reinterpret_cast<char4*>(g.q + idx) =
+          make_char4((int8_t)q[0], (int8_t)q[1], (int8_t)q[2], (int8_t)q[3]);
+      float x1[VEC];
+      load_row(g.x + (long long)(d + 1) * g.n, g.n, idx, x1);
+#pragma unroll
+      for (int k = 0; k < VEC; ++k)
+        m = nanmax(m, fabsf(__fmaf_rn(q[k], sc, x1[k])));
+    }
   }
-  if (last) return;
-  const int dst = (d + 1) % W;
-  *reinterpret_cast<char4*>(slots + ((long long)dst * 2 + p1) * g.s + i) = out;
-  if (blockIdx.x == 0 && threadIdx.x == 0) g.scale[dst * 2 + p1] = sc;
+  if (!last) block_amax(m, g.amax + (d + 1) * g.w + c);  // uniform
 }
 
 }  // namespace
 
 extern "C" {
 
-// All-reduces the (workers, n) shards `x` on `stream` through 3W - 2 hop
-// launches (two kernels and a memset each on the int8 wire). Writes device
-// 0's replica into y (n,), or every device's into y (workers, n) when
-// `replicas`; on the int8 wire the residual rows into res (workers, n).
-// `slot` holds (workers, 2, chunk) f32 or int8, `scale` (workers, 2) f32,
-// `amax` (workers,) unsigned ints. Returns the first
-// cudaGetLastError() that is not cudaSuccess, as an int (0 on success).
-int ring_allreduce_launch(const float* x, float* y, float* res, void* slot,
-                          float* scale, unsigned* amax, long long n,
-                          int workers, int chunk, int int8, int replicas,
-                          void* stream) {
+// All-reduces the (workers, n) shards `x` on `stream`. Writes the merged
+// vector into y's row 0, or into every one of its `workers` rows when
+// `replicas`. On the int8 wire also writes the residual rows into res
+// (workers, n), and uses `q` (workers * chunk int8) and `amax` (workers *
+// workers unsigned ints) as scratch; on the fp32 wire res, q and amax are
+// not read. Launches one kernel (fp32), or a memset and workers + 1
+// kernels (int8). Returns the first cudaGetLastError() that is not
+// cudaSuccess, as an int (0 on success).
+int ring_allreduce_launch(const float* x, float* y, float* res, int8_t* q,
+                          unsigned* amax, long long n, int workers, int chunk,
+                          int int8, int replicas, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  Geo g{x, y, res, slot, scale, amax, n, workers, chunk, 0, replicas};
+  const int rows = replicas ? workers : 1;
+  if (!int8) {
+    const long long blocks = (n + (long long)THREADS * VEC - 1) /
+                             ((long long)THREADS * VEC);
+    ring_fold_f32<<<(unsigned)blocks, THREADS, 0, st>>>(x, y, n, workers, rows);
+    return static_cast<int>(cudaGetLastError());
+  }
+  Int8Geo g{x, y, res, q, amax, n, workers, chunk, rows};
   const dim3 grid((chunk / VEC + THREADS - 1) / THREADS, workers);
-  for (int t = -1; t < 3 * workers - 3; ++t) {
-    g.t = t;
-    if (int8) {
-      cudaError_t e = cudaMemsetAsync(amax, 0, workers * sizeof(unsigned), st);
-      if (e != cudaSuccess) return static_cast<int>(e);
-      hop_int8_amax<<<grid, THREADS, 0, st>>>(g);
-      e = cudaGetLastError();
-      if (e != cudaSuccess) return static_cast<int>(e);
-      hop_int8<<<grid, THREADS, 0, st>>>(g);
-    } else {
-      hop_f32<<<grid, THREADS, 0, st>>>(g);
-    }
-    const cudaError_t e = cudaGetLastError();
+  cudaError_t e = cudaMemsetAsync(
+      amax, 0, (size_t)workers * workers * sizeof(unsigned), st);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  ring_amax0_int8<<<grid, THREADS, 0, st>>>(g);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  for (int d = 0; d < workers; ++d) {
+    ring_level_int8<<<grid, THREADS, 0, st>>>(g, d);
+    e = cudaGetLastError();
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   return 0;

@@ -19,8 +19,8 @@ its plain PyTorch version (taken for CPU tensors) and a launch counter:
     mlstm_chunk     chunkwise stabilised mLSTM forward from a zero state
                     (replaces src/repro/kernels/mlstm_chunk.py)
     ring_allreduce  the data-parallel merge of W workers' flat buffers:
-                    the pipelined chain on an fp32 or int8 wire, run
-                    over W regions of one card
+                    the pipelined chain's result on an fp32 or int8
+                    wire, folded where the W rows lie on one card
                     (replaces src/repro/kernels/ring_allreduce.py)
 
 The package re-exports nothing: a function re-exported under its

@@ -65,22 +65,30 @@ def lib_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
+def compile_cu(src: Path, out: Path) -> str:
+    """Compile the CUDA source ``src`` into the library ``out`` with the
+    package's flags. Returns nvcc's log (with ``-Xptxas -v``: registers,
+    shared memory, spills); raises if the build fails."""
+    proc = subprocess.run([nvcc(), *NVCC_FLAGS, "-o", str(out), str(src)],
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                          text=True)
+    if proc.returncode:
+        raise RuntimeError(f"nvcc failed for {src}:\n{proc.stdout}")
+    return proc.stdout
+
+
 def build(name: str) -> str:
     """Compile ``csrc/<name>.cu`` unless it is built already. Returns
-    nvcc's log (with ``-Xptxas -v``: registers, shared memory, spills),
-    empty when nothing was compiled; raises if the build fails."""
+    nvcc's log, empty when nothing was compiled; raises if the build
+    fails."""
     out = lib_path(name)
     if out.exists():
         return ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    proc = subprocess.run(
-        [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    if proc.returncode:
-        raise RuntimeError(f"nvcc failed for {name}:\n{proc.stdout}")
+    log = compile_cu(CSRC / f"{name}.cu", tmp)
     os.replace(tmp, out)           # atomic: a reader never sees half
-    return proc.stdout
+    return log
 
 
 def load(name: str, bind) -> ctypes.CDLL:

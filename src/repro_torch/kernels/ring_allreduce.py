@@ -2,14 +2,18 @@
 the CUDA kernel's wrapper and its plain PyTorch version.
 
 Replaces the TPU kernel ``src/repro/kernels/ring_allreduce.py::
-ring_allreduce`` (a remote-DMA ring between W TPU chips). The port runs
-the W data-parallel workers in one process on one card, so the W
-"devices" of the ring are W regions of that card's memory: each holds its
-shard row, two receive slots and its residual and output rows, and a hop
-writes straight into the next device's receive slot. The kernel is
-``csrc/ring_allreduce.cu`` (CUDA C++ for ``sm_90a``), built at first use
-by ``kernels._build`` and called through ``ctypes``; the source file has
-the hop schedule, the launch layout and the bound.
+ring_allreduce`` (a remote-DMA chain between W TPU chips). The port runs
+the W data-parallel workers in one process on one card, so the W shard
+rows lie side by side in one memory and nothing has to travel: the
+kernel computes the chain's result, not its wire. On the fp32 wire that
+is one launch, the left fold of the W rows per element; on the int8 wire
+one launch a fold point, every chunk's at once, each taking the next
+level's per-chunk amax. The kernel is ``csrc/ring_allreduce.cu`` (CUDA
+C++ for ``sm_90a``), built at first use by ``kernels._build`` and called
+through ``ctypes``; the source file has the design and the bound: the
+shards read once, y written once (and the W residual rows on the int8
+wire), (4 W + 4) N bytes for the DP step's fp32 call, (8 W + 4) N on the
+int8 wire, 4 W N more with ``replicas``.
 
 Semantics are the reference's, bit for bit:
 
@@ -50,8 +54,6 @@ Tensor = torch.Tensor
 QMAX = 127.0
 LANE = 128
 WIRE_DTYPES = ("fp32", "int8")
-THREADS = 256              # threads a block (csrc THREADS)
-VEC = 4                    # elements a thread (csrc VEC)
 # fl(1/127) in f32, as the compiled oracle multiplies by it
 RECIP_QMAX = float(torch.tensor(1.0) / torch.tensor(QMAX))
 
@@ -59,6 +61,16 @@ RECIP_QMAX = float(torch.tensor(1.0) / torch.tensor(QMAX))
 def _chunk_len(n: int, workers: int) -> int:
     s = -(-n // workers)
     return -(-s // LANE) * LANE
+
+
+def kernels_per_call(workers: int, wire_dtype: str) -> int:
+    """Ring kernels one call launches on the card: the fold on the fp32
+    wire (beside PyTorch's fill of the 0-d zero its residual view
+    expands); the level-0 amax and one launch a fold point on the int8
+    wire (after a memset); none for one worker."""
+    if workers <= 1:
+        return 0
+    return 1 if wire_dtype == "fp32" else workers + 1
 
 
 def ring_wire_bytes(n: int, workers: int, wire_dtype: str) -> int:
@@ -131,7 +143,7 @@ def ring_allreduce_plain(xs: Tensor, wire_dtype: str = "fp32"
 
 def _bind(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.ring_allreduce_launch.argtypes = [p] * 6 + [ctypes.c_longlong, i, i,
+    lib.ring_allreduce_launch.argtypes = [p] * 5 + [ctypes.c_longlong, i, i,
                                                     i, i, p]
     lib.ring_allreduce_launch.restype = i
     lib.ring_allreduce_error_string.argtypes = [i]
@@ -162,18 +174,19 @@ def ring_allreduce(xs: Tensor, wire_dtype: str = "fp32", *,
     int8 = wire_dtype == "int8"
     y = torch.empty((W if replicas else 1, N), dtype=torch.float32,
                     device=dev)
-    res = (torch.empty((W, N), dtype=torch.float32, device=dev) if int8
-           else xs.new_zeros(()).expand(W, N))
-    slot = torch.empty((W, 2, S), dtype=torch.int8 if int8 else torch.float32,
-                       device=dev)
-    scale = torch.empty((W, 2), dtype=torch.float32, device=dev)
-    amax = torch.empty((W,), dtype=torch.int32, device=dev)
+    if int8:
+        res = torch.empty((W, N), dtype=torch.float32, device=dev)
+        codes = torch.empty((W * S,), dtype=torch.int8, device=dev)
+        amax = torch.empty((W * W,), dtype=torch.int32, device=dev)
+        ptrs = res.data_ptr(), codes.data_ptr(), amax.data_ptr()
+    else:
+        res = xs.new_zeros(()).expand(W, N)
+        ptrs = None, None, None
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.ring_allreduce_launch(
-            xs.data_ptr(), y.data_ptr(), res.data_ptr() if int8 else None,
-            slot.data_ptr(), scale.data_ptr(), amax.data_ptr(), N, W,
-            S, int(int8), int(replicas), stream)
+            xs.data_ptr(), y.data_ptr(), *ptrs, N, W, S, int(int8),
+            int(replicas), stream)
     if err:
         raise RuntimeError(
             f"ring_allreduce kernel launch failed: "

@@ -28,8 +28,9 @@ workers on one host; so the port writes the worker axis out, as a
     dp_workers * seq_len``, and shared by all workers.
 
 ``collectives`` holds the merges and their accounting; the ring
-(``kernels.ring_allreduce``) runs its hop schedule over W regions of the
-card's memory. Transport between cards (``torch.distributed``/NCCL
+(``kernels.ring_allreduce``) computes the chain's fold over the W
+workers' rows where they lie in the card's memory. Transport between
+cards (``torch.distributed``/NCCL
 process groups, a ring over peer memory) waits for a machine with more
 than one card.
 """

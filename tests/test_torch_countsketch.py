@@ -272,8 +272,94 @@ def test_wrappers_reject_what_the_kernels_cannot_take():
         KT.csvec_topk(t, tp, 5000, 1025)
 
 
+@pytest.mark.parametrize("n,r,c", [
+    (1_100_048_384, 5, 2**23),   # tinyllama-1.1b's LM train step
+    (1000, 5, 128), (65_537, 4, 2**12), (0, 1, 1), (1, 1, 1),
+    (2**31 - 1, 1, 2**30), (50_000_000, 8, 2**20)])
+def test_insert_plan_covers_every_element_within_its_scratch(n, r, c):
+    plan = KI.insert_plan(n, r, c)
+    assert plan.scratch_bytes <= KI.SCRATCH_CAP
+    assert plan.chunk % KI.TILE == 0 and 0 < plan.chunk < 2**31
+    # the chunks [k * chunk, (k + 1) * chunk) hold each i < n once
+    assert plan.chunks * plan.chunk >= n > (plan.chunks - 1) * plan.chunk
+    assert plan.kernels == 2 * plan.chunks
+    assert plan.nbins << plan.bin_bits == c and plan.nbins <= KI.MAX_BINS
+    assert plan.bin_bits <= max(KI.BIN_BITS, c.bit_length() - 13)
+    if n == 1_100_048_384:        # 21 chunks of 256 bins a row
+        assert (plan.nbins, plan.chunks) == (256, 21)
+
+
+def _emulate_insert(table, params, vec, plan):
+    """The kernels' decomposition on the CPU: per chunk, per tile of TILE
+    elements and per row, the records sorted by bin (ranked within a bin
+    in index order here) and the (start, count) of each bin's run; then
+    each bin adds its runs, tile after tile, onto the table's bin.
+    Returns the table and, for every (row, element), the bucket its
+    record carried, the bucket that the bin and the record's local
+    bits it was summed from stand for, and how often it was summed."""
+    r, c = table.shape
+    n = vec.shape[0]
+    out = table.clone()
+    mask = (1 << plan.bin_bits) - 1
+    carried = torch.full((r, n), -1, dtype=torch.int64)
+    landed = torch.full((r, n), -1, dtype=torch.int64)
+    times = torch.zeros((r, n), dtype=torch.int64)
+    for begin in range(0, n, plan.chunk):
+        tiles = []
+        for t0 in range(begin, min(begin + plan.chunk, n), KI.TILE):
+            idx = torch.arange(t0, min(t0 + KI.TILE, n))
+            bk = T.hash_buckets(params, c, idx)
+            runs, recs = [], []
+            for j in range(r):
+                order = torch.argsort(bk[j] >> plan.bin_bits, stable=True)
+                cnt = torch.bincount(bk[j] >> plan.bin_bits,
+                                     minlength=plan.nbins)
+                runs.append(torch.stack([torch.cumsum(cnt, 0) - cnt, cnt]))
+                recs.append((bk[j][order], idx[order]))
+                carried[j, idx[order]] = bk[j][order]
+            tiles.append((runs, recs))
+        for j in range(r):
+            for b in range(plan.nbins):
+                for runs, recs in tiles:
+                    start, count = (int(x) for x in runs[j][:, b])
+                    bkt, el = (x[start:start + count] for x in recs[j])
+                    at = (b << plan.bin_bits) | (bkt & mask)
+                    landed[j, el] = at
+                    times[j, el] += 1
+                    out[j].index_add_(0, at, T.hash_signs(params, el)[j]
+                                      * vec[el])
+    return out, carried, landed, times
+
+
+@pytest.mark.parametrize("r", [4, 5])
+@pytest.mark.parametrize("c", [128, 2**12])
+@pytest.mark.parametrize("n", [1000, 65_537])
+@pytest.mark.parametrize("plan", ["wrapper", "narrow"])
+def test_insert_decomposition_matches_oracle(r, c, n, plan):
+    """The wrapper's plan, and a narrow one (bins of 512 counters, a
+    chunk a tile) that puts a row in several bins and v in several
+    chunks."""
+    rng = np.random.default_rng(n + c + r)
+    _, tp = _coeffs(r, n + r)
+    vec = torch.from_numpy(rng.standard_normal(n).astype(np.float32))
+    table = torch.from_numpy(rng.standard_normal((r, c)).astype(np.float32))
+    p = KI.insert_plan(n, r, c)
+    if plan == "narrow":
+        bits = min(9, c.bit_length() - 3)
+        p = KI.InsertPlan(rows=r, bin_bits=bits, nbins=c >> bits,
+                          chunk=KI.TILE, chunks=-(-n // KI.TILE))
+    got, carried, landed, times = _emulate_insert(table, tp, vec, p)
+    want = KI.csvec_insert_ref(table, tp, vec)
+    buckets = T.hash_buckets(tp, c, torch.arange(n))
+    assert torch.equal(times, torch.ones_like(times))   # each once
+    assert torch.equal(carried, buckets) and torch.equal(landed, buckets)
+    torch.testing.assert_close(got, want, rtol=1e-6,
+                               atol=1e-6 * float(want.abs().max()))
+
+
 @pytest.mark.requires_cuda
 @pytest.mark.parametrize("r,c,n,k", [(5, 128, 1000, 300), (4, 128, 1000, 7),
+                                     (4, 2**12, 65_537, 64),
                                      (5, 2**16, 3_000_000, 512)])
 def test_cuda_kernels_match_plain_versions(r, c, n, k):
     if not torch.cuda.is_available():

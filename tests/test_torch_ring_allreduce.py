@@ -104,3 +104,11 @@ def test_cuda_tensors_never_take_the_plain_version(monkeypatch):
     with pytest.raises(ValueError, match="cpu or cuda"):
         RA.ring_allreduce(torch.zeros(2, 4, device="meta"), "fp32")
     assert not called
+
+
+@pytest.mark.parametrize("W", [1, 2, 3, 8])
+def test_kernels_per_call(W):
+    """One fold on the fp32 wire; the level-0 amax and one launch a fold
+    point on the int8 wire (chip_smoke.py holds a profiled call to it)."""
+    assert RA.kernels_per_call(W, "fp32") == (W > 1)
+    assert RA.kernels_per_call(W, "int8") == (W + 1 if W > 1 else 0)

@@ -88,3 +88,21 @@ def test_cuda_kernel_takes_a_view_off_16_byte_alignment(wire):
     for d in range(W):
         assert torch.equal(y[d].cpu(), want_y), (wire, d)
     assert torch.equal(res.cpu(), want_res)
+
+
+@pytest.mark.requires_cuda
+def test_cuda_int8_zero_chunks_and_a_zero_worker():
+    # chunk 0 zero on every worker (scale 0, divisor 1), worker 1 all
+    # zero (a fold point that only requantises), a ragged last chunk
+    W, N = 4, 1000
+    xs = _shards(9, W, N)
+    S = RA._chunk_len(N, W)
+    xs[:, :S] = 0
+    xs[1] = 0
+    want_y, want_res = RA.ring_allreduce_plain(xs, "int8")
+    for replicas in (False, True):
+        y, res = RA.ring_allreduce(xs.cuda(), "int8", replicas=replicas)
+        torch.cuda.synchronize()
+        for row in (y.reshape(-1, N) if replicas else y[None]):
+            assert torch.equal(row.cpu(), want_y), replicas
+        assert torch.equal(res.cpu(), want_res), replicas

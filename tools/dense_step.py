@@ -18,6 +18,13 @@ layers (random weights from seed 0) and measures WHAT, a comma list of
   not), and the device memory allocated (now and at its peak) after the state's
   init, after the first step's gradients, after that step and after
   the last;
+- ``train_cs``: the same step with the fp32 count-sketch compression
+  (``CompressionConfig(mode="countsketch")``: a 5 x 2^23 table at
+  tinyllama-1.1b, one ``csvec_insert`` and one ``csvec_topk`` a step);
+- ``train_dp_overlap_w2``: the data-parallel step of 2 workers in one
+  process, overlap layout, int8 sketch wire through the ring, the fp32
+  count sketch with p2 2 (two ring merges and an insert a worker a
+  step), every step whole;
 - ``prefill``: ``ServeEngine.start`` (monitor off) of a (batch, seq)
   random prompt batch: ``--warmup`` prefills, then the median of
   ``--steps``.
@@ -44,21 +51,39 @@ def _sync(dev) -> None:
         torch.cuda.synchronize()
 
 
-def train_ms(cfg, dev, batch: int, seq: int, warmup: int, steps: int):
+# the train step's variants: RunConfig fields beside the defaults (the
+# compressed LM step and the data-parallel overlap step of chip_smoke.py's
+# phases 7 (b) and 9 (b))
+TRAIN_VARIANTS = {
+    "train": {},
+    "train_cs": dict(compression=dict(mode="countsketch")),
+    "train_dp_overlap_w2": dict(
+        compression=dict(mode="countsketch", cs_p2=2), dp_axis_name="data",
+        dp_workers=2, dp_collective="overlap", sketch_wire_dtype="int8",
+        ring_wire=True),
+}
+
+
+def train_ms(cfg, dev, batch: int, seq: int, warmup: int, steps: int,
+             variant: str = "train"):
     import gc
 
     import torch
     from repro_torch.data.pipeline import PipelineConfig, host_batch
     from repro_torch.models.transformer import SketchSettings
     from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.optim.compression import CompressionConfig
     from repro_torch.train.state import RunConfig, init_train_state
     from repro_torch.train.step import make_train_step
 
     n = warmup + steps
+    extra = dict(TRAIN_VARIANTS[variant])
+    if "compression" in extra:
+        extra["compression"] = CompressionConfig(**extra["compression"])
     run = RunConfig(seq_len=seq, global_batch=batch,
                     optimizer=AdamWConfig(lr=3e-4),
                     warmup_steps=min(20, n // 5 + 1), total_steps=n,
-                    sketch=SketchSettings(enabled=True, k_max=17))
+                    sketch=SketchSettings(enabled=True, k_max=17), **extra)
     pipe = PipelineConfig(seed=0, global_batch=batch, seq_len=seq,
                           vocab=cfg.vocab_size)
     state = init_train_state(0, cfg, run, device=dev)
@@ -78,7 +103,8 @@ def train_ms(cfg, dev, batch: int, seq: int, warmup: int, steps: int):
     for s in range(n):
         tokens, labels = host_batch(pipe, s, device=dev)
         t0 = time.perf_counter()
-        if s == 0:      # the two halves apart: the memory after each
+        if s == 0 and hasattr(step, "loss_and_grads"):
+            # the two halves apart: the memory after each
             res = step.loss_and_grads(state, {"tokens": tokens,
                                               "labels": labels})
             mark("grads")
@@ -91,8 +117,10 @@ def train_ms(cfg, dev, batch: int, seq: int, warmup: int, steps: int):
         times.append((time.perf_counter() - t0) * 1e3)
         gc.collect()
     mark("last_step")
-    return dict(train_step_ms=statistics.median(times[warmup:]),
-                train_step_ms_samples=times[warmup:], losses=losses, **mem)
+    pre = "" if variant == "train" else f"{variant}_"
+    return {f"{variant}_step_ms": statistics.median(times[warmup:]),
+            f"{variant}_step_ms_samples": times[warmup:],
+            f"{pre}losses": losses, **{pre + k: v for k, v in mem.items()}}
 
 
 def prefill_ms(cfg, dev, batch: int, seq: int, warmup: int, steps: int):
@@ -147,10 +175,13 @@ def main(argv=None) -> int:
         out = dict(arch=arch, layers=int(layers), batch=args.batch,
                    seq=args.seq, reduced=args.reduced)
         for w in what.split(","):
-            fn = {"train": train_ms, "prefill": prefill_ms}[w]
             try:
-                out.update(fn(cfg, dev, args.batch, args.seq, args.warmup,
-                              args.steps))
+                if w in TRAIN_VARIANTS:
+                    out.update(train_ms(cfg, dev, args.batch, args.seq,
+                                        args.warmup, args.steps, w))
+                else:
+                    out.update(prefill_ms(cfg, dev, args.batch, args.seq,
+                                          args.warmup, args.steps))
             except torch.OutOfMemoryError as e:   # reported, and rc 1
                 failed = True
                 out[f"{w}_error"] = str(e).split("\n")[0]

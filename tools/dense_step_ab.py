@@ -10,6 +10,9 @@ come from one card in one call.
     git archive HEAD~1 | tar -x -C artifacts/parent
     python3 tools/dense_step_ab.py artifacts/parent . -- \\
         --batch 4 --seq 2048 --run tinyllama-1.1b:22:train
+    # the compressed step and the data-parallel overlap step
+    python3 tools/dense_step_ab.py artifacts/parent . -- --batch 8 \\
+        --seq 128 --run tinyllama-1.1b:22:train_cs,train_dp_overlap_w2
 
 Each TREE is the root of a checkout; every run is one process of this
 checkout's ``tools/dense_step.py`` with ``PYTHONPATH`` at that tree's

@@ -6,8 +6,9 @@ tensor-core kernels.
 
 Each mutant is ``csrc/flash_attention.cu`` with one edit (a mask off by
 one row or one key, a live tile dropped, an interior tile dropped only
-for the rows or keys past 1024 of a long sequence), built by nvcc into
-a temporary directory (the checkout is not touched) and loaded in place
+for the rows or keys past 1024 of a long sequence), built by nvcc with
+the headers it includes into a temporary directory (``tools/_mutate.py``;
+the checkout is not touched) and loaded in place
 of the library. The unedited source runs first as the control. Each
 runs every bf16 row of ``chip_smoke.FLASH_CASES`` (S 37 to tinyllama's
 2048) against the plain versions and prints one JSON line a (mutant,
@@ -22,7 +23,6 @@ from __future__ import annotations
 
 import concurrent.futures
 import json
-import subprocess
 import sys
 import tempfile
 from pathlib import Path
@@ -61,82 +61,55 @@ MUTANTS = [
 ]
 
 
-def mutate(src: str, old: str | None, new: str | None, nth: int) -> str:
-    if old is None:
-        return src
-    at = -1
-    for _ in range(nth + 1):
-        at = src.index(old, at + 1)        # raises if the text moved
-    return src[:at] + new + src[at + len(old):]
-
-
-def build(name: str, src: str, out: Path) -> Path:
-    from repro_torch.kernels import _build
-    cu = out / f"{name}.cu"
-    cu.write_text(src)
-    lib = out / f"lib{name}.so"
-    proc = subprocess.run(
-        [_build.nvcc(), *_build.NVCC_FLAGS, "-o", str(lib), str(cu)],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    if proc.returncode:
-        raise RuntimeError(f"nvcc failed for {name}:\n{proc.stdout}")
-    return lib
-
-
 def main() -> int:
-    import ctypes
-
     import torch
     sys.path.insert(0, str(ROOT))
     import chip_smoke
-    from repro_torch.kernels import _build
+    from _mutate import build, loaded
     from repro_torch.kernels import flash_attention as FA
 
     cases = [c for c in chip_smoke.FLASH_CASES if c[7] == "bfloat16"]
-    src = (_build.CSRC / "flash_attention.cu").read_text()
     caught = {}
     with tempfile.TemporaryDirectory() as tmp:
         with concurrent.futures.ThreadPoolExecutor(len(MUTANTS)) as pool:
             libs = dict(zip([m[0] for m in MUTANTS], pool.map(
-                lambda m: build(m[0], mutate(src, *m[1:]), Path(tmp)),
+                lambda m: build("flash_attention", Path(tmp), [
+                    ("flash_attention.cu", *m[1:])] if m[1] else [], m[0]),
                 MUTANTS)))
         for name, lib_file in libs.items():
-            lib = ctypes.CDLL(str(lib_file))
-            FA._bind(lib)
-            _build._LIBS["flash_attention"] = lib
-            caught[name] = False
-            gen = torch.Generator(device="cuda").manual_seed(3)
-            for label, B, Hq, Hkv, S, D, window, _ in cases:
-                q, k, v, do = (torch.randn(
-                    (B, S, H, D), generator=gen, device="cuda").to(
-                    torch.bfloat16).transpose(1, 2)
-                    for H in (Hq, Hkv, Hkv, Hq))
-                # each pass on the plain forward's o and lse, so that a
-                # broken forward cannot spoil the backward's reference
-                o, _ = FA.flash_attention_fwd(q, k, v, window=window)
-                o_p, lse_p = FA.flash_attention_plain(q, k, v,
-                                                      window=window)
-                got = FA.flash_attention_bwd(q, k, v, o_p, lse_p, do,
-                                             window=window)
-                want = FA.flash_attention_bwd_plain(
-                    q, k, v, o_p, lse_p, do, window=window)
-                gaps, used, used_of_max = {}, {}, {}
-                for n, g, w in zip(("o", "dq", "dk", "dv"), (o, *got),
-                                   (o_p, *want)):
-                    gaps[n], used[n] = FA.bf16_gaps(g, w)
-                    # the same share against an allowance scaled by the
-                    # tensor's largest value in place of the row's
-                    g, w = g.float(), w.float()
-                    used_of_max[n] = float(((g - w).abs() / (FA.BF16_TOL * (
-                        w.abs().max() + w.abs()))).max())
-                fails = not all(u <= 1 for u in used.values())
-                caught[name] |= fails
-                print(json.dumps(dict(mutant=name, case=label, gaps=gaps,
-                                      used=used, used_of_max=used_of_max,
-                                      check_fails=fails)), flush=True)
-                del q, k, v, do, o, o_p, lse_p, got, want
-                torch.cuda.empty_cache()
-    _build._LIBS.pop("flash_attention", None)
+            with loaded("flash_attention", lib_file, FA._bind):
+                caught[name] = False
+                gen = torch.Generator(device="cuda").manual_seed(3)
+                for label, B, Hq, Hkv, S, D, window, _ in cases:
+                    q, k, v, do = (torch.randn(
+                        (B, S, H, D), generator=gen, device="cuda").to(
+                        torch.bfloat16).transpose(1, 2)
+                        for H in (Hq, Hkv, Hkv, Hq))
+                    # each pass on the plain forward's o and lse, so that a
+                    # broken forward cannot spoil the backward's reference
+                    o, _ = FA.flash_attention_fwd(q, k, v, window=window)
+                    o_p, lse_p = FA.flash_attention_plain(q, k, v,
+                                                          window=window)
+                    got = FA.flash_attention_bwd(q, k, v, o_p, lse_p, do,
+                                                 window=window)
+                    want = FA.flash_attention_bwd_plain(
+                        q, k, v, o_p, lse_p, do, window=window)
+                    gaps, used, used_of_max = {}, {}, {}
+                    for n, g, w in zip(("o", "dq", "dk", "dv"), (o, *got),
+                                       (o_p, *want)):
+                        gaps[n], used[n] = FA.bf16_gaps(g, w)
+                        # the same share against an allowance scaled by the
+                        # tensor's largest value in place of the row's
+                        g, w = g.float(), w.float()
+                        used_of_max[n] = float(((g - w).abs() / (
+                            FA.BF16_TOL * (w.abs().max() + w.abs()))).max())
+                    fails = not all(u <= 1 for u in used.values())
+                    caught[name] |= fails
+                    print(json.dumps(dict(mutant=name, case=label, gaps=gaps,
+                                          used=used, used_of_max=used_of_max,
+                                          check_fails=fails)), flush=True)
+                    del q, k, v, do, o, o_p, lse_p, got, want
+                    torch.cuda.empty_cache()
     ok = not caught["control"] and all(
         v for k, v in caught.items() if k != "control")
     print(json.dumps(dict(caught=caught, ok=ok)), flush=True)

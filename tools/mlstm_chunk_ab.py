@@ -47,14 +47,9 @@ CALLS = 5
 def build(i: int, src: Path) -> ctypes.CDLL:
     out = _build.BUILD_DIR / "ab" / f"libmlstm_chunk_{i}.so"
     out.parent.mkdir(parents=True, exist_ok=True)
-    proc = subprocess.run([_build.nvcc(), *_build.NVCC_FLAGS, "-o", str(out),
-                           str(src)], capture_output=True, text=True)
-    log = (proc.stdout + proc.stderr).splitlines()
-    print(src, "rc", proc.returncode, *(ln for ln in log if "Used" in ln
-                                        or "spill" in ln or "error" in ln),
+    log = _build.compile_cu(src, out).splitlines()   # raises if it fails
+    print(src, *(ln for ln in log if "Used" in ln or "spill" in ln),
           sep="\n", flush=True)
-    if proc.returncode:
-        raise SystemExit(f"nvcc failed for {src}")
     lib = ctypes.CDLL(str(out))
     MC._bind(lib)
     return lib

@@ -21,53 +21,30 @@ from __future__ import annotations
 
 import concurrent.futures
 import json
-import subprocess
 import sys
 import tempfile
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
 
-# (name, the file edited, the text, its replacement)
+# (name, its edits: (file, the text, its replacement))
 MUTANTS = [
-    ("control", None, None, None),
-    ("drops_the_lo_product", "sketch_update.cu",
-     "      mma_m64n128k16_rs(acc, lo[kk], b);\n", ""),
-    ("drops_the_last_split", "ema_update.cuh",
-     "sp0 + q < splits ? o.ws[(sp0 + q) * 3 * dk + i] : 0.f;",
-     "sp0 + q < splits - 1 ? o.ws[(sp0 + q) * 3 * dk + i] : 0.f;"),
+    ("control", []),
+    ("drops_the_lo_product", [
+        ("sketch_update.cu",
+         "      mma_m64n128k16_rs(acc, lo[kk], b);\n", "")]),
+    ("drops_the_last_split", [
+        ("ema_update.cuh",
+         "sp0 + q < splits ? o.ws[(sp0 + q) * 3 * dk + i] : 0.f;",
+         "sp0 + q < splits - 1 ? o.ws[(sp0 + q) * 3 * dk + i] : 0.f;")]),
 ]
 
 
-def build(name: str, edit, out: Path) -> Path:
-    """The sources with ``edit`` (file, old, new) applied, in their own
-    directory under ``out``, built into a library there."""
-    from repro_torch.kernels import _build
-    where = out / name
-    where.mkdir()
-    for path in _build.sources("sketch_update"):
-        text = path.read_text()
-        if edit[0] == path.name:
-            if edit[1] not in text:
-                raise ValueError(f"{name}: the text to edit moved")
-            text = text.replace(edit[1], edit[2], 1)
-        (where / path.name).write_text(text)
-    lib = where / "libsketch_update.so"
-    proc = subprocess.run(
-        [_build.nvcc(), *_build.NVCC_FLAGS, "-o", str(lib),
-         str(where / "sketch_update.cu")],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    if proc.returncode:
-        raise RuntimeError(f"nvcc failed for {name}:\n{proc.stdout}")
-    return lib
-
-
 def main() -> int:
-    import ctypes
-
     import torch
     sys.path.insert(0, str(ROOT))
     import chip_smoke
+    from _mutate import build, loaded
     from repro_torch.kernels import _build
     from repro_torch.kernels import sketch_update as S
 
@@ -78,31 +55,29 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         with concurrent.futures.ThreadPoolExecutor(len(MUTANTS)) as pool:
             libs = dict(zip([m[0] for m in MUTANTS], pool.map(
-                lambda m: build(m[0], m[1:], Path(tmp)), MUTANTS)))
+                lambda m: build("sketch_update", Path(tmp), m[1], m[0]),
+                MUTANTS)))
         for name, lib_file in libs.items():
-            lib = ctypes.CDLL(str(lib_file))
-            S._bind(lib)
-            _build._LIBS["sketch_update"] = lib
-            caught[name] = False
-            gen = torch.Generator(device="cuda").manual_seed(1)
-            for label, T, d, k, _ in cases:
-                rand = lambda *s: torch.randn(s, generator=gen,
-                                              device="cuda")
-                args = (rand(T, d).to(torch.bfloat16), rand(d, k),
-                        rand(d, k), rand(d, k), rand(T, k), rand(T, k),
-                        rand(T, k), rand(k))
-                got = S.sketch_update(*args, beta=0.9)
-                want = S.sketch_update_ref(*args, 0.9)
-                used = max(float(((g - w).abs() / (chip_smoke.TOL * (
-                    w.abs().max() + w.abs()))).nan_to_num(float("inf"))
-                    .max()) for g, w in zip(got, want))
-                fails = not used <= 1
-                caught[name] |= fails
-                print(json.dumps(dict(
-                    mutant=name, case=label, T=T, d=d, k=k,
-                    splits=S.launch_plan(T, d, sms, True)[0], used=used,
-                    check_fails=fails)), flush=True)
-    _build._LIBS.pop("sketch_update", None)
+            with loaded("sketch_update", lib_file, S._bind):
+                caught[name] = False
+                gen = torch.Generator(device="cuda").manual_seed(1)
+                for label, T, d, k, _ in cases:
+                    rand = lambda *s: torch.randn(
+                        s, generator=gen, device="cuda")
+                    args = (rand(T, d).to(torch.bfloat16), rand(d, k),
+                            rand(d, k), rand(d, k), rand(T, k), rand(T, k),
+                            rand(T, k), rand(k))
+                    got = S.sketch_update(*args, beta=0.9)
+                    want = S.sketch_update_ref(*args, 0.9)
+                    used = max(float(((g - w).abs() / (chip_smoke.TOL * (
+                        w.abs().max() + w.abs()))).nan_to_num(float("inf"))
+                        .max()) for g, w in zip(got, want))
+                    fails = not used <= 1
+                    caught[name] |= fails
+                    print(json.dumps(dict(
+                        mutant=name, case=label, T=T, d=d, k=k,
+                        splits=S.launch_plan(T, d, sms, True)[0], used=used,
+                        check_fails=fails)), flush=True)
     ok = not caught["control"] and all(
         v for k, v in caught.items() if k != "control")
     print(json.dumps(dict(caught=caught, ok=ok)), flush=True)
