@@ -521,7 +521,11 @@ def phase_cs_kernels(dev) -> dict[str, list[dict]]:
     network's compare-exchanges and the absolute value of each estimate;
     quant: six a counter); the integer hash arithmetic is not counted, as
     the data sheet gives no integer ALU rate. For top-k the r n random
-    gathers at 32 bytes a sector are reported beside (gather_bound_ms)."""
+    gathers at 32 bytes a sector are reported beside (gather_bound_ms);
+    on the pruned path (odd r) its threshold tau0 and the count of
+    coordinates that pass the row test must equal the plain emulation's
+    (``emulate_pruned``), and the row gives tau0's rank (the coordinates
+    with |estimate| >= tau0), the pass rate and the gathers made."""
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.countsketch.csvec import (
@@ -531,7 +535,9 @@ def phase_cs_kernels(dev) -> dict[str, list[dict]]:
         csvec_insert, csvec_insert_ref, insert_plan,
     )
     from repro_torch.kernels.csvec_quant import csvec_quant, csvec_quant_ref
-    from repro_torch.kernels.csvec_topk import csvec_topk, csvec_topk_ref
+    from repro_torch.kernels.csvec_topk import (
+        csvec_topk, csvec_topk_ref, emulate_pruned, prune_plan, prune_stats,
+    )
     from repro_torch.models.transformer import num_params
 
     def chunks(n):
@@ -621,6 +627,24 @@ def phase_cs_kernels(dev) -> dict[str, list[dict]]:
                 if not torch.equal(g, w):
                     raise AssertionError(f"csvec_topk {label} k={k}: {what} "
                                          f"differ from the plain version")
+            prune = prune_stats()
+            if prune is not None:
+                _, mirror = emulate_pruned(table, params, n, k,
+                                           prune_plan(r, c, n, k))
+                for key in ("tau0", "tau", "dense", "refine_survivors",
+                            "survivors"):
+                    if prune[key] != mirror[key]:
+                        raise AssertionError(
+                            f"csvec_topk {label} k={k}: {key} "
+                            f"{prune[key]} where the plain emulation has "
+                            f"{mirror[key]}")
+                prune.update(
+                    tau0_rank=int((mag >= prune["tau0"]).sum()),
+                    tau_rank=int((mag >= prune["tau"]).sum()),
+                    coarse_tests=mirror["coarse_tests"],
+                    fine_tests=mirror["fine_tests"],
+                    gathers=r * (prune["survivors"] + prune["sample"]
+                                 + prune["refine_survivors"]))
             ms, call_ms = time_ms(lambda: csvec_topk(table, params, n, k),
                                   it, 1)
             plain_ms, plain_call_ms = time_ms(
@@ -630,6 +654,7 @@ def phase_cs_kernels(dev) -> dict[str, list[dict]]:
                                                             else 0))
             rows["csvec_topk"].append(dict(
                 case, case_k=f"{label}_k{k}", k=k, max_abs_err=0.0, ms=ms,
+                prune=prune,
                 plain_ms=plain_ms, library_ms=lib_ms, call_ms=call_ms,
                 plain_call_ms=plain_call_ms, library_call_ms=lib_call_ms,
                 gather_bound_ms=r * n * 32 / PEAK_BYTES_S * 1e3,
@@ -883,17 +908,27 @@ def phase_saved_bytes(dev, B=4, Hq=32, Hkv=4, S=2048, D=64) -> dict:
     return out
 
 
-def mlstm_bound(B, H, S, Dk, Dv, W, elem: int) -> tuple[float, str]:
-    """(bound_ms, bound_by): W (W + 1) (Dk + Dv) + 4 W Dk Dv operations a
-    chunk of a (b, h) (causal q k^T and s v, q C and the C update) at the
-    f32 rate, the kernels' arithmetic; q, k, v read once in their type,
-    li and lf in f32, h, C, n, m written once in f32."""
+def mlstm_bound(B, H, S, Dk, Dv, W, elem: int,
+                tensor_cores: bool) -> tuple[float, str, float]:
+    """(bound_ms, bound_by, f32_bound_ms). The f32 bound, the FMA
+    kernels' arithmetic: W (W + 1) (Dk + Dv) + 4 W Dk Dv operations a
+    chunk of a (b, h) (causal q k^T and s v, q C and the C update) at
+    the f32 rate. The tensor-core kernels' bound: W^2 Dk (causal q k^T)
+    + 2 W^2 Dv (causal s v, s split into bf16 hi and lo) + 8 W Dk Dv (q
+    C and the update, C and w v split) at the bf16 rate. Bytes: q, k, v
+    read once in their type, li and lf in f32, h, C, n, m written once
+    in f32. bound_ms is the path's own."""
     nc = S // W
-    flops = B * H * nc * (W * (W + 1) * (Dk + Dv) + 4 * W * Dk * Dv)
+    f32_flops = B * H * nc * (W * (W + 1) * (Dk + Dv) + 4 * W * Dk * Dv)
+    tc_flops = B * H * nc * (W * W * Dk + 2 * W * W * Dv + 8 * W * Dk * Dv)
     nbytes = (B * H * S * (2 * Dk + Dv) * elem + 2 * B * H * S * 4
               + 4 * B * H * (S * Dv + Dk * Dv + Dk + 1))
-    t_b, t_o = nbytes / PEAK_BYTES_S, flops / PEAK_F32_FLOP_S
-    return (t_b * 1e3, "bytes") if t_b >= t_o else (t_o * 1e3, "operations")
+    t_b = nbytes / PEAK_BYTES_S
+    t_f32 = max(t_b, f32_flops / PEAK_F32_FLOP_S)
+    t_o = tc_flops / PEAK_BF16_FLOP_S if tensor_cores else \
+        f32_flops / PEAK_F32_FLOP_S
+    return (t_b * 1e3, "bytes", t_f32 * 1e3) if t_b >= t_o else (
+        t_o * 1e3, "operations", t_f32 * 1e3)
 
 
 def phase_mlstm(dev) -> dict[str, list[dict]]:
@@ -901,9 +936,12 @@ def phase_mlstm(dev) -> dict[str, list[dict]]:
     its plain version (h, C, n within TOL * max|plain|, m within TOL),
     then timed beside its bound and the plain version. No one PyTorch call
     computes the function: library_ms is None. Inputs lie as the model's
-    do: v a (B, H, S, Dv) view of (B, S, H, Dv) storage."""
+    do: v a (B, H, S, Dv) view of (B, S, H, Dv) storage. Each row names
+    the path its call took (``uses_tensor_cores``)."""
     import torch
-    from repro_torch.kernels.mlstm_chunk import mlstm_chunk, mlstm_chunk_plain
+    from repro_torch.kernels.mlstm_chunk import (
+        mlstm_chunk, mlstm_chunk_plain, uses_tensor_cores,
+    )
     gen = torch.Generator(device=dev).manual_seed(5)
     rows = []
     for label, B, H, S, Dk, Dv, chunk in MLSTM_CASES:
@@ -937,22 +975,24 @@ def phase_mlstm(dev) -> dict[str, list[dict]]:
                                   it, 2)
             plain_ms, plain_call_ms = time_ms(
                 lambda: mlstm_chunk_plain(*args, chunk=chunk), plain_it, 1)
-            bound_ms, bound_by = mlstm_bound(B, H, S, Dk, Dv, min(chunk, S),
-                                             q.element_size())
-            # the three kernels' device us a call (None: markers lost)
+            tc = uses_tensor_cores(q, k, v, chunk)
+            bound_ms, bound_by, f32_bound_ms = mlstm_bound(
+                B, H, S, Dk, Dv, min(chunk, S), q.element_size(), tc)
+            # each kernel's device us a call (None: markers lost)
             split = _device_kernels(lambda: mlstm_chunk(*args, chunk=chunk),
                                     3) if big else None
             rows.append(dict(
                 case=f"{label}_{'f32' if dt == 'float32' else 'bf16'}",
                 B=B, H=H, S=S, Dk=Dk, Dv=Dv, W=min(chunk, S), dtype=dt,
+                path="tensor_cores" if tc else "fma",
                 rel_err=errs, abs_err=abs_errs,
                 max_abs_err=max(abs_errs.values()), ms=ms,
                 plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms,
-                bound_by=bound_by, call_ms=call_ms,
-                plain_call_ms=plain_call_ms,
+                bound_by=bound_by, f32_bound_ms=f32_bound_ms,
+                call_ms=call_ms, plain_call_ms=plain_call_ms,
                 us_by_kernel=split and {
-                    (re.search(r"mlstm_[a-z]+_kernel", n) or [n])[0]: us / 3
-                    for n, (_, us) in split.items()}))
+                    (re.search(r"mlstm_[a-z]+_(kernel|tc)", n) or [n])[0]:
+                    us / 3 for n, (_, us) in split.items()}))
             log(f"mlstm_chunk {json.dumps(rows[-1])}")
             del q, k, v, li, lf, args
             torch.cuda.empty_cache()
@@ -1616,6 +1656,9 @@ def lm_run(dev, cfg, mode: str, proj_kind: str, steps: int,
     out["profile"]["idle_share"] = max(
         0.0, 1 - out["profile"]["device_ms"] / out["step_ms"])
     if run.compression is not None:
+        from repro_torch.kernels.csvec_topk import prune_stats
+        # the pruned search on the last step's table, a real gradient's
+        out["topk_prune"] = prune_stats()
         tokens, labels = host_batch(pipe, steps + 1, device=dev)
         out["mass_check"] = _mass_check(
             dev, cfg, run, state, step, {"tokens": tokens, "labels": labels})

@@ -20,7 +20,9 @@
 // The stabilisers depend on the gates alone, so they are computed before
 // any product and nothing is rescaled online.
 //
-// Three kernels, in order on the caller's stream:
+// Two paths. bf16 inputs at xlstm's widths take the tensor cores
+// (namespace tc below: four kernels, the products on wgmma). Every other
+// input takes three FMA kernels, in order on the caller's stream:
 //   gates   one block per (b, h): F (each chunk's sum taken in sequence,
 //           as the reference takes it), the chain of m over the chunks,
 //           w and each chunk's decay; the final m.
@@ -39,15 +41,17 @@
 // thread holding a register tile (8 x 4 outputs for h, 16 x 4 for C,
 // 8 x 8 for s). The state kernel streams its operand tiles (q, s and v,
 // k and v) through registers: a tile's global loads are issued before
-// the products of the one before, so the products hide their latency. Bound on an H100 SXM: W (W + 1) (Dk + Dv) + 4 W Dk Dv
-// operations a chunk of a (b, h) at 67 TFLOP/s; at the serving shape
-// 2.43 ms against 0.18 ms of bytes. No cp.async, TMA or tensor cores
-// yet: later work.
+// the products of the one before, so the products hide their latency.
+// Bound on an H100 SXM: W (W + 1) (Dk + Dv) + 4 W Dk Dv operations a
+// chunk of a (b, h) at 67 TFLOP/s; at the serving shape 2.43 ms against
+// 0.18 ms of bytes.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -548,18 +552,693 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------
+// The tensor-core path (namespace tc): bf16 q, k, v with Dk 512 (xlstm's
+// heads), Dv and W multiples of 64, 16-byte aligned rows (the wrapper's
+// uses_tensor_cores). Four kernels: the gates kernel above, then
+//   n       one block per (32 keys' columns, b, h): n at each chunk's
+//           start (f32 FMAs, the weighted keys summed over the chunk by
+//           16 lanes) and the final n;
+//   scores  one warpgroup per 64 rows of a chunk: s = q k^T on wgmma
+//           (m64n64k16, both operands K-major in shared memory, exact:
+//           bf16 products summed in f32), masked and decayed in f32 as
+//           above, written as bf16 hi = bf16(s) and lo = bf16(s - hi)
+//           (s = hi + lo to 2^-17 of |s|); the row's e and its
+//           denominator max(|sum_t s + e scale q . n|, exp(-mj));
+//   state   one block per (b, h) and 64 value columns, two consumer
+//           warpgroups. C^T (64 columns x Dk) lives in the accumulator
+//           registers across the chunk loop, Dk / 2 = 256 keys' columns
+//           a warpgroup (128 registers a thread). Per chunk,
+//           for each 64 rows: the numerator^T = (C^T hi + C^T lo) q^T
+//           (C^T split in registers, the register A operand; q the
+//           K-major B operand), scaled by scale e per row, plus v^T
+//           (s hi + s lo)^T (v^T the register A operand, exact in bf16;
+//           s K-major), each warpgroup its half of Dk and half of the
+//           causal keys; the two halves are summed through shared memory
+//           and each warpgroup writes 32 rows of h. Then C^T = decay C^T
+//           + ((w v)^T hi + lo) k, k the MN-major B operand (m64n256).
+//           h reads C before the chunk's update. q, k, s and v come in
+//           by cp.async into 128-byte-swizzled tiles, a two-slot ring of
+//           64 KB pieces (q rows, s rows, k rows in turn) so that each
+//           piece loads while the one before is multiplied.
+// The f32 operands of the products (C, s and w v) are each carried as
+// bf16 hi + lo, two products each: about 2^-17 of |x|, where one bf16 or
+// TF32 rounding (2^-9 to 2^-11) would miss the 1e-4 tolerance.
+// Bound on an H100 SXM: the products above, each split one counted
+// twice, W^2 Dk (causal q k^T) + 2 W^2 Dv (s v) + 4 W Dk Dv (q C) + 4 W
+// Dk Dv (the update) a chunk of a (b, h), at 989 TFLOP/s: 0.32 ms at the
+// serving shape, against 0.18 ms of bytes.
+// ---------------------------------------------------------------------
+namespace tc {
+
+using namespace hopper;
+using bf16 = __nv_bfloat16;
+
+constexpr int THREADS = 256;      // two consumer warpgroups (state)
+constexpr int VLD = 72;           // a v tile row: 64 columns and 8 pad
+constexpr int DK = 512;           // key width
+constexpr int NH = DK / 2;        // keys' columns a warpgroup owns
+
+// m64n64k16, A and B K-major in shared memory
+__device__ __forceinline__ void mma_ss_n64(float (&d)[32], uint64_t a,
+                                           uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+// m64n64k16, A in registers, B K-major in shared memory
+__device__ __forceinline__ void mma_rs_n64_k(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// m64n256k16, A in registers, B MN-major (read transposed) in shared
+// memory
+__device__ __forceinline__ void mma_rs_n256_mn(float (&d)[128],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
+        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// K-major operand: k-step kk (16 elements of K) of a [K / 64][64][64]
+// bf16 tile, 128-byte swizzled (sw128_offset's layout)
+__device__ __forceinline__ uint64_t kmaj(const uint8_t* tile, int kk) {
+  return desc_sw128(tile + (kk >> 2) * 64 * 128 + (kk & 3) * 32, 16, 1024);
+}
+// MN-major operand: K rows [16 kk, 16 kk + 16) of the same layout, N
+// from column block cb0 on
+__device__ __forceinline__ uint64_t mnmaj(const uint8_t* tile, int cb0,
+                                          int kk) {
+  return desc_sw128(tile + cb0 * 64 * 128 + kk * 16 * 128, 64 * 128, 1024);
+}
+
+// hi = bf16(x), lo = bf16(x - hi) of a pair, packed
+__device__ __forceinline__ void split2(float x0, float x1, uint32_t& hi,
+                                       uint32_t& lo) {
+  const float h0 = __bfloat162float(__float2bfloat16_rn(x0));
+  const float h1 = __bfloat162float(__float2bfloat16_rn(x1));
+  hi = pack_bf16(h0, h1);
+  lo = pack_bf16(x0 - h0, x1 - h1);
+}
+
+__device__ __forceinline__ float bf(uint16_t x) {
+  return __uint_as_float((uint32_t)x << 16);
+}
+
+// rows [0, 64) of `cols` bf16 from `src` (row stride `ld` elements) into
+// a [cols / 64][64][64] swizzled tile, 16 bytes a cp.async
+__device__ __forceinline__ void load_rows(uint8_t* tile, const bf16* src,
+                                          long long ld, int cols, int tid,
+                                          int nthreads) {
+  const int per_row = cols / 8;
+  for (int q = tid; q < 64 * per_row; q += nthreads) {
+    const int r = q / per_row, c8 = q % per_row;
+    cp_async16(tile + sw128_offset(64, r, c8 >> 3, c8 & 7),
+               src + r * ld + c8 * 8, 16);
+  }
+}
+
+// n at each chunk's start (nstart, (B H, nc, Dk)) and the final n: 32
+// columns a block, NL lanes down the chunk's rows for each
+constexpr int NL = 16;
+
+__global__ void __launch_bounds__(32 * NL)
+mlstm_n_kernel(const bf16* __restrict__ k, Strides sk,
+               const float* __restrict__ wkv,
+               const float* __restrict__ decay, float* __restrict__ nstart,
+               float* __restrict__ nout, int H, int S, int Dk, int W,
+               int nc) {
+  __shared__ float part[NL][33];
+  const int lane = threadIdx.x & 31, tl = threadIdx.x >> 5;
+  const int d = blockIdx.x * 32 + lane;
+  const int bh = blockIdx.y, b = bh / H, hh = bh % H;
+  const bf16* kh = k + b * sk.b + hh * sk.h;
+  const float* wb = wkv + (long long)bh * S;
+  float n = 0.f;
+  for (int c = 0; c < nc; ++c) {
+    float acc = 0.f;
+    if (d < Dk)
+      for (int t = c * W + tl; t < (c + 1) * W; t += NL)
+        acc = fmaf(wb[t], ld(kh + t * sk.s + d), acc);
+    part[tl][lane] = acc;
+    __syncthreads();
+    if (tl == 0 && d < Dk) {
+      nstart[((long long)bh * nc + c) * Dk + d] = n;
+      float sum = 0.f;
+#pragma unroll
+      for (int u = 0; u < NL; ++u) sum += part[u][lane];
+      n = decay[(long long)bh * nc + c] * n + sum;
+    }
+    __syncthreads();
+  }
+  if (tl == 0 && d < Dk) nout[(long long)bh * Dk + d] = n;
+}
+
+// s hi and lo of rows [64 rb, 64 rb + 64) of chunk c, their e (inter) and
+// denominators. One warpgroup; q's tile and a two-slot ring of k tiles.
+__global__ void __launch_bounds__(128)
+mlstm_scores_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                Strides sq, Strides sk, const float* __restrict__ F,
+                const float* __restrict__ li,
+                const float* __restrict__ mstart,
+                const float* __restrict__ nstart,
+                float* __restrict__ inter_out, float* __restrict__ den_out,
+                uint32_t* __restrict__ sh, uint32_t* __restrict__ sl, int H,
+                int S, int Dk, int W, int nc, float scale) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* qt = align_1024(smem_raw);
+  const int tb = Dk * 128;            // bytes of a 64-row tile
+  uint8_t* kt0 = qt + tb;
+  float* Fc = reinterpret_cast<float*>(kt0 + 2 * tb);   // [W]
+  float* lic = Fc + W;                // [W]
+  float* mjc = lic + W;               // [64]
+  float* ns = mjc + 64;               // [Dk]
+  float* part = ns + Dk;              // [64][2] row sums' halves
+
+  const int rb = blockIdx.x, c = blockIdx.y, bh = blockIdx.z;
+  const int b = bh / H, hh = bh % H, tid = threadIdx.x;
+  const int r0 = rb * 64;
+  const long long row0 = (long long)bh * S + (long long)c * W;
+  const bf16* qb = q + b * sq.b + hh * sq.h + ((long long)c * W + r0) * sq.s;
+  const bf16* kb = k + b * sk.b + hh * sk.h + (long long)c * W * sk.s;
+  load_rows(qt, qb, sq.s, Dk, tid, 128);
+  load_rows(kt0, kb, sk.s, Dk, tid, 128);
+  cp_async_commit();
+  for (int t = tid; t < W; t += 128) {
+    Fc[t] = F[row0 + t];
+    lic[t] = li[row0 + t];
+  }
+  for (int d = tid; d < Dk; d += 128)
+    ns[d] = nstart[((long long)bh * nc + c) * Dk + d];
+  __syncthreads();
+  {
+    // mj and e, two lanes a row
+    const int rr = tid >> 1, part2 = tid & 1, r = r0 + rr;
+    float mx = -INFINITY;
+    for (int t = part2; t <= r; t += 2)
+      mx = fmaxf(mx, (Fc[r] - Fc[t]) + lic[t]);
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    if (part2 == 0) {
+      const float bi = Fc[r] + mstart[(long long)bh * nc + c];
+      const float mj = fmaxf(mx, bi);
+      mjc[rr] = mj;
+      inter_out[row0 + r] = expf(bi - mj);
+    }
+  }
+
+  const int w = tid / 32, lane = tid % 32;
+  float ssum[2] = {0.f, 0.f};
+  for (int kb_i = 0; kb_i <= rb; ++kb_i) {
+    if (kb_i < rb)
+      load_rows(kt0 + ((kb_i + 1) & 1) * tb, kb + (kb_i + 1) * 64 * sk.s,
+                sk.s, Dk, tid, 128);
+    cp_async_commit();
+    cp_async_wait<1>();
+    fence_proxy_async();
+    __syncthreads();
+    const uint8_t* kt = kt0 + (kb_i & 1) * tb;
+    float acc[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+    fence_regs(acc);
+    wgmma_fence();
+    for (int kk = 0; kk < Dk / 16; ++kk)
+      mma_ss_n64(acc, kmaj(qt, kk), kmaj(kt, kk));
+    wgmma_commit();
+    wgmma_wait();
+    fence_regs(acc);
+    // element e of n-block j: row 16 w + lane / 4 + 8 (e / 2), key
+    // 8 j + 2 (lane % 4) + e % 2 of this key block
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int rr = 16 * w + lane / 4 + 8 * hf, r = r0 + rr;
+        const int t = kb_i * 64 + 8 * j + 2 * (lane % 4);
+        float v[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          v[e] = t + e <= r ? acc[4 * j + 2 * hf + e] * scale *
+                                  expf(((Fc[r] - Fc[t + e]) + lic[t + e]) -
+                                       mjc[rr])
+                            : 0.f;
+        ssum[hf] += v[0] + v[1];
+        uint32_t hi, lo;
+        split2(v[0], v[1], hi, lo);
+        const long long o = (((long long)bh * nc + c) * W + r) * W + t;
+        sh[o >> 1] = hi;
+        sl[o >> 1] = lo;
+      }
+    __syncthreads();
+  }
+  // the row sums (a row's four lanes), then q . n: two threads a row
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    float x = ssum[hf];
+    x += __shfl_xor_sync(0xffffffffu, x, 1);
+    x += __shfl_xor_sync(0xffffffffu, x, 2);
+    if (lane % 4 == 0) part[(16 * w + lane / 4 + 8 * hf) * 2] = x;
+  }
+  {
+    const int rr = tid >> 1, half = tid & 1;
+    float qn = 0.f;
+    for (int c8 = half * Dk / 16; c8 < (half + 1) * Dk / 16; ++c8) {
+      const uint4 x = *reinterpret_cast<const uint4*>(
+          qt + sw128_offset(64, rr, c8 >> 3, c8 & 7));
+      const uint32_t wd[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        qn = fmaf(bf(wd[u] & 0xffffu), ns[c8 * 8 + 2 * u], qn);
+        qn = fmaf(bf(wd[u] >> 16), ns[c8 * 8 + 2 * u + 1], qn);
+      }
+    }
+    qn += __shfl_xor_sync(0xffffffffu, qn, 1);
+    __syncthreads();
+    if (half == 0) {
+      const int r = r0 + rr;
+      const float e = inter_out[row0 + r];
+      den_out[row0 + r] = fmaxf(fabsf(part[rr * 2] + e * scale * qn),
+                                expf(-mjc[rr]));
+    }
+  }
+}
+
+// the state kernel's shared memory: two 64 KB-class slots, two v tiles,
+// the exchange buffer and two sets of per-row weights
+struct StateSmem {
+  int slot, vtile, off_v, off_x, off_small, total;
+  __host__ __device__ StateSmem(int Dk, int W) {
+    slot = Dk * 128 > W * 256 ? Dk * 128 : W * 256;
+    vtile = W * VLD * 2;
+    off_v = 2 * slot;
+    off_x = off_v + 2 * vtile;
+    off_small = off_x + 2 * 16 * 128 * 4;
+    total = off_small + 2 * 3 * W * 4 + 1024;
+  }
+};
+
+__global__ void __launch_bounds__(THREADS, 1)
+mlstm_state_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
+               const bf16* __restrict__ v, Strides sq, Strides sk,
+               Strides sv, const float* __restrict__ inter,
+               const float* __restrict__ den,
+               const float* __restrict__ wkv,
+               const float* __restrict__ decay,
+               const bf16* __restrict__ sh, const bf16* __restrict__ sl,
+               float* __restrict__ hout, float* __restrict__ Cout, int H,
+               int S, int Dv, int W, int nc, float scale) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = align_1024(smem_raw);
+  const StateSmem L(DK, W);
+  uint8_t* slots = base;
+  uint16_t* vb0 = reinterpret_cast<uint16_t*>(base + L.off_v);
+  float* xb = reinterpret_cast<float*>(base + L.off_x);
+  float* sm0 = reinterpret_cast<float*>(base + L.off_small);
+
+  const int col0 = blockIdx.x * 64;
+  const int bh = blockIdx.y, b = bh / H, hh = bh % H;
+  const int tid = threadIdx.x, g = tid / 128, tw = tid % 128;
+  const int w = tw / 32, lane = tw % 32;
+  const bf16* qh = q + b * sq.b + hh * sq.h;
+  const bf16* kh = k + b * sk.b + hh * sk.h;
+  const bf16* vh = v + b * sv.b + hh * sv.h + col0;
+  const int R = W / 64, P = 3 * R, total = nc * P;
+
+  // piece i of chunk c: q rows of round i / 2 (i even, i < 2 R), s rows
+  // of round i / 2 (i odd, i < 2 R), k rows of block i - 2 R; a chunk's
+  // first piece brings its v tile and per-row weights
+  auto fetch = [&](int p) {
+    const int c = p / P, i = p % P;
+    uint8_t* slot = slots + (p & 1) * L.slot;
+    const long long t0 = (long long)c * W;
+    if (p % P == 0) {
+      uint16_t* vb = vb0 + (c & 1) * W * VLD;
+      for (int e = tid; e < W * 8; e += THREADS) {
+        const int t = e >> 3, ch = e & 7;
+        cp_async16(vb + t * VLD + ch * 8, vh + (t0 + t) * sv.s + ch * 8, 16);
+      }
+      float* sm = sm0 + (c & 1) * 3 * W;
+      const long long row0 = (long long)bh * S + t0;
+      for (int e = tid; e < 3 * W / 4; e += THREADS) {
+        const int a = e / (W / 4), o = (e % (W / 4)) * 4;
+        const float* src = a == 0 ? inter : (a == 1 ? den : wkv);
+        cp_async16(sm + a * W + o, src + row0 + o, 16);
+      }
+    }
+    if (i < 2 * R && (i & 1) == 0) {
+      const int rho = i / 2;
+      load_rows(slot, qh + (t0 + 64 * rho) * sq.s, sq.s, DK, tid, THREADS);
+    } else if (i < 2 * R) {
+      const int rho = i / 2;
+      const long long o = (((long long)bh * nc + c) * W + 64 * rho) * W;
+      const int per_row = (rho + 1) * 8;
+      for (int e = tid; e < 2 * 64 * per_row; e += THREADS) {
+        const int lo = e >= 64 * per_row, q2 = e - lo * 64 * per_row;
+        const int r = q2 / per_row, c8 = q2 % per_row;
+        cp_async16(slot + lo * W * 128 + sw128_offset(64, r, c8 >> 3, c8 & 7),
+                   (lo ? sl : sh) + o + (long long)r * W + c8 * 8, 16);
+      }
+    } else {
+      const int tb = i - 2 * R;
+      load_rows(slot, kh + (t0 + 64 * tb) * sk.s, sk.s, DK, tid, THREADS);
+    }
+  };
+
+  float Cacc[NH / 2];
+#pragma unroll
+  for (int i = 0; i < NH / 2; ++i) Cacc[i] = 0.f;
+  float P32[32];
+
+  fetch(0);
+  cp_async_commit();
+  for (int p = 0; p < total; ++p) {
+    if (p + 1 < total) fetch(p + 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    fence_proxy_async();
+    __syncthreads();
+    const int c = p / P, i = p % P;
+    const uint8_t* slot = slots + (p & 1) * L.slot;
+    const uint16_t* vb = vb0 + (c & 1) * W * VLD;
+    const float* sm = sm0 + (c & 1) * 3 * W;
+    if (i < 2 * R && (i & 1) == 0) {
+      // this warpgroup's half of (C^T hi + C^T lo) q^T, in batches of 4
+      // k-steps (the A registers must hold until their products end)
+#pragma unroll
+      for (int u = 0; u < 32; ++u) P32[u] = 0.f;
+#pragma unroll
+      for (int kb = 0; kb < NH / 16; kb += 4) {
+        uint32_t hi[4][4], lo[4][4];
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+          for (int x = 0; x < 4; ++x)
+            split2(Cacc[8 * (kb + kk) + 2 * x], Cacc[8 * (kb + kk) + 2 * x + 1],
+                   hi[kk][x], lo[kk][x]);
+        fence_regs(P32);
+        fence_regs(hi);
+        fence_regs(lo);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const uint64_t bd = kmaj(slot, g * NH / 16 + kb + kk);
+          mma_rs_n64_k(P32, hi[kk], bd);
+          mma_rs_n64_k(P32, lo[kk], bd);
+        }
+        wgmma_commit();
+        wgmma_wait();
+        fence_regs(P32);
+        fence_regs(hi);
+        fence_regs(lo);
+      }
+      // times scale e of the row: element e of n-block j is row
+      // 8 j + 2 (lane % 4) + e % 2 of the round
+      const int rho = i / 2;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          P32[4 * j + e] *= scale * sm[64 * rho + 8 * j + 2 * (lane % 4) +
+                                       (e & 1)];
+    } else if (i < 2 * R) {
+      // + v^T (s hi + s lo)^T over this warpgroup's key steps
+      const int rho = i / 2, steps = 4 * (rho + 1);
+      const uint8_t* shi = slot;
+      const uint8_t* slo = slot + W * 128;
+      for (int kt0 = g; kt0 < steps; kt0 += 8) {
+        uint32_t va[4][4];
+        const int n = min(4, (steps - kt0 + 1) / 2);
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int kt = kt0 + 2 * u;
+#pragma unroll
+          for (int x = 0; x < 4; ++x) {
+            const int m = 16 * w + lane / 4 + 8 * (x & 1);
+            const int t = 16 * kt + 2 * (lane % 4) + 8 * (x >> 1);
+            va[u][x] = u < n ? (uint32_t)vb[t * VLD + m] |
+                                   (uint32_t)vb[(t + 1) * VLD + m] << 16
+                             : 0u;
+          }
+        }
+        fence_regs(P32);
+        fence_regs(va);
+        wgmma_fence();
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          if (u < n) {
+            mma_rs_n64_k(P32, va[u], kmaj(shi, kt0 + 2 * u));
+            mma_rs_n64_k(P32, va[u], kmaj(slo, kt0 + 2 * u));
+          }
+        }
+        wgmma_commit();
+        wgmma_wait();
+        fence_regs(P32);
+        fence_regs(va);
+      }
+      // the halves: warpgroup g keeps rows [32 g, 32 g + 32) (n-blocks
+      // 4 g to 4 g + 3) and hands the other half to its partner
+      // (registers indexed by constants only: a g-dependent index would
+      // put P32 in local memory)
+#pragma unroll
+      for (int u = 0; u < 16; ++u) {
+        if (g == 0)
+          xb[(16 + u) * 128 + tw] = P32[16 + u];
+        else
+          xb[u * 128 + tw] = P32[u];
+      }
+      __syncthreads();
+#pragma unroll
+      for (int u = 0; u < 16; ++u) {
+        if (g == 0)
+          P32[u] += xb[u * 128 + tw];
+        else
+          P32[16 + u] += xb[(16 + u) * 128 + tw];
+      }
+      const long long t0 = (long long)c * W + 64 * rho;
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int rr = 8 * (4 * g + jj) + 2 * (lane % 4) + (e & 1);
+          const int m = 16 * w + lane / 4 + 8 * (e >> 1);
+          const float x = g ? P32[16 + 4 * jj + e] : P32[4 * jj + e];
+          hout[((long long)bh * S + t0 + rr) * Dv + col0 + m] =
+              x / sm[W + 64 * rho + rr];
+        }
+    } else {
+      // C^T = decay C^T + ((w v)^T hi + lo) k over this block of keys
+      const int tb = i - 2 * R;
+      if (tb == 0) {
+        const float dec = decay[(long long)bh * nc + c];
+#pragma unroll
+        for (int u = 0; u < NH / 2; ++u) Cacc[u] *= dec;
+      }
+      uint32_t hi[4][4], lo[4][4];
+#pragma unroll
+      for (int kt = 0; kt < 4; ++kt)
+#pragma unroll
+        for (int x = 0; x < 4; ++x) {
+          const int m = 16 * w + lane / 4 + 8 * (x & 1);
+          const int t = 64 * tb + 16 * kt + 2 * (lane % 4) + 8 * (x >> 1);
+          split2(bf(vb[t * VLD + m]) * sm[2 * W + t],
+                 bf(vb[(t + 1) * VLD + m]) * sm[2 * W + t + 1], hi[kt][x],
+                 lo[kt][x]);
+        }
+      fence_regs(Cacc);
+      fence_regs(hi);
+      fence_regs(lo);
+      wgmma_fence();
+#pragma unroll
+      for (int kt = 0; kt < 4; ++kt) {
+        const uint64_t bd = mnmaj(slot, g * NH / 64, kt);
+        mma_rs_n256_mn(Cacc, hi[kt], bd);
+        mma_rs_n256_mn(Cacc, lo[kt], bd);
+      }
+      wgmma_commit();
+      wgmma_wait();
+      fence_regs(Cacc);
+      fence_regs(hi);
+      fence_regs(lo);
+    }
+    __syncthreads();
+  }
+  // C^T's element e of n-block j: value column 16 w + lane / 4 +
+  // 8 (e / 2), key column g NH + 8 j + 2 (lane % 4) + e % 2
+#pragma unroll
+  for (int j = 0; j < NH / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int m = 16 * w + lane / 4 + 8 * (e >> 1);
+      const int d = g * NH + 8 * j + 2 * (lane % 4) + (e & 1);
+      Cout[((long long)bh * DK + d) * Dv + col0 + m] = Cacc[4 * j + e];
+    }
+}
+
+size_t scores_smem(int Dk, int W) {
+  return 1024 + 3 * (size_t)Dk * 128 + sizeof(float) * (2 * W + 64 + Dk +
+                                                        128);
+}
+
+cudaError_t launch(const void* q, const void* k, const void* v,
+                   const float* li, const float* lf, float* h, float* C,
+                   float* n, float* m, float* F, float* wkv, float* mstart,
+                   float* decay, float* den, float* inter, float* s,
+                   float* nstart, int B, int H, int S, int Dk, int Dv, int W,
+                   const long long* strides, float scale,
+                   cudaStream_t stream) {
+  const int nc = S / W, BH = B * H;
+  const Strides sq{strides[0], strides[1], strides[2]};
+  const Strides sk{strides[3], strides[4], strides[5]};
+  const Strides sv{strides[6], strides[7], strides[8]};
+  const bf16* qt = static_cast<const bf16*>(q);
+  const bf16* kt = static_cast<const bf16*>(k);
+  const bf16* vt = static_cast<const bf16*>(v);
+  bf16* sh = reinterpret_cast<bf16*>(s);
+  bf16* sl = sh + (size_t)BH * nc * W * W;
+
+  mlstm_gates_kernel<<<BH, 128, 0, stream>>>(li, lf, F, wkv, mstart, decay,
+                                             m, S, W, nc);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  mlstm_n_kernel<<<dim3(Dk / 32, BH), 32 * NL, 0, stream>>>(
+      kt, sk, wkv, decay, nstart, n, H, S, Dk, W, nc);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const size_t sm1 = scores_smem(Dk, W);
+  err = cudaFuncSetAttribute(mlstm_scores_tc,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)sm1);
+  if (err != cudaSuccess) return err;
+  mlstm_scores_tc<<<dim3(W / 64, nc, BH), 128, sm1, stream>>>(
+      qt, kt, sq, sk, F, li, mstart, nstart, inter, den,
+      reinterpret_cast<uint32_t*>(sh), reinterpret_cast<uint32_t*>(sl), H, S,
+      Dk, W, nc, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const StateSmem L(DK, W);
+  err = cudaFuncSetAttribute(mlstm_state_tc,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             L.total);
+  if (err != cudaSuccess) return err;
+  mlstm_state_tc<<<dim3(Dv / 64, BH), THREADS, L.total, stream>>>(
+      qt, kt, vt, sq, sk, sv, inter, den, wkv, decay, sh, sl, h, C, H, S, Dv,
+      W, nc, scale);
+  return cudaGetLastError();
+}
+
+}  // namespace tc
+
 }  // namespace
 
+// tensor_cores selects the tc path (bf16, Dk 512, Dv and W
+// multiples of 64, q, k, v and their b/h/s strides 16-byte aligned, as the
+// wrapper's uses_tensor_cores checks); mj then holds the denominators,
+// s the hi and lo scores (bf16, the same bytes) and nstart (B H nc Dk
+// floats) each chunk's starting n. Else the FMA kernels; nstart unused.
 extern "C" int mlstm_chunk_launch(
     const void* q, const void* k, const void* v, const float* li,
     const float* lf, float* h, float* C, float* n, float* m, float* F,
     float* wkv, float* mstart, float* decay, float* mj, float* inter,
-    float* s, int bf16, int B, int H, int S, int Dk, int Dv, int W,
-    const long long* strides, float scale, void* stream) {
+    float* s, float* nstart, int bf16, int tensor_cores, int B, int H,
+    int S, int Dk, int Dv, int W, const long long* strides, float scale,
+    void* stream) {
   if (B < 1 || H < 1 || W < 1 || W > WMAX || S % W || Dk < 1 ||
       Dk > DKMAX || Dv < 1 || B * H > 65535 || S / W > 65535)
     return (int)cudaErrorInvalidValue;
+  if (tensor_cores && (!bf16 || Dk != tc::DK || Dv % 64 || W % 64))
+    return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (tensor_cores)
+    return (int)tc::launch(q, k, v, li, lf, h, C, n, m, F, wkv, mstart,
+                           decay, mj, inter, s, nstart, B, H, S, Dk, Dv, W,
+                           strides, scale, st);
   const cudaError_t err =
       bf16 ? launch<__nv_bfloat16>(q, k, v, li, lf, h, C, n, m, F, wkv,
                                    mstart, decay, mj, inter, s, B, H, S, Dk,

@@ -13,32 +13,42 @@ Dv) f32 and the final state (C (B, H, Dk, Dv), n (B, H, Dk), m (B, H)),
 all f32, with every product in f32: q, k and v may be bf16, widened
 exactly, as the JAX model widens them before its scan.
 
-Bound on an H100 SXM: per (b, h) and chunk, the causal q k^T (W (W + 1)
-Dk operations), s v (W (W + 1) Dv), q C and the C update (2 W Dk Dv
-each), against 67 TFLOP/s for f32 outside the tensor cores; q, k, v,
-li, lf read once and h, C, n, m written once at 3.35 TB/s. At the
-serving shape (B 8, H 4, S 2048, Dk 512, Dv 1024, W 256) that is 163
-GFLOP, 2.43 ms, far above the bytes' 0.18 ms (bf16 q, k, v), so
-operations bound it. The TPU kernel keeps each (b, h)'s 2 MB state in
-VMEM across a sequential chunk axis; a Hopper block has 227 KB, and
-B H is 4 to 32 against 132 SMs. So the state kernel gives each block
-one (b, h) and 32 of its Dv columns, whose C[:, columns] (64 KB at Dk
-512) stays in shared memory across the loop over chunks and never goes
-to device memory until the end. The columns of h and C are independent
-given the masked, decayed scores s = (q k^T) * D and the denominator,
-so a first pair of kernels computes what every column block shares
-once: the gates kernel (one block per (b, h)) takes F, the sequential
-in-chunk cumulative sum of lf, the chain of stabilisers m over the
-chunks, the key weights and the chunks' decays; the scores kernel (one
-block per 64 rows of a chunk) takes each row's stabiliser mj, the
-inter-chunk weight and s, into scratch of B H S W floats. Each column
-block then carries n itself (Dk floats) for the denominator. This first
-version computes on the FMA units: tensor cores are later work.
+Two paths, chosen by ``uses_tensor_cores``:
+
+* bf16 q, k, v at Dk 512, Dv and W multiples of 64, every row 16-byte
+  aligned (xlstm-1.3b's serving and refill shapes): the tensor cores.
+  q k^T is one exact bf16 product; the f32 operands of the other three
+  (C in q C, the masked, decayed scores s in s v, the weighted values
+  w v in the C update) are each split into bf16 hi + lo,
+  two products into one f32 accumulator (about 2^-17 of |x|; one bf16 or
+  TF32 rounding would miss the 1e-4 tolerance). A state block owns a
+  (b, h) and 64 value columns and keeps C^T in its accumulator registers
+  across the chunks; a scores kernel writes s as hi and lo and each row's
+  denominator, a small kernel each chunk's starting n. Bound on an H100
+  SXM: W^2 Dk + 2 W^2 Dv + 8 W Dk Dv operations a chunk of a (b, h) (the
+  split products counted twice) at 989 TFLOP/s: at the serving shape (B
+  8, H 4, S 2048, Dk 512, Dv 1024, W 256) 318 GFLOP, 0.32 ms, against
+  0.18 ms of bytes.
+* everything else (f32 inputs, narrow or ragged widths): the first
+  version's FMA kernels, every product in f32 on the FMA units. Per (b,
+  h) and chunk the causal q k^T (W (W + 1) Dk operations), s v (W (W + 1)
+  Dv), q C and the C update (2 W Dk Dv each) at 67 TFLOP/s: 2.43 ms at
+  the serving shape. The state kernel gives each block one (b, h) and 32
+  of its Dv columns, whose C[:, columns] stays in shared memory across
+  the loop over chunks; a gates kernel (one block per (b, h)) takes F,
+  the sequential in-chunk cumulative sum of lf, the chain of stabilisers
+  m over the chunks, the key weights and the chunks' decays; a scores
+  kernel (one block per 64 rows of a chunk) takes each row's stabiliser
+  mj, the inter-chunk weight and s, into scratch of B H S W floats.
+
+The TPU kernel keeps each (b, h)'s 2 MB state in VMEM across a
+sequential chunk axis; a Hopper block has 227 KB, and B H is 4 to 32
+against 132 SMs, hence the split over value columns on both paths.
 
 ``mlstm_chunk`` takes the plain version for CPU tensors and only for
 them; for CUDA tensors it launches the kernels or raises.
 ``mlstm_chunk.launches`` counts calls that launch, each of which
-enqueues the three kernels.
+enqueues the three FMA kernels or the four tensor-core ones.
 """
 from __future__ import annotations
 
@@ -52,6 +62,7 @@ Tensor = torch.Tensor
 
 W_MAX = 256          # chunk rows the CUDA kernels take at most (csrc)
 DK_MAX = 512         # key width the CUDA kernels take at most (csrc)
+TC_DK = 512          # key width of the tensor-core path (csrc tc::DK)
 
 
 def chunk_width(S: int, chunk: int) -> int:
@@ -132,9 +143,26 @@ def _check(q: Tensor, k: Tensor, v: Tensor, li: Tensor, lf: Tensor,
     return chunk_width(S, chunk)
 
 
+def uses_tensor_cores(q: Tensor, k: Tensor, v: Tensor, chunk: int) -> bool:
+    """Whether a CUDA call on these inputs takes the tensor-core kernels:
+    bf16 q, k and v, Dk = TC_DK (xlstm's heads; two warpgroups hold C^T's
+    halves in registers), Dv and W = min(chunk, S) multiples of 64 (the
+    wgmma tiles and the state block's 64 value columns), and
+    every row 16-byte aligned (the cp.async copies): each data pointer a
+    multiple of 16 bytes and each b/h/s stride a multiple of 8 elements.
+    Everything else takes the FMA kernels."""
+    S, Dk, Dv = q.shape[2], q.shape[3], v.shape[3]
+    W = min(chunk, S)
+    return (all(t.dtype == torch.bfloat16 for t in (q, k, v))
+            and Dk == TC_DK and Dv % 64 == 0 and W % 64 == 0
+            and all(t.data_ptr() % 16 == 0 and t.stride(-1) == 1
+                    and all(st % 8 == 0 for st in t.stride()[:3])
+                    for t in (q, k, v)))
+
+
 def _bind(lib: ctypes.CDLL) -> None:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.mlstm_chunk_launch.argtypes = [p] * 16 + [i] * 7 + [p, f, p]
+    lib.mlstm_chunk_launch.argtypes = [p] * 17 + [i] * 8 + [p, f, p]
     lib.mlstm_chunk_launch.restype = i
     lib.mlstm_chunk_error_string.argtypes = [i]
     lib.mlstm_chunk_error_string.restype = ctypes.c_char_p
@@ -173,11 +201,15 @@ def mlstm_chunk(q: Tensor, k: Tensor, v: Tensor, li: Tensor, lf: Tensor, *,
     C = torch.empty((B, H, Dk, Dv), **f32)
     n = torch.empty((B, H, Dk), **f32)
     m = torch.empty((B, H), **f32)
-    # scratch: F, the key weights, each row's mj and inter-chunk weight,
-    # each chunk's starting m and decay, and the scores s
+    # scratch: F, the key weights, each row's mj (the tensor-core path:
+    # its denominator) and inter-chunk weight, each chunk's starting m
+    # and decay, the scores s (f32, or bf16 hi and lo in the same bytes)
+    # and, on the tensor-core path, each chunk's starting n
+    tc = uses_tensor_cores(q, k, v, chunk)
     F, wkv, mj, inter = torch.empty((4, B, H, S), **f32)
     mstart, decay = torch.empty((2, B, H, nc), **f32)
     s = torch.empty((B, H, nc, W, W), **f32)
+    nstart = torch.empty((B, H, nc, Dk) if tc else (1,), **f32)
     strides = [st for t in (q, k, v) for st in t.stride()[:3]]
     lib = _build.load("mlstm_chunk", _bind)
     with torch.cuda.device(q.device):
@@ -187,7 +219,8 @@ def mlstm_chunk(q: Tensor, k: Tensor, v: Tensor, li: Tensor, lf: Tensor, *,
             lf.data_ptr(), h.data_ptr(), C.data_ptr(), n.data_ptr(),
             m.data_ptr(), F.data_ptr(), wkv.data_ptr(), mstart.data_ptr(),
             decay.data_ptr(), mj.data_ptr(), inter.data_ptr(), s.data_ptr(),
-            int(q.dtype == torch.bfloat16), B, H, S, Dk, Dv, W,
+            nstart.data_ptr(), int(q.dtype == torch.bfloat16), int(tc), B,
+            H, S, Dk, Dv, W,
             (ctypes.c_longlong * 9)(*strides), Dk ** -0.5, stream)
     if err:
         raise RuntimeError(

@@ -357,6 +357,52 @@ def test_insert_decomposition_matches_oracle(r, c, n, plan):
                                atol=1e-6 * float(want.abs().max()))
 
 
+@pytest.mark.parametrize("r,kind,gshift", [
+    (3, "normal", 0), (3, "ties", 0), (5, "normal", 0), (5, "ties", 0),
+    (5, "normal", 3), (5, "ties", 3), (5, "flat", 3), (4, "normal", 0),
+    (4, "ties", 0)])
+def test_pruned_search_matches_the_streaming_top_k(r, kind, gshift):
+    """The pruned search as the kernels take it (``emulate_pruned``: the
+    sample's k-th best as tau0, fine and coarse masks, a refining sweep,
+    the row test with its early exit, the exact top k of the survivors)
+    equals ``topk_streaming`` on heavy-tailed and on integer tables whose
+    k-th magnitude ties; gshift 3 puts 8 buckets under a coarse bit, as
+    the train geometry puts 32. A flat table takes the unpruned sweep,
+    and so does even r."""
+    n, k, c = 20_000, 64, 2**10
+    table, _, tp = _table(r, c, n, seed=30 + r, ties=kind == "ties")
+    if kind == "flat":
+        table = np.full_like(table, 3.0)
+    t = torch.from_numpy(table)
+    want = T.topk_streaming(T.CSVec(table=t, params=tp, dim=n), k)
+    plan = KT.prune_plan(r, c, n, k)
+    if r % 2 == 0:
+        assert plan is None
+        return
+    assert plan == KT.PrunePlan(sample=n // 4, stride=4, refine=0,
+                                gshift=0)
+    # a refining sweep wider than the sample, as at the train geometry
+    plan = dataclasses.replace(plan, refine=n // 2, gshift=gshift)
+    (vals, idx), st = KT.emulate_pruned(t, tp, n, k, plan, chunk=4096)
+    assert torch.equal(vals, want[0]) and torch.equal(idx, want[1])
+    if kind == "flat":
+        assert st["dense"] and st["survivors"] == n
+        return
+    est = T.query_all(T.CSVec(table=t, params=tp, dim=n)).abs()
+    kth = float(want[0][-1].abs())
+    assert 0 < st["tau0"] <= st["tau"] <= kth      # drops no member
+    # every coordinate at or above tau survives; the row test stops
+    # before the last row for most coordinates, and looks up fine bits
+    # (gshift > 0) only behind set coarse bits
+    assert int((est >= st["tau"]).sum()) <= st["survivors"] < n
+    assert st["coarse_tests"] < r * n
+    assert (st["fine_tests"] > 0) == (gshift > 0)
+    assert st["fine_tests"] < st["coarse_tests"]
+    assert 0 < st["refine_survivors"] < n // 2
+    if kind == "ties":                              # a tie at the k-th
+        assert int((est == kth).sum()) > int((want[0].abs() == kth).sum())
+
+
 @pytest.mark.requires_cuda
 @pytest.mark.parametrize("r,c,n,k", [(5, 128, 1000, 300), (4, 128, 1000, 7),
                                      (4, 2**12, 65_537, 64),
