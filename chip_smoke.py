@@ -24,9 +24,16 @@ nvcc and nvidia-smi. Phases, each of which raises on failure:
    tolerance (atomic sums), with its plan's scratch and the kernels a
    profiled call launches (two a chunk), beside r ``index_add_`` calls over
    precomputed buckets and signed values, ``csvec_topk`` exact (indices
-   and values) beside ``torch.topk`` of a precomputed |estimate|,
-   ``csvec_quant`` exact in q, scale and dhat and within one ulp of the
-   row's amax in resid (no single library call computes it); the flash
+   and values) beside ``torch.topk`` of a precomputed |estimate|, and
+   exact on the same tables with a NaN in a bucket of the seed sample,
+   a NaN only outside them, a whole NaN row (as the int8 quantiser makes
+   it) or an inf, each at r 5 (pruned), on its first 4 rows (even r) and
+   on a flat table of its shape (NaN equal in place, the thresholds and
+   counts against ``emulate_pruned``); ``csvec_quant`` in both forms (all
+   four outputs; ``dhat_only``), exact in q and bit for bit in scale and
+   dhat and within one ulp of the row's amax in resid, also with NaN,
+   inf and -inf in its rows, beside ``fake_quantize_per_channel_affine``
+   with the scale precomputed (the dhat half of the function); the flash
    attention forward (o, lse) and backward (dq, dk, dv) at FLASH_CASES
    beside ``scaled_dot_product_attention`` and its gradient, each row
    with its TFLOP/s and its share of the bound (f32, and lse in both
@@ -53,7 +60,8 @@ nvcc and nvidia-smi. Phases, each of which raises on failure:
    the fp32 wire, W + 1 on the int8); timed as the DP step calls it
    (device 0's replica) beside ``xs.sum(0)`` on the fp32 wire (no
    library call on the int8) and with every replica, each beside the
-   bound of the bytes it writes; then
+   bound of the bytes it writes; the int8 wire with a NaN or an inf in
+   one worker's row at W 2 and 4, equal with NaN in place; then
    the bytes autograd keeps for one attention call at tinyllama-1.1b's
    context (B 4, S 2048) through the plain version and through the
    kernel, which must keep q, k, v, o and lse and nothing of size S x S;
@@ -103,7 +111,10 @@ nvcc and nvidia-smi. Phases, each of which raises on failure:
    torch.profiler (device time by kernel, the attention kernels' share);
    after (b) and (c), one more step's gradients: v_new + update == v_pre
    exactly away from the sent coordinates (rtol 1e-6 at them), and the
-   insert kernel against its plain version on that step's v_pre. Then
+   insert kernel against its plain version on that step's v_pre; then
+   one step with a NaN in one ``w_down`` entry, which the NaN guard must
+   skip (parameters, u, v, the sketch, AdamW's count unchanged, the skip
+   counted) after the kernels ran on its NaN gradient. Then
    (a) for 3 steps at tinyllama's own context, B=4 x S=2048: losses
    finite, no skip, peak memory under 80 GB;
 8. the LM launcher (``python -m repro_torch.launch.train --reduced
@@ -404,6 +415,33 @@ def time_ms(fn, iters: int, warmup: int = 10) -> tuple[float, float]:
         call_ms
 
 
+def graph_ms(fn, iters: int = 100, replays: int = 5) -> float:
+    """Device ms of one call of ``fn`` from a CUDA graph of ``iters``
+    calls replayed ``replays`` times between two CUDA events: no host
+    enqueue in the timing, for calls whose host time exceeds their
+    device time (and where torch.profiler loses its records)."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (iters * replays)
+
+
 def bound(nbytes: int, flops: int, d: int, k: int, a_bytes: int):
     """(bound_ms, bound_by) of one sketch update moving ``nbytes`` (each
     input read once, each output written once) and doing ``flops`` of
@@ -512,6 +550,195 @@ def _cs_rows_only(params, j: int):
     return tuple((row[j],) for row in params)
 
 
+def _same(got, want) -> bool:
+    """Equal, with NaN in the same places (``torch.equal`` holds a NaN
+    unequal to itself); for numbers, a NaN equals a NaN."""
+    import torch
+    if not isinstance(want, torch.Tensor):
+        return got == want or (got != got and want != want)
+    nan = torch.isnan(want)
+    return torch.equal(torch.isnan(got), nan) and torch.equal(got[~nan],
+                                                              want[~nan])
+
+
+def _bits_equal(got, want) -> bool:
+    """f32 equal bit for bit, with NaN in the same places."""
+    import torch
+    nan = torch.isnan(want)
+    return torch.equal(torch.isnan(got), nan) and torch.equal(
+        got[~nan].view(torch.int32), want[~nan].view(torch.int32))
+
+
+def _poison(*tensors) -> None:
+    """Leave freed blocks of these tensors' sizes full of 0x7f bytes, so
+    that an element a kernel does not write cannot pass as a stale
+    result of an earlier call."""
+    import torch
+    bufs = [torch.full_like(t.view(torch.uint8), 0x7f) for t in tensors]
+    del bufs
+
+
+def _topk_exact(what: str, table, params, n: int, k: int):
+    """csvec_topk against csvec_topk_ref on the card: indices equal,
+    values equal with NaN in the same places; on the pruned path
+    ``prune_stats`` against ``emulate_pruned`` (the thresholds, the
+    switches to the unpruned sweep, the coordinates that pass each row
+    test). Returns (the stats, the emulation's) or (None, None)."""
+    import torch
+    from repro_torch.kernels.csvec_topk import (
+        csvec_topk, csvec_topk_ref, emulate_pruned, prune_plan, prune_stats,
+    )
+    got = csvec_topk(table, params, n, k)
+    want = csvec_topk_ref(table, params, n, k)
+    torch.cuda.synchronize()
+    if not torch.equal(got[1], want[1]):
+        raise AssertionError(f"csvec_topk {what}: indices differ from the "
+                             f"plain version")
+    if not _same(got[0], want[0]):
+        raise AssertionError(f"csvec_topk {what}: values differ from the "
+                             f"plain version")
+    prune = prune_stats()
+    if prune is None:
+        return None, None
+    _, mirror = emulate_pruned(table, params, n, k,
+                               prune_plan(*table.shape, n, k))
+    for key in ("tau0", "tau", "dense", "nonfinite", "refine_survivors",
+                "survivors"):
+        if not _same(prune[key], mirror[key]):
+            raise AssertionError(
+                f"csvec_topk {what}: {key} {prune[key]} where the plain "
+                f"emulation has {mirror[key]}")
+    return prune, mirror
+
+
+# the top-k's non-finite tables: a NaN in a bucket of the seed sample's, a
+# NaN only in a bucket no sample coordinate reaches (and some other one
+# does), a whole NaN row as the int8 quantiser makes it from one NaN entry,
+# an inf in a sample bucket
+TOPK_NONFINITE = ("nan_in_sample", "nan_outside", "nan_row", "inf")
+# a row amax whose quotient by 127 and product with fl(1/127) round apart
+# (1 + 60 ulp, times 1024), planted in the quantiser's non-finite tables
+QUANT_SPLIT_AMAX = 1024 + 60 * 2**-13
+
+
+def _put_nonfinite(table, params, n: int, what: str):
+    """``table`` (a copy) with one of TOPK_NONFINITE put into hash row 2
+    (or the first row with such a bucket); the sample is the pruned
+    path's (the same for even r)."""
+    import torch
+    from repro_torch.countsketch.csvec import (
+        dequantize_table, hash_buckets, quantize_table,
+    )
+    from repro_torch.kernels.csvec_topk import SAMPLE
+    r, c = table.shape
+    sample = min(SAMPLE, n // 4)
+    bk = hash_buckets(params, c, torch.arange(sample, device=table.device)
+                      * (n // sample))
+    t = table.clone()
+    if what == "nan_in_sample":
+        t[2, bk[2, 0]] = float("nan")
+    elif what == "nan_outside":
+        reach = hash_buckets(params, c, torch.arange(
+            min(n, 1 << 22), device=table.device))
+        for j in range(r):
+            free = torch.ones(c, dtype=torch.bool, device=table.device)
+            free[bk[j]] = False
+            hit = torch.zeros_like(free)
+            hit[reach[j]] = True
+            left = torch.nonzero(free & hit)
+            if left.numel():
+                t[j, int(left[0])] = float("nan")
+                break
+        del reach
+        if not bool(torch.isnan(t).any()):
+            raise AssertionError("no bucket outside the sample is reached")
+    elif what == "nan_row":
+        t[2, 17] = float("nan")
+        t = dequantize_table(*quantize_table(t))
+    else:
+        t[2, bk[2, 0]] = float("inf")
+    return t
+
+
+def _topk_nonfinite_rows(label: str, table, params, n: int,
+                         k: int) -> list[dict]:
+    """The top-k on ``table`` with each of TOPK_NONFINITE put in, at r
+    (pruned for odd r) and, for odd r, on its first r - 1 rows (even r,
+    unpruned) and on a flat table of its shape (the dense switch)."""
+    import torch
+    r = table.shape[0]
+    bases = [(f"{label}_r{r}", table, params)]
+    if r % 2:
+        bases += [(f"{label}_r{r - 1}", table[:r - 1].contiguous(),
+                   tuple(row[:r - 1] for row in params)),
+                  (f"{label}_flat", torch.full_like(table, 3.0), params)]
+    rows = []
+    for base, t0, p in bases:
+        for what in TOPK_NONFINITE:
+            t = _put_nonfinite(t0, p, n, what)
+            prune, _ = _topk_exact(f"{base}_{what}", t, p, n, k)
+            if prune is not None:      # NaN and inf as text: strict JSON
+                prune = {key: v if not isinstance(v, float)
+                         or math.isfinite(v) else str(v)
+                         for key, v in prune.items()}
+            rows.append(dict(case=f"{base}_{what}", r=t.shape[0], n=n, k=k,
+                             max_abs_err=0.0, prune=prune, nan_entries=int(
+                                 torch.isnan(t).sum())))
+            log(f"csvec_topk {rows[-1]}")
+            del t
+    return rows
+
+
+def _quant_exact(what: str, table, dhat_only: bool) -> float:
+    """csvec_quant against its plain version on the card: q exact, scale
+    and dhat bit for bit with NaN in the same places, resid within one
+    ulp of the row's amax where finite. Returns the largest resid gap."""
+    import torch
+    from repro_torch.kernels.csvec_quant import csvec_quant, csvec_quant_ref
+    want = csvec_quant_ref(table)
+    _poison(*want)
+    got = csvec_quant(table, dhat_only=dhat_only)
+    torch.cuda.synchronize()
+    for g, w, name in zip(got[1:3], want[1:3], ("scale", "dhat")):
+        if not _bits_equal(g, w):
+            raise AssertionError(f"csvec_quant {what}: {name} differs from "
+                                 f"the plain version")
+    if dhat_only:
+        if got[0] is not None or got[3] is not None:
+            raise AssertionError(f"csvec_quant {what}: dhat_only gave q or "
+                                 f"resid")
+        return 0.0
+    if not torch.equal(got[0], want[0]):
+        raise AssertionError(f"csvec_quant {what}: q differs from the plain "
+                             f"version")
+    nan = torch.isnan(want[3])
+    if not torch.equal(torch.isnan(got[3]), nan):
+        raise AssertionError(f"csvec_quant {what}: resid NaN elsewhere")
+    amax = table.abs().amax(1, keepdim=True)
+    ulp = torch.nextafter(amax, torch.full_like(amax, float("inf"))) - amax
+    fin = ~nan & torch.isfinite(ulp).expand_as(nan)
+    gap = (got[3] - want[3]).abs()
+    if bool((gap > ulp)[fin].any()):
+        raise AssertionError(f"csvec_quant {what}: resid off by more than "
+                             f"one ulp of the row amax")
+    return float(gap[fin].max()) if bool(fin.any()) else 0.0
+
+
+def _quant_nonfinite(table):
+    """A copy of ``table`` with QUANT_SPLIT_AMAX as row 0's last entry (its
+    amax), NaN in row 1 and as the last row's last entry, inf and -inf
+    elsewhere."""
+    r, c = table.shape
+    t = table.clone()
+    t[0, -1] = QUANT_SPLIT_AMAX
+    t[1 % r, c // 2] = float("nan")
+    t[1 % r, c // 2 + 1] = float("inf")
+    t[r - 1, c - 1] = float("nan")
+    t[r - 1, 0] = float("inf")
+    t[3 % r, c // 3] = float("-inf")
+    return t
+
+
 def phase_cs_kernels(dev) -> dict[str, list[dict]]:
     """csvec_insert, csvec_topk and csvec_quant at each CS_CASES geometry
     against their plain versions, then timed beside the library yardstick
@@ -529,15 +756,14 @@ def phase_cs_kernels(dev) -> dict[str, list[dict]]:
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.countsketch.csvec import (
-        CSVec, hash_buckets, hash_params, hash_signs, query,
+        CSVec, dequantize_table, hash_buckets, hash_params, hash_signs,
+        query, quantize_table,
     )
     from repro_torch.kernels.csvec_insert import (
         csvec_insert, csvec_insert_ref, insert_plan,
     )
     from repro_torch.kernels.csvec_quant import csvec_quant, csvec_quant_ref
-    from repro_torch.kernels.csvec_topk import (
-        csvec_topk, csvec_topk_ref, emulate_pruned, prune_plan, prune_stats,
-    )
+    from repro_torch.kernels.csvec_topk import csvec_topk, csvec_topk_ref
     from repro_torch.models.transformer import num_params
 
     def chunks(n):
@@ -620,24 +846,9 @@ def phase_cs_kernels(dev) -> dict[str, list[dict]]:
         for a, b in chunks(n):
             mag[a:b] = query(cs, torch.arange(a, b, device=dev)).abs()
         for k in ks:
-            got = csvec_topk(table, params, n, k)
-            want = csvec_topk_ref(table, params, n, k)
-            torch.cuda.synchronize()
-            for g, w, what in zip(got, want, ("values", "indices")):
-                if not torch.equal(g, w):
-                    raise AssertionError(f"csvec_topk {label} k={k}: {what} "
-                                         f"differ from the plain version")
-            prune = prune_stats()
+            prune, mirror = _topk_exact(f"{label} k={k}", table, params, n,
+                                        k)
             if prune is not None:
-                _, mirror = emulate_pruned(table, params, n, k,
-                                           prune_plan(r, c, n, k))
-                for key in ("tau0", "tau", "dense", "refine_survivors",
-                            "survivors"):
-                    if prune[key] != mirror[key]:
-                        raise AssertionError(
-                            f"csvec_topk {label} k={k}: {key} "
-                            f"{prune[key]} where the plain emulation has "
-                            f"{mirror[key]}")
                 prune.update(
                     tau0_rank=int((mag >= prune["tau0"]).sum()),
                     tau_rank=int((mag >= prune["tau"]).sum()),
@@ -662,31 +873,48 @@ def phase_cs_kernels(dev) -> dict[str, list[dict]]:
                            bytes_or_ops(4 * r * c + 12 * k, flops)))))
             log(f"csvec_topk {rows['csvec_topk'][-1]}")
         del mag, vec
+        # the same search on tables that hold a NaN or an inf
+        rows["csvec_topk"] += _topk_nonfinite_rows(label, table, params, n,
+                                                   ks[0])
 
-        # quantisation of the inserted table
-        got, want = csvec_quant(table), csvec_quant_ref(table)
-        torch.cuda.synchronize()
-        for g, w, what in zip(got[:3], want[:3], ("q", "scale", "dhat")):
-            if not torch.equal(g, w):
-                raise AssertionError(f"csvec_quant {label}: {what} differs "
-                                     f"from the plain version")
-        amax = table.abs().amax(1)
-        ulp = torch.nextafter(amax, torch.full_like(amax, float("inf"))) - amax
-        resid_err = (got[3] - want[3]).abs()
-        if bool((resid_err > ulp[:, None]).any()):
-            raise AssertionError(f"csvec_quant {label}: resid off by more "
-                                 f"than one ulp of the row amax")
-        ms, call_ms = time_ms(lambda: csvec_quant(table), it, 1)
-        plain_ms, plain_call_ms = time_ms(lambda: csvec_quant_ref(table),
-                                          plain_it * 10, 1)
-        rows["csvec_quant"].append(dict(
-            case, max_abs_err=float(resid_err.max()), ms=ms,
-            plain_ms=plain_ms, library_ms=None, call_ms=call_ms,
-            plain_call_ms=plain_call_ms,
-            **dict(zip(("bound_ms", "bound_by"),
-                       bytes_or_ops(13 * r * c + 4 * r, 6 * r * c)))))
-        log(f"csvec_quant {rows['csvec_quant'][-1]}")
-        del got, want, table, zeros
+        # quantisation of the inserted table, in both forms, beside
+        # fake_quantize_per_channel_affine with the scale precomputed (the
+        # dhat half of the function)
+        scale = csvec_quant_ref(table)[1]
+        zero_point = torch.zeros(r, dtype=torch.int32, device=dev)
+        lib_ms, lib_call_ms = time_ms(
+            lambda: torch.fake_quantize_per_channel_affine(
+                table, scale, zero_point, 0, -127, 127), it * 10, 1)
+        for dhat_only in (False, True):
+            err = _quant_exact(label, table, dhat_only)
+            ms, call_ms = time_ms(
+                lambda: csvec_quant(table, dhat_only=dhat_only), it * 10, 1)
+            # a table of a block a row: its device time from a graph (one
+            # launch, no handoff, so it can be captured)
+            graph = None if big else graph_ms(
+                lambda: csvec_quant(table, dhat_only=dhat_only))
+            plain_ms, plain_call_ms = time_ms(
+                (lambda: dequantize_table(*quantize_table(table)))
+                if dhat_only else (lambda: csvec_quant_ref(table)),
+                plain_it * 10, 1)
+            rows["csvec_quant"].append(dict(
+                case, case=label + ("_dhat_only" if dhat_only else ""),
+                dhat_only=dhat_only, max_abs_err=err, ms=ms, graph_ms=graph,
+                plain_ms=plain_ms, library_ms=lib_ms, call_ms=call_ms,
+                plain_call_ms=plain_call_ms, library_call_ms=lib_call_ms,
+                **dict(zip(("bound_ms", "bound_by"), bytes_or_ops(
+                    (8 if dhat_only else 13) * r * c + 4 * r, 6 * r * c)))))
+            log(f"csvec_quant {rows['csvec_quant'][-1]}")
+        # and with NaN, inf and -inf in its rows
+        bad = _quant_nonfinite(table)
+        for dhat_only in (False, True):
+            rows["csvec_quant"].append(dict(
+                case, case=label + "_nonfinite" + (
+                    "_dhat_only" if dhat_only else ""), dhat_only=dhat_only,
+                max_abs_err=_quant_exact(f"{label} nonfinite", bad,
+                                         dhat_only)))
+            log(f"csvec_quant {rows['csvec_quant'][-1]}")
+        del bad, scale, table, zeros
         torch.cuda.empty_cache()
     return rows
 
@@ -1557,6 +1785,48 @@ def _mass_check(dev, cfg, run, state, step, batch) -> dict:
                 insert_scale=scale)
 
 
+def _nan_guard_check(state, step, batch, want: dict) -> dict:
+    """The NaN guard at full width, as tests/test_torch_lm_train.py's
+    ``test_nan_guard_keeps_the_old_state_and_counts_a_skip`` holds it on
+    the CPU: one ``w_down`` entry set to NaN, then one step. The loss is
+    not finite, the skip is counted, the step advances, and the
+    parameters (the NaN included), u, v, every sketch node, AdamW's
+    count and the sketch's step stay as they were. The step launches
+    what a compressed step launches (``want``): the insert of a NaN
+    gradient, the quantiser and the top-k on a table of NaN."""
+    import torch
+    from repro_torch.optim.flat import FlatLayout
+    state.params["layers"][0]["mlp"]["w_down"][0, 0] = float("nan")
+    before = FlatLayout(state.params).ravel(state.params).clone()
+    u, v = state.opt["err"]["u"].clone(), state.opt["err"]["v"].clone()
+    nodes = {name: [t.clone() for t in (n.x, n.y, n.z)]
+             for name, n in state.sketch.nodes.items()}
+    count, skipped = int(state.opt["count"]), state.skipped
+    at, sketch_at = state.step, state.sketch.step
+    reset_counts()
+    new, m = step(state, batch)
+    launches = read_counts()
+    torch.cuda.synchronize()
+    check_counts("nan guard step", launches, want)
+    checks = dict(
+        loss_not_finite=not math.isfinite(float(m["loss"])),
+        skip_counted=new.skipped == m["skipped_total"] == skipped + 1,
+        step_advanced=new.step == at + 1,
+        params=_same(FlatLayout(new.params).ravel(new.params), before),
+        u=torch.equal(new.opt["err"]["u"], u),
+        v=torch.equal(new.opt["err"]["v"], v),
+        adamw_count=int(new.opt["count"]) == count,
+        sketch=all(torch.equal(a, b) for name, n in new.sketch.nodes.items()
+                   for a, b in zip((n.x, n.y, n.z), nodes[name])),
+        sketch_step=new.sketch.step == sketch_at)
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"nan guard step: {failed} do not hold")
+    out = dict(checks, loss=str(float(m["loss"])), launches=launches)
+    del new, before, u, v, nodes
+    return out
+
+
 def _profile_step(state, step, batch, top: int = 15):
     """One more train step under torch.profiler, recording the card's
     kernels only: the step's wall time (inflated by the profiler), the
@@ -1662,6 +1932,11 @@ def lm_run(dev, cfg, mode: str, proj_kind: str, steps: int,
         tokens, labels = host_batch(pipe, steps + 1, device=dev)
         out["mass_check"] = _mass_check(
             dev, cfg, run, state, step, {"tokens": tokens, "labels": labels})
+        tokens, labels = host_batch(pipe, steps + 2, device=dev)
+        out["nan_guard"] = _nan_guard_check(
+            state, step, {"tokens": tokens, "labels": labels},
+            {k: v // steps for k, v in want.items()})
+        log(f"{what}: nan guard {json.dumps(out['nan_guard'])}")
     log(f"{what}: " + json.dumps({k: v for k, v in out.items()
                                   if k not in ("step_ms_samples", "losses")}))
     del state, step
@@ -1892,7 +2167,37 @@ def phase_ring(dev) -> dict[str, list[dict]]:
                            sketch, "int8", 12, 20))
     rows.append(_ring_case(dev, "overlap_w2_cs_fp32", overlap["workers"],
                            cs.cs_rows * cs.cs_cols + 4, "fp32", 13, 20))
+    for W in (2, 4):
+        for N in (1000, RING_SIZES[-1]):
+            for kind in ("nan", "inf"):
+                rows.append(_ring_nonfinite_case(dev, W, N, kind))
     return {"ring_allreduce": rows}
+
+
+def _ring_nonfinite_case(dev, W: int, N: int, kind: str) -> dict:
+    """The int8 ring with a NaN or an inf in one worker's row (in the
+    first chunk and at the ragged end): y, every replica and every
+    residual row equal to the plain version's (on the CPU) with NaN in
+    the same places, with and without replicas."""
+    import torch
+    from repro_torch.kernels.ring_allreduce import (
+        ring_allreduce, ring_allreduce_plain,
+    )
+    xs = _ring_shards(dev, W, N, W * 11 + N)
+    xs[1, 17] = xs[W - 1, N - 1] = float(kind)
+    want_y, want_res = ring_allreduce_plain(xs.cpu(), "int8")
+    for replicas in (True, False):
+        y, res = ring_allreduce(xs, "int8", replicas=replicas)
+        torch.cuda.synchronize()
+        if not (all(_same(row.cpu(), want_y) for row in y.reshape(-1, N))
+                and _same(res.cpu(), want_res)):
+            raise AssertionError(f"ring W{W} N{N} int8 {kind}: differs from "
+                                 f"the plain version (replicas={replicas})")
+    row = dict(case=f"W{W}_N{N}_int8_{kind}", W=W, N=N, wire="int8",
+               max_abs_err=0.0, nan_y=int(torch.isnan(want_y).sum()),
+               nan_res=int(torch.isnan(want_res).sum()))
+    log(f"ring_allreduce {json.dumps(row)}")
+    return row
 
 
 def _dp_run_config(kind: str, steps: int, batch: int = LM_BATCH,

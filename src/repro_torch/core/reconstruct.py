@@ -48,7 +48,11 @@ def _pinv_apply(y_s: Tensor, rhs: Tensor, mode: str, ridge: float) -> Tensor:
     """Y^+ @ rhs: SVD pinv ("faithful"), or the ridge-regularised normal
     equations ("fast"), with the ridge RELATIVE to trace(Y^T Y)/k. The
     pinv cut-off is the reference's (``jnp.linalg.pinv``): singular
-    values at most 10 * max(d, k) * eps * sigma_max are dropped."""
+    values at most 10 * max(d, k) * eps * sigma_max are dropped. The
+    solve does not check its factorisation, as ``jnp.linalg.solve`` does
+    not: a sketch holding a NaN gives a NaN result, which the train
+    step's NaN guard then skips, where the card's ``torch.linalg.solve``
+    would raise (its LU reports the NaN matrix singular)."""
     if mode == "faithful":
         rtol = 10.0 * max(y_s.shape) * torch.finfo(y_s.dtype).eps
         return torch.linalg.pinv(y_s, rtol=rtol) @ rhs
@@ -56,7 +60,7 @@ def _pinv_apply(y_s: Tensor, rhs: Tensor, mode: str, ridge: float) -> Tensor:
     k = g.shape[0]
     lam = ridge * (torch.trace(g) / k + 1e-30)
     eye = torch.eye(k, dtype=g.dtype, device=g.device)
-    return torch.linalg.solve(g + lam * eye, y_s.T @ rhs)
+    return torch.linalg.solve_ex(g + lam * eye, y_s.T @ rhs).result
 
 
 def _factors(x_s, y_s, z_s, omega, k_active):

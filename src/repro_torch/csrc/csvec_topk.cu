@@ -15,6 +15,12 @@
 // with their signed estimates: exactly the reference's lax.top_k, ties
 // included.
 //
+// Non-finite tables give the plain version's result too. The network's
+// compare-exchanges propagate a NaN (min.NaN / max.NaN, as torch.minimum
+// and torch.maximum do; fminf and fmaxf would drop it), and the order puts
+// a NaN estimate above every number, +inf included, ties to the smaller
+// index, as a stable descending sort does (`better`).
+//
 // Bound on an H100 SXM. The function reads the table (4 r c bytes) and
 // writes 12 k bytes: at the LM train step's geometry (r = 5, c = 2^23,
 // D = 1,100,048,384, k = 256 or 512) 168 MB, 0.050 ms at 3.35 TB/s. Its
@@ -73,6 +79,14 @@
 // final sweep is the unpruned pass 1 (both are launched; each reads the
 // count on the card and the one not wanted returns at once), so a flat
 // table costs the unpruned search plus the seed and the masks.
+// The same switch is taken where the table holds a NaN anywhere (the
+// first masks count them) or tau0 or tau is not finite. A NaN estimate
+// ranks first but its row test never passes (|NaN| >= tau is false), and
+// a NaN or inf threshold says nothing of the coordinates below it. An inf
+// in the table with finite thresholds keeps the pruned path, exactly:
+// with no NaN every estimate is one of its r signed values (odd r), so
+// |est| >= tau still needs (r + 1) / 2 rows with |table| >= tau, and inf
+// is at or above every tau.
 // A tie at tau0 passes (>=), as ties go to the smaller index. For even r
 // the midpoint can round up to tau from two values below it, so even r
 // takes the unpruned passes. A flat table passes every coordinate and
@@ -93,8 +107,26 @@ struct Hash {
   uint32_t ab[MAX_ROWS], bb[MAX_ROWS], as[MAX_ROWS], bs[MAX_ROWS];
 };
 
+// (m1, i1) before (m2, i2) in select_topk's order of |estimate|: a NaN
+// first, then by magnitude, ties to the smaller index. The sentinels'
+// -inf lies below every entry, zero included.
 __device__ __forceinline__ bool better(float m1, int i1, float m2, int i2) {
+  const bool n1 = m1 != m1, n2 = m2 != m2;
+  if (n1 || n2) return n1 && (!n2 || i1 < i2);
   return m1 > m2 || (m1 == m2 && i1 < i2);
+}
+
+// torch.minimum / torch.maximum: a NaN in either operand gives a NaN
+__device__ __forceinline__ float min_nan(float a, float b) {
+  float d;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
+  return d;
+}
+
+__device__ __forceinline__ float max_nan(float a, float b) {
+  float d;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
+  return d;
 }
 
 // nb entries in shared memory: [0, kp) the best so far, sorted; from kp on,
@@ -199,8 +231,8 @@ __device__ __forceinline__ float estimate(const float* __restrict__ table,
 #pragma unroll
     for (int j = rnd & 1; j < R - 1; j += 2) {
       const float a = e[j], c = e[j + 1];
-      e[j] = fminf(a, c);
-      e[j + 1] = fmaxf(a, c);
+      e[j] = min_nan(a, c);
+      e[j + 1] = max_nan(a, c);
     }
   }
   if constexpr (R & 1) {
@@ -210,15 +242,24 @@ __device__ __forceinline__ float estimate(const float* __restrict__ table,
   }
 }
 
-// The pruned path's switch to the unpruned sweep: `bits` (the masks'
-// count of buckets at or above tau0, of `buckets`) null means no switch.
+// The pruned path's switch to the unpruned sweep, read on the card:
+// where the first masks found the table dense (counters[2], the buckets at
+// or above tau0, half of `buckets` or more) or a NaN in it (counters[4]),
+// or tau0 (tau[k - 1]) or, after the refining sweep, tau1 (tau[2 k - 1])
+// is not finite. `counters` null means no switch.
 struct Gate {
-  const unsigned long long* bits;
+  const unsigned long long* counters;
+  const float* tau;
   long long buckets;
+  int k;
+  int after_refine;
   int* n_lists;                    // the lists pass 2 reads, set by the
   unsigned long long* survivors;   // sweep that runs; its count
-  __device__ __forceinline__ bool dense() const {
-    return 2 * *bits >= (unsigned long long)buckets;
+  __device__ __forceinline__ bool unpruned() const {
+    if (2 * counters[2] >= (unsigned long long)buckets || counters[4] != 0)
+      return true;
+    return !isfinite(tau[k - 1]) ||
+           (after_refine && !isfinite(tau[2 * k - 1]));
   }
 };
 
@@ -235,15 +276,15 @@ __device__ void write_sentinels(int kp, float* out_mag, float* out_val,
 
 // Block lists of the best kp among coordinates i = p stride, p < dim.
 // With a gate (the pruned path's unpruned sweep) it runs only where the
-// table is dense, and otherwise writes sentinel lists.
+// gate switches to it, and otherwise writes sentinel lists.
 template <int R>
 __global__ void __launch_bounds__(THREADS)
     topk_pass1(const float* __restrict__ table, int cols, int shift, Hash h,
                long long dim, long long stride, long long per_block, int kp,
                int nb, Gate gate, float* __restrict__ out_mag,
                float* __restrict__ out_val, int* __restrict__ out_idx) {
-  if (gate.bits != nullptr) {
-    if (!gate.dense()) {
+  if (gate.counters != nullptr) {
+    if (!gate.unpruned()) {
       write_sentinels(kp, out_mag, out_val, out_idx);
       return;
     }
@@ -278,25 +319,30 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-// The masks of the pruned path at tau = max(|tau_a[at]|, |tau_b[at]|)
-// (tau_b may be null). Fine bit b of row j (word j nfw + b / 32):
+// The masks of the pruned path at tau = |tau_a[at]|, or max(|tau_a[at]|,
+// |tau_b[at]|) where tau_b is not null. Fine bit b of row j (word
+// j nfw + b / 32):
 // |table[j, b]| >= tau. Coarse bit g (word j ncw + g / 32): the OR of
 // fine bits [g group, (g + 1) group). One warp an item of 32 coarse bits
 // (32 group buckets): per step, each lane reads one bucket, a ballot
 // makes the fine word, and each lane ORs in the bits of its coarse
-// group. Where `bits` is not null the set fine bits are added to it.
+// group. Where `bits` is not null the set fine bits are added to it, and
+// the table's NaN entries to `nans`.
 __global__ void __launch_bounds__(THREADS)
     topk_masks(const float* __restrict__ table, int rows, int cols,
                int group, const float* __restrict__ tau_a,
                const float* __restrict__ tau_b, int at, int nfw, int ncw,
                uint32_t* __restrict__ fine, uint32_t* __restrict__ coarse,
-               unsigned long long* __restrict__ bits) {
-  const float tau =
-      fmaxf(fabsf(tau_a[at]), tau_b == nullptr ? 0.f : fabsf(tau_b[at]));
+               unsigned long long* __restrict__ bits,
+               unsigned long long* __restrict__ nans) {
+  // a NaN tau0 stays NaN (no bucket passes), as the plain emulation has it
+  const float tau = tau_b == nullptr ? fabsf(tau_a[at])
+                                     : fmaxf(fabsf(tau_a[at]),
+                                             fabsf(tau_b[at]));
   const int lane = threadIdx.x & 31;
   const long long items = (long long)rows * ncw;
   const long long warps = (long long)gridDim.x * (blockDim.x / 32);
-  unsigned long long set = 0;
+  unsigned long long set = 0, nan = 0;
   for (long long it = (long long)blockIdx.x * (blockDim.x / 32) +
                       threadIdx.x / 32;
        it < items; it += warps) {
@@ -311,6 +357,8 @@ __global__ void __launch_bounds__(THREADS)
       const uint32_t word = __ballot_sync(0xffffffffu, hit);
       if (lane == 0) fine[(size_t)j * nfw + (b0 >> 5) + s] = word;
       set += __popc(word);
+      nan += __popc(
+          __ballot_sync(0xffffffffu, b < cols && row[b] != row[b]));
       // this lane's coarse bits [lane group, (lane + 1) group) of the
       // item against the word's [32 s, 32 s + 32)
       const int lo = max(lane * group, 32 * s);
@@ -325,6 +373,7 @@ __global__ void __launch_bounds__(THREADS)
     if (lane == 0) coarse[(size_t)j * ncw + w] = cw;
   }
   if (bits != nullptr && lane == 0 && set) atomicAdd(bits, set);
+  if (nans != nullptr && lane == 0 && nan) atomicAdd(nans, nan);
 }
 
 // Pass 1 over coordinates [0, dim) that pass the row test: at least
@@ -338,13 +387,17 @@ __global__ void __launch_bounds__(THREADS)
 // costs one barrier.
 // In a tile with survivors each thread gathers the estimates of its own
 // at once, then pushes those that beat the threshold a coordinate at a
-// time, each round that has a candidate behind one barrier and, where
-// the buffer might overflow, a fold. Where the gate finds the table
-// dense the sweep does not run: it writes sentinel lists if
+// time, each round that has a candidate behind two barriers (the second
+// keeps every thread's read of the count before the round's pushes: a
+// thread that read it after another's push could take the fold's
+// barriers alone) and, where the buffer might overflow, a fold. One
+// block an SM (its shared memory), so the launch bounds let a thread
+// hold 64 registers. Where the gate switches to the
+// unpruned sweep this one does not run: it writes sentinel lists if
 // `sentinels_if_dense` (the refining sweep), else nothing (the final
 // one, whose lists the gated pass 1 writes).
 template <int R>
-__global__ void __launch_bounds__(PRUNE_THREADS)
+__global__ void __launch_bounds__(PRUNE_THREADS, 1)
     topk_pruned(const float* __restrict__ table, int cols, int shift, Hash h,
                 long long dim, long long per_block, int kp, int nb,
                 int gshift, int nfw, int ncw,
@@ -355,7 +408,7 @@ __global__ void __launch_bounds__(PRUNE_THREADS)
                 float* __restrict__ out_val, int* __restrict__ out_idx) {
   constexpr int NEED = (R + 1) / 2;
   constexpr int PER = 4;
-  if (gate.dense()) {
+  if (gate.unpruned()) {
     if (sentinels_if_dense) write_sentinels(kp, out_mag, out_val, out_idx);
     return;
   }
@@ -442,8 +495,11 @@ __global__ void __launch_bounds__(PRUNE_THREADS)
 #pragma unroll
     for (int u = 0; u < PER; ++u) {
       if (!__syncthreads_or((cand >> u) & 1)) continue;
-      if (count > nb - kp - (int)blockDim.x)
-        fold(b, &count, &thr_mag, &thr_idx);
+      // every thread reads the count before any thread's push, so that
+      // all take the fold (and its barriers) or none does
+      const bool full = count > nb - kp - (int)blockDim.x;
+      __syncthreads();
+      if (full) fold(b, &count, &thr_mag, &thr_idx);
       if ((cand >> u) & 1) push(b, &count, fabsf(est[u]), (int)i[u], est[u]);
     }
   }
@@ -537,11 +593,12 @@ extern "C" {
 // (blocks of per_block), the pruned pass over [0, dim) (pruned_blocks
 // blocks of pruned_per_block coordinates) and pass 2 over the lists of
 // the one that ran. The pruned passes' buffers hold pruned_nb >= kp + 2 *
-// 1024 entries. counters (4 int64, zeroed by the caller): the
+// 1024 entries. counters (5 int64, zeroed by the caller): the
 // coordinates that pass the refining and the final row tests (dim where
-// the unpruned sweep runs), the first masks' set bits, and (the low word)
-// the lists pass 2 reads. The scratch then holds max(sample_blocks,
-// refine_blocks, blocks, pruned_blocks) * kp entries. Returns
+// the unpruned sweep runs), the first masks' set bits, (the low word)
+// the lists pass 2 reads, and the table's NaN entries. The scratch then
+// holds max(sample_blocks, refine_blocks, blocks, pruned_blocks) * kp
+// entries. Returns
 // cudaGetLastError() as an int (0 on success).
 int csvec_topk_launch(const float* table, int rows, int cols, int shift,
                       const uint32_t* coeffs, long long dim, int k, int kp,
@@ -571,14 +628,14 @@ int csvec_topk_launch(const float* table, int rows, int cols, int shift,
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const size_t smem = (size_t)nb * (2 * sizeof(float) + sizeof(int));
-  const Gate none{nullptr, 0, nullptr, nullptr};
+  const Gate none{nullptr, nullptr, 0, 0, 0, nullptr, nullptr};
   cudaError_t err;
   if (sample > 0) {
     int* n_lists = reinterpret_cast<int*>(counters + 3);
-    const Gate refine_gate{counters + 2, (long long)rows * cols, nullptr,
-                           nullptr};
-    const Gate final_gate{counters + 2, (long long)rows * cols, n_lists,
-                          counters + 1};
+    const Gate refine_gate{counters, tau_val, (long long)rows * cols, k, 0,
+                           nullptr, nullptr};
+    const Gate final_gate{counters, tau_val, (long long)rows * cols, k,
+                          refine > 0, n_lists, counters + 1};
     switch (rows) {
 #define SEED(R)                                                           \
   case R:                                                                 \
@@ -598,7 +655,7 @@ int csvec_topk_launch(const float* table, int rows, int cols, int shift,
     const int mask_blocks = (rows * ncw + 7) / 8;
     topk_masks<<<mask_blocks, THREADS, 0, s>>>(
         table, rows, cols, group, tau_val, nullptr, k - 1, nfw, ncw, fine,
-        coarse, counters + 2);
+        coarse, counters + 2, counters + 4);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     // the pruned pass over [0, n) into the scratch lists
@@ -628,7 +685,7 @@ int csvec_topk_launch(const float* table, int rows, int cols, int shift,
                                           nb, k, tau_val + k, tau_idx + k);
       topk_masks<<<mask_blocks, THREADS, 0, s>>>(
           table, rows, cols, group, tau_val, tau_val + k, k - 1, nfw, ncw,
-          fine, coarse, nullptr);
+          fine, coarse, nullptr, nullptr);
       err = cudaGetLastError();
       if (err != cudaSuccess) return (int)err;
     }

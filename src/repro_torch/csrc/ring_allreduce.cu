@@ -34,6 +34,14 @@
 // in place) and the W x W amax words are kept. Launches: a memset of the
 // amax words, the amax of level 0, then one launch a level.
 //
+// NaN and inf follow the plain version bit for bit: every amax fold is a
+// max over the bits of |s| (so a NaN in a chunk makes its amax and scale
+// NaN, as torch's amax does), and the clamp keeps a NaN code NaN (as
+// torch.clamp does) for y and the residual. A NaN code is kept as the int8
+// code 0 between levels; its scale is then NaN or inf (a code is NaN only
+// where s / safe is, so s is NaN or inf and so is the chunk's amax), and
+// the next fold's 0 * sc is NaN as NaN * sc is.
+//
 // Bound on an H100 SXM (3.35 TB/s). The call reads the W shards once and
 // writes y once (4 W N + 4 N bytes on the fp32 wire as the DP step calls
 // it; 4 W N more for the W replica rows), and on the int8 wire also the W
@@ -115,27 +123,32 @@ struct Int8Geo {
   int w, s, rows;
 };
 
-__device__ __forceinline__ float nanmax(float m, float a) {
-  return a <= m ? m : a;  // a NaN replaces m
+// |a| folded into m as unsigned bits: a NaN's bits lie above inf's, so a
+// NaN stays wherever it is folded in
+__device__ __forceinline__ unsigned fold_amax(unsigned m, float a) {
+  return max(m, __float_as_uint(fabsf(a)));
+}
+
+// torch.clamp(v, -127, 127): a NaN stays NaN (fminf / fmaxf would drop it)
+__device__ __forceinline__ float clamp_code(float v) {
+  return v != v ? v : fminf(fmaxf(v, -127.f), 127.f);
 }
 
 __device__ __forceinline__ float scale_of(const Int8Geo& g, int d, int c) {
   return __fmul_rn(__uint_as_float(g.amax[d * g.w + c]), 1.0f / 127.0f);
 }
 
-// max over the block of each thread's m, folded into *dst
-__device__ __forceinline__ void block_amax(float m, unsigned* dst) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    m = nanmax(m, __shfl_down_sync(0xffffffffu, m, off));
-  __shared__ float warp_max[THREADS / 32];
+// max over the block of each thread's m (|s| bits), folded into *dst
+__device__ __forceinline__ void block_amax(unsigned m, unsigned* dst) {
+  m = __reduce_max_sync(0xffffffffu, m);
+  __shared__ unsigned warp_max[THREADS / 32];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   if (lane == 0) warp_max[warp] = m;
   __syncthreads();
   if (threadIdx.x == 0) {
-    float b = 0.f;
-    for (int k = 0; k < THREADS / 32; ++k) b = nanmax(b, warp_max[k]);
-    atomicMax(dst, __float_as_uint(b));
+    unsigned b = 0u;
+    for (int k = 0; k < THREADS / 32; ++k) b = max(b, warp_max[k]);
+    atomicMax(dst, b);
   }
 }
 
@@ -143,12 +156,12 @@ __device__ __forceinline__ void block_amax(float m, unsigned* dst) {
 __global__ void __launch_bounds__(THREADS) ring_amax0_int8(Int8Geo g) {
   const int c = blockIdx.y;
   const int i = (blockIdx.x * THREADS + threadIdx.x) * VEC;
-  float m = 0.f;
+  unsigned m = 0u;
   if (i < g.s) {
     float s[VEC];
     load_row(g.x, g.n, (long long)c * g.s + i, s);
 #pragma unroll
-    for (int k = 0; k < VEC; ++k) m = nanmax(m, fabsf(s[k]));
+    for (int k = 0; k < VEC; ++k) m = fold_amax(m, s[k]);
   }
   block_amax(m, g.amax + c);
 }
@@ -159,7 +172,7 @@ __global__ void __launch_bounds__(THREADS) ring_level_int8(Int8Geo g, int d) {
   const int c = blockIdx.y;
   const int i = (blockIdx.x * THREADS + threadIdx.x) * VEC;
   const bool last = d == g.w - 1;
-  float m = 0.f;
+  unsigned m = 0u;
   if (i < g.s) {
     const long long idx = (long long)c * g.s + i;
     float s[VEC];
@@ -177,7 +190,7 @@ __global__ void __launch_bounds__(THREADS) ring_level_int8(Int8Geo g, int d) {
     float q[VEC], rs[VEC];
 #pragma unroll
     for (int k = 0; k < VEC; ++k) {
-      q[k] = fminf(fmaxf(rintf(__fdiv_rn(s[k], safe)), -127.f), 127.f);
+      q[k] = clamp_code(rintf(__fdiv_rn(s[k], safe)));
       rs[k] = __fmaf_rn(-q[k], sc, s[k]);
     }
     store_row(g.res + (long long)d * g.n, g.n, idx, rs);
@@ -187,13 +200,15 @@ __global__ void __launch_bounds__(THREADS) ring_level_int8(Int8Geo g, int d) {
       for (int k = 0; k < VEC; ++k) v[k] = __fmul_rn(q[k], sc);
       store_y(g.y, g.n, g.rows, idx, v);
     } else {
-      *reinterpret_cast<char4*>(g.q + idx) =
-          make_char4((int8_t)q[0], (int8_t)q[1], (int8_t)q[2], (int8_t)q[3]);
+      // a NaN code converts to 0 (cvt's rule)
+      *reinterpret_cast<char4*>(g.q + idx) = make_char4(
+          __float2int_rz(q[0]), __float2int_rz(q[1]), __float2int_rz(q[2]),
+          __float2int_rz(q[3]));
       float x1[VEC];
       load_row(g.x + (long long)(d + 1) * g.n, g.n, idx, x1);
 #pragma unroll
       for (int k = 0; k < VEC; ++k)
-        m = nanmax(m, fabsf(__fmaf_rn(q[k], sc, x1[k])));
+        m = fold_amax(m, __fmaf_rn(q[k], sc, x1[k]));
     }
   }
   if (!last) block_amax(m, g.amax + (d + 1) * g.w + c);  // uniform

@@ -26,11 +26,14 @@ one in shared memory, a fine one in L2) test the rows before any gather.
 A pruned sweep of the first dim / 16 coordinates then gives a tighter
 threshold, max(tau0, their k-th best), for the sweep of all. Where half
 the buckets or more hold |table| >= tau0 (a flat table), the search
-skips both pruned sweeps for the unpruned one, decided on the card.
-``emulate_pruned`` is that search in plain PyTorch, step by step.
+skips both pruned sweeps for the unpruned one, decided on the card; so
+it does where the table holds a NaN or the thresholds are not finite
+(``nonfinite``). ``emulate_pruned`` is that search in plain PyTorch,
+step by step.
 
 Given the same table, the kernel's indices and values equal the plain
-version's exactly, ties included. ``csvec_topk`` takes the plain version
+version's exactly, ties included, NaN and inf too: a NaN estimate ranks
+first, as the plain version's stable descending sort puts it. ``csvec_topk`` takes the plain version
 for CPU tensors and only for them; for CUDA tensors it launches the
 kernels or raises. ``csvec_topk.launches`` counts the calls that
 launched on the card; each enqueues two kernels, or on the pruned path
@@ -42,6 +45,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import math
 
 import torch
 
@@ -188,52 +192,61 @@ def emulate_pruned(table: Tensor, params, dim: int, k: int,
                    plan: PrunePlan, chunk: int = PLAIN_CHUNK):
     """The pruned search in plain PyTorch, as the kernels take it: tau0 =
     |the k-th best estimate| of the sample (ties to the smaller index);
-    where the table is ``dense`` at tau0, the unpruned search; else,
-    where the plan refines, the pruned sweep of [0, refine) at tau0 and
-    tau = max(tau0, |its k-th best|) (tau0 where fewer than k pass);
-    then the fine masks |table| >= tau and the coarse ones (their OR
-    over 2^gshift buckets), the row test of every coordinate, and the
-    exact top k of those that pass. Returns ((vals, idx), stats) with
-    stats tau0, tau, dense, refine_survivors, survivors (coordinates
-    that passed the last row test; dim when dense) and the coarse bits
-    it tested and fine bits it looked up."""
+    where the table is ``dense`` at tau0, holds a NaN or tau0 is not
+    finite, the unpruned search; else, where the plan refines, the
+    pruned sweep of [0, refine) at tau0 and tau = max(tau0, |its k-th
+    best|) (tau0 where fewer than k pass), and the unpruned search where
+    tau is not finite; then the fine masks |table| >= tau and the coarse
+    ones (their OR over 2^gshift buckets), the row test of every
+    coordinate, and the exact top k of those that pass. Returns ((vals,
+    idx), stats) with stats tau0, tau, dense, nonfinite (the switch for
+    a NaN or a threshold that is not finite), refine_survivors,
+    survivors (coordinates that passed the last row test; dim where the
+    unpruned search ran) and the coarse bits it tested and fine bits it
+    looked up."""
     k = min(k, dim)
     cs = CSVec(table=table, params=params, dim=dim)
     seed = torch.arange(plan.sample, device=table.device) * plan.stride
     est = query(cs, seed)
     tau0 = tau = float(est[select_topk(est.abs(), k)[-1]].abs())
-    if dense(table.abs() >= tau0):
-        return topk_streaming(cs, k, chunk), dict(
-            tau0=tau0, tau=tau0, dense=True, refine_survivors=0,
-            survivors=dim, coarse_tests=0, fine_tests=0)
-    refine_survivors = 0
+    stats = dict(tau0=tau0, tau=tau0, dense=dense(table.abs() >= tau0),
+                 nonfinite=bool(torch.isnan(table).any())
+                 or not math.isfinite(tau0),
+                 refine_survivors=0, survivors=dim, coarse_tests=0,
+                 fine_tests=0)
+    if stats["dense"] or stats["nonfinite"]:
+        return topk_streaming(cs, k, chunk), stats
     if plan.refine:
-        (rv, _), refine_survivors, _ = _pruned_sweep(
+        (rv, _), stats["refine_survivors"], _ = _pruned_sweep(
             cs, k, tau0, plan.gshift, plan.refine, chunk)
         if rv.shape[0] == k:
             tau = max(tau0, float(rv[-1].abs()))
-    best, survivors, (coarse_tests, fine_tests) = _pruned_sweep(
-        cs, k, tau, plan.gshift, dim, chunk)
-    return best, dict(tau0=tau0, tau=tau, dense=False,
-                      refine_survivors=refine_survivors, survivors=survivors,
-                      coarse_tests=coarse_tests, fine_tests=fine_tests)
+    stats.update(tau=tau, nonfinite=not math.isfinite(tau))
+    if stats["nonfinite"]:
+        return topk_streaming(cs, k, chunk), stats
+    best, stats["survivors"], (stats["coarse_tests"], stats["fine_tests"]) \
+        = _pruned_sweep(cs, k, tau, plan.gshift, dim, chunk)
+    return best, stats
 
 
 def prune_stats() -> dict | None:
     """The last CUDA call's pruned-path numbers, read from the card (a
     synchronisation): the thresholds tau0 and tau, whether the table was
-    dense, the coordinates that passed the refining sweep's row test and
-    the last one's (survivors, dim when dense, and their share of dim),
-    and the plan; None if that call took the unpruned sweep or no call
-    was made."""
+    dense, whether it held a NaN or a threshold was not finite
+    (``nonfinite``), the coordinates that passed the refining sweep's
+    row test and the last one's (survivors, dim where the unpruned sweep
+    ran, and their share of dim), and the plan; None if that call took
+    the unpruned sweep or no call was made."""
     last = csvec_topk.last
     if last is None:
         return None
     plan, tau_val, counters, k, dim, buckets = last
     # tau_val[2 k - 1] stays 0 where the refining sweep gave no k-th
     tau0, tau1 = (abs(float(x)) for x in tau_val[[k - 1, 2 * k - 1]])
-    refined, n, bits, _ = counters.tolist()
+    refined, n, bits, _, nans = counters.tolist()
     return dict(tau0=tau0, tau=max(tau0, tau1), dense=2 * bits >= buckets,
+                nonfinite=nans > 0 or not (math.isfinite(tau0)
+                                           and math.isfinite(tau1)),
                 refine_survivors=refined, survivors=n, pass_rate=n / dim,
                 sample=plan.sample, stride=plan.stride, refine=plan.refine,
                 group=1 << plan.gshift)
@@ -301,8 +314,8 @@ def csvec_topk(table: Tensor, params, dim: int,
         tau_val = torch.zeros((2 * k,), dtype=torch.float32, device=dev)
         tau_idx = torch.empty((2 * k,), dtype=torch.int64, device=dev)
         # the two sweeps' survivors, the masks' set bits, the lists that
-        # the last pass 2 reads
-        counters = torch.zeros((4,), dtype=torch.int64, device=dev)
+        # the last pass 2 reads, the table's NaN entries
+        counters = torch.zeros((5,), dtype=torch.int64, device=dev)
 
     def ptr(t):
         return None if t is None else t.data_ptr()

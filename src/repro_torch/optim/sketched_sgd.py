@@ -115,7 +115,7 @@ def countsketch_local(grads, err_state, cfg, layout: FlatLayout | None = None,
     cs = dataclasses.replace(cs, table=csvec_insert(cs.table, cs.params,
                                                     v_pre))
     if cfg.wire_dtype == "int8":
-        _, _, dhat, _ = csvec_quant(cs.table)
+        _, _, dhat, _ = csvec_quant(cs.table, dhat_only=True)
         cs = dataclasses.replace(cs, table=dhat)
     return CountsketchLocal(cs=cs, v_pre=v_pre, u=u, unravel=layout.unravel,
                             cfg=cfg, dim=layout.dim)

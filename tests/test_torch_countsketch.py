@@ -227,6 +227,95 @@ def test_quant_matches_oracle_and_pallas(c):
     assert np.all(np.abs(resid.numpy() - kr)[same] <= ulp[same])
 
 
+@pytest.mark.parametrize("kind", ["nan", "inf", "nan_and_inf"])
+def test_quant_of_a_nonfinite_table_matches_oracle_and_pallas(kind):
+    """A NaN in a row makes its amax, scale and dhat NaN and its codes
+    clamp(round(t)) with NaN codes 0; an inf makes the row's scale inf,
+    its codes 0 and its dhat NaN. The plain version, the reference's
+    oracle and its Pallas kernel in interpret mode agree: q exactly,
+    scale and dhat equal with NaN in the same places (the kernel on the
+    rows where its scale agrees with the oracle's, as above), resid
+    within one ulp of the row's amax where finite. ``dhat_only`` gives
+    the same scale and dhat."""
+    rng = np.random.default_rng(11)
+    table = rng.standard_normal((5, 256)).astype(np.float32)
+    if kind in ("nan", "nan_and_inf"):
+        table[2, 17] = np.nan
+        table[4, 255] = np.nan                      # the row's last entry
+    if kind in ("inf", "nan_and_inf"):
+        table[3, 0] = np.inf
+        table[1, 100] = -np.inf
+        table[2, 18] = np.inf                       # beside the NaN
+    t = torch.from_numpy(table)
+    q, scale, dhat, resid = KQ.csvec_quant(t)
+    none_q, scale1, dhat1, none_r = KQ.csvec_quant(t, dhat_only=True)
+    assert none_q is None and none_r is None
+    assert _same(scale1, scale)
+    assert _same(dhat1, dhat)
+    bad = ~np.isfinite(table).all(1)
+    assert np.isnan(dhat.numpy()[bad]).all() and not np.isnan(
+        dhat.numpy()[~bad]).any()
+    wq, ws, wd, wr = (np.asarray(w)
+                      for w in jax_quant_ref(jnp.asarray(table)))
+    np.testing.assert_array_equal(q.numpy(), wq)
+    np.testing.assert_array_equal(scale.numpy(), ws)   # NaN where NaN
+    np.testing.assert_array_equal(dhat.numpy(), wd)
+    fin = np.isfinite(wr)
+    np.testing.assert_array_equal(np.isfinite(resid.numpy()), fin)
+    ulp = np.broadcast_to(np.spacing(np.abs(table).max(1, keepdims=True)),
+                          table.shape)
+    assert np.all(np.abs(resid.numpy() - wr)[fin] <= ulp[fin])
+    kq, ks, kd, _ = (np.asarray(w) for w in jax_quant(jnp.asarray(table),
+                                                      interpret=True))
+    same = (ks == ws) | (np.isnan(ks) & np.isnan(ws))
+    assert same[bad].all()
+    np.testing.assert_array_equal(q.numpy()[same], kq[same])
+    np.testing.assert_array_equal(dhat.numpy()[same], kd[same])
+
+
+@pytest.mark.parametrize("r,c,vec,blocks", [
+    (5, 2**23, 4, 132),          # the LM train step: a row over the card
+    (5, 128, 4, 132), (4, 128, 4, 132),    # CS_CASES: a block a row
+    (5, 1001, 1, 132), (2, 2**22, 4, 132), (2, 2**22 - 1, 1, 132),
+    (1, 2**24, 4, 132),          # past the registers and shared memory
+    (8, 2**20, 4, 132), (3, 100_003, 1, 264), (1, 1, 1, 132),
+    (5, 2**23, 4, 1)])
+def test_quant_plan_covers_every_element_once_with_its_handoff(r, c, vec,
+                                                               blocks):
+    """Block b takes rows b // bpr, then every conc-th after it, and
+    elements [p part, (p + 1) part) of each (p = b % bpr): every element
+    of the table once, each block some. The bpr blocks of a row take the
+    same rows in the same order, so every row's handoff counts bpr
+    arrivals before any of them goes on, and they co-reside where a row
+    has several. A part stays on the chip (a tile in registers, the
+    rest in shared memory) unless the row needs more blocks than the
+    card has."""
+    plan = KQ.launch_plan(r, c, vec, blocks)
+    assert plan.part % vec == 0 and plan.smem % vec == 0
+    assert 0 <= plan.smem <= KQ.SMEM_ELEMS and 1 <= plan.conc <= r
+    assert plan.bpr * plan.part >= c > (plan.bpr - 1) * plan.part
+    if plan.bpr > 1:
+        assert plan.grid <= blocks
+    rows_of = {b: list(range(b // plan.bpr, r, plan.conc))
+               for b in range(plan.grid)}
+    for j in range(r):
+        takers = [b for b, rows in rows_of.items() if j in rows]
+        assert len(takers) == plan.bpr            # the row's arrivals
+        assert len({tuple(rows_of[b]) for b in takers}) == 1
+        spans = sorted((b % plan.bpr * plan.part,
+                        min(c, (b % plan.bpr + 1) * plan.part))
+                       for b in takers)
+        assert spans[0][0] == 0 and spans[-1][1] == c
+        assert all(a[1] == b[0] and a[0] < a[1]
+                   for a, b in zip(spans, spans[1:]))
+    on_chip = plan.tile + plan.smem >= plan.part
+    assert on_chip or -(-c // (plan.tile + KQ.SMEM_ELEMS)) >= blocks
+    if (r, c) == (5, 2**23) and blocks == 132:
+        assert (plan.conc, plan.bpr, plan.part) == (1, 132, 63_552)
+    if c == 128:
+        assert (plan.conc, plan.bpr, plan.smem) == (r, 1, 0)
+
+
 def test_quantize_rows_matches_reference():
     x = np.random.default_rng(0).standard_normal((3, 4, 9)).astype(
         np.float32)
@@ -357,10 +446,44 @@ def test_insert_decomposition_matches_oracle(r, c, n, plan):
                                atol=1e-6 * float(want.abs().max()))
 
 
+def _same(got, want) -> bool:
+    """Equal values with NaN in the same places (``torch.equal`` holds a
+    NaN unequal to itself)."""
+    nan = torch.isnan(want)
+    return torch.equal(torch.isnan(got), nan) and torch.equal(got[~nan],
+                                                              want[~nan])
+
+
+def _nonfinite_table(table, tp, n, plan, kind):
+    """``table`` with a NaN in a bucket of the seed sample's (hash row 2),
+    a NaN only in a bucket that no sample coordinate reaches and some
+    other coordinate does, a whole NaN row as the int8 quantiser makes
+    it from one NaN entry, or an inf in a sample bucket."""
+    t = torch.from_numpy(table).clone()
+    sample = torch.arange(plan.sample) * plan.stride
+    bk = T.hash_buckets(tp, t.shape[1], sample)
+    if kind == "nan_in_sample":
+        t[2, bk[2, 0]] = float("nan")
+    elif kind == "nan_outside":
+        reached = T.hash_buckets(tp, t.shape[1], torch.arange(n))
+        j, b = next((j, b) for j in range(t.shape[0])
+                    for b in reached[j].unique().tolist()
+                    if not bool((bk[j] == b).any()))
+        t[j, b] = float("nan")
+    elif kind == "nan_row":
+        t[2, 17] = float("nan")
+        t = T.dequantize_table(*T.quantize_table(t))
+        assert bool(torch.isnan(t[2]).all())
+    else:
+        t[2, bk[2, 0]] = float("inf")
+    return t
+
+
 @pytest.mark.parametrize("r,kind,gshift", [
     (3, "normal", 0), (3, "ties", 0), (5, "normal", 0), (5, "ties", 0),
     (5, "normal", 3), (5, "ties", 3), (5, "flat", 3), (4, "normal", 0),
-    (4, "ties", 0)])
+    (4, "ties", 0), (5, "nan_in_sample", 0), (5, "nan_outside", 3),
+    (5, "nan_row", 0), (5, "inf", 3)])
 def test_pruned_search_matches_the_streaming_top_k(r, kind, gshift):
     """The pruned search as the kernels take it (``emulate_pruned``: the
     sample's k-th best as tau0, fine and coarse masks, a refining sweep,
@@ -368,14 +491,19 @@ def test_pruned_search_matches_the_streaming_top_k(r, kind, gshift):
     equals ``topk_streaming`` on heavy-tailed and on integer tables whose
     k-th magnitude ties; gshift 3 puts 8 buckets under a coarse bit, as
     the train geometry puts 32. A flat table takes the unpruned sweep,
-    and so does even r."""
+    and so does even r. So does a table that holds a NaN, in a sample
+    bucket or only outside them or a whole row of them, where the result
+    is the NaN estimates first, as ``topk_streaming`` and the reference's
+    oracle rank them; an inf keeps the pruned path and stays exact."""
     n, k, c = 20_000, 64, 2**10
-    table, _, tp = _table(r, c, n, seed=30 + r, ties=kind == "ties")
+    table, p, tp = _table(r, c, n, seed=30 + r, ties=kind == "ties")
     if kind == "flat":
         table = np.full_like(table, 3.0)
-    t = torch.from_numpy(table)
-    want = T.topk_streaming(T.CSVec(table=t, params=tp, dim=n), k)
     plan = KT.prune_plan(r, c, n, k)
+    t = torch.from_numpy(table)
+    if kind.startswith(("nan", "inf")):
+        t = _nonfinite_table(table, tp, n, plan, kind)
+    want = T.topk_streaming(T.CSVec(table=t, params=tp, dim=n), k)
     if r % 2 == 0:
         assert plan is None
         return
@@ -384,10 +512,18 @@ def test_pruned_search_matches_the_streaming_top_k(r, kind, gshift):
     # a refining sweep wider than the sample, as at the train geometry
     plan = dataclasses.replace(plan, refine=n // 2, gshift=gshift)
     (vals, idx), st = KT.emulate_pruned(t, tp, n, k, plan, chunk=4096)
-    assert torch.equal(vals, want[0]) and torch.equal(idx, want[1])
+    assert _same(vals, want[0]) and torch.equal(idx, want[1])
     if kind == "flat":
         assert st["dense"] and st["survivors"] == n
         return
+    if kind.startswith("nan"):
+        assert st["nonfinite"] and st["survivors"] == n
+        assert bool(torch.isnan(vals).any())         # a NaN ranks first
+        wv, wi = jax_topk_ref(jnp.asarray(t.numpy()), jnp.asarray(p), n, k)
+        np.testing.assert_array_equal(idx.numpy(), np.asarray(wi))
+        assert _same(vals, torch.from_numpy(np.array(wv)))
+        return
+    assert not st["nonfinite"]
     est = T.query_all(T.CSVec(table=t, params=tp, dim=n)).abs()
     kth = float(want[0][-1].abs())
     assert 0 < st["tau0"] <= st["tau"] <= kth      # drops no member

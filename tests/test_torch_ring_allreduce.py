@@ -44,6 +44,26 @@ def test_plain_version_is_the_jitted_oracle_bitwise(W, wire):
             assert np.array_equal(y.numpy(), fold) and not res.any()
 
 
+@pytest.mark.parametrize("wire", ["fp32", "int8"])
+@pytest.mark.parametrize("kind", ["nan", "inf"])
+def test_plain_version_is_the_jitted_oracle_on_a_nonfinite_shard(kind, wire):
+    """A NaN or an inf in one worker's row: y and the residual rows equal
+    the jitted oracle's with NaN in the same places (on the int8 wire
+    the chunk's amax and scale turn NaN or inf, so its whole chunk does
+    from that fold point on)."""
+    ref = jax.jit(lambda a: ring_allreduce_ref(a, wire_dtype=wire))
+    for W in (2, 4):
+        xs = _shards(W * 7 + 1000, W, 1000)
+        xs[1, 17] = np.nan if kind == "nan" else np.inf
+        yr, rr = (np.asarray(a) for a in ref(jnp.asarray(xs)))
+        y, res = RA.ring_allreduce(torch.from_numpy(xs), wire)
+        np.testing.assert_array_equal(y.numpy(), yr)   # NaN where NaN
+        np.testing.assert_array_equal(res.numpy(), rr)
+        assert not np.isfinite(y.numpy()[17])
+        if wire == "int8":
+            assert np.isnan(res.numpy()[1:, 17]).all()
+
+
 @pytest.mark.parametrize("seed", range(4))
 def test_int8_ledger_conserves_mass(seed):
     for W in (2, 4, 8):

@@ -14,7 +14,8 @@ is installed:
 Tolerance: none. The kernel's arithmetic is the plain version's step for
 step (IEEE adds, divisions and FMAs as intrinsics, the chunk's amax exact),
 so y, every replica and every residual row must equal the plain
-version's bit for bit, computed on the CPU from the same inputs.
+version's bit for bit, computed on the CPU from the same inputs; with a
+NaN or an inf in one worker's row, with NaN in the same places.
 """
 import numpy as np
 import pytest
@@ -106,3 +107,33 @@ def test_cuda_int8_zero_chunks_and_a_zero_worker():
         for row in (y.reshape(-1, N) if replicas else y[None]):
             assert torch.equal(row.cpu(), want_y), replicas
         assert torch.equal(res.cpu(), want_res), replicas
+
+
+def _equal(got, want):
+    """``torch.equal`` (as the other cases), with NaN in the same
+    places."""
+    nan = torch.isnan(want)
+    return torch.equal(torch.isnan(got), nan) and torch.equal(got[~nan],
+                                                              want[~nan])
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("wire", RA.WIRE_DTYPES)
+@pytest.mark.parametrize("kind", ["nan", "inf"])
+@pytest.mark.parametrize("W", [2, 4])
+def test_cuda_kernel_on_a_nonfinite_shard(W, kind, wire):
+    # one worker's row holds a NaN or an inf (in chunk 0 and in the
+    # ragged last chunk): on the int8 wire the chunk's amax and scale
+    # turn NaN or inf from that fold point on
+    N = 1000
+    xs = _shards(W * 11 + N, W, N)
+    bad = float("nan") if kind == "nan" else float("inf")
+    xs[1, 17] = bad
+    xs[W - 1, N - 1] = bad
+    want_y, want_res = RA.ring_allreduce_plain(xs, wire)
+    y, res = RA.ring_allreduce(xs.cuda(), wire, replicas=True)
+    torch.cuda.synchronize()
+    for d in range(W):
+        assert _equal(y[d].cpu(), want_y), (W, kind, wire, d)
+    assert _equal(res.cpu(), want_res), (W, kind, wire)
+    assert not bool(torch.isfinite(want_y[[17, N - 1]]).any())

@@ -11,8 +11,10 @@ touched) and loaded in place of the library; the unedited source runs
 first. The variants are the choices the source's design note argues
 for: two or eight coordinates a thread in place of four, 512 threads a
 pruned block, a coordinate's fine lookups all sent at once (no stop
-once decided), and (timing only: more coordinates pass, so its result
-is not checked) no fine bitmap lookups. Prints the card's name and power
+once decided), (timing only: more coordinates pass, so its result
+is not checked) no fine bitmap lookups, the pruned block's launch
+bounds without their one block an SM, and the order and median network
+blind to NaN, as they were before the NaN repair. Prints the card's name and power
 limit, each build's registers, stack and spills a kernel (``cuobjdump
 -res-usage``), then one JSON line a (variant, table): whether the result
 equals the plain version's (null where not checked), the device ms of a
@@ -54,6 +56,18 @@ VARIANTS = [
          "          word[u] = live[u] ? __ldg(fine + (size_t)j * nfw + "
          "(bk[u] >> 5))\n                            : 0u;",
          "          word[u] = 0xffffffffu;")], False),
+    # the pruned block's launch bounds without their one block an SM
+    ("no_min_blocks", [
+        ("csvec_topk.cu", "__launch_bounds__(PRUNE_THREADS, 1)",
+         "__launch_bounds__(PRUNE_THREADS)")], True),
+    # what the NaN repair costs: the order and the median network blind to
+    # NaN (the result equals on a table without NaN)
+    ("nan_blind", [
+        ("csvec_topk.cu", "  if (n1 || n2) return n1 && (!n2 || i1 < i2);\n",
+         ""),
+        ("csvec_topk.cu", "      e[j] = min_nan(a, c);\n"
+         "      e[j + 1] = max_nan(a, c);",
+         "      e[j] = fminf(a, c);\n      e[j + 1] = fmaxf(a, c);")], True),
 ]
 
 
