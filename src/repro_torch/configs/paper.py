@@ -1,6 +1,7 @@
 """Configs of the paper's own experiments, §5 (counterpart of
 ``repro.configs.paper``): MNIST 3x512 tanh, the CIFAR hybrid's 3x512
-dense tail, PINN 3x50, and the 15x1024 gradient-monitoring pair.
+dense tail, the sketched CIFAR conv stem, PINN 3x50, and the 15x1024
+gradient-monitoring pair.
 """
 from __future__ import annotations
 
@@ -36,13 +37,39 @@ MNIST_MLP = MLPConfig(
     activation="tanh",
 )
 
-# §5.1.2 CIFAR-10 hybrid: the three 512-d dense layers after the conv
-# feature extractor (1024 = 8x8x16 pooled features); sketching applies
-# only to this dense tail. The conv stem is not ported yet.
+# §5.1.2 CIFAR-10 hybrid: the conv feature extractor, then three 512-d
+# dense layers on its 1024 = 8x8x16 pooled features; sketching applies
+# only to this dense tail. The stem is models/mlp.py::conv_stem_apply.
 CIFAR_HYBRID = MLPConfig(
     name="cifar_hybrid", d_in=1024, d_hidden=512, d_out=10,
     num_hidden_layers=3, activation="relu",
 )
+
+
+@dataclasses.dataclass(frozen=True)
+class ConvConfig:
+    """The CIFAR conv stem trained with sketched conv backprop (XConv,
+    arXiv:2106.06998): each conv is im2col-factored into a (B*P,
+    kh*kw*Cin) @ (kh*kw*Cin, Cout) matmul that ``sketched_matmul``
+    consumes."""
+    name: str = "cifar_conv"
+    hw: int = 32                     # input height = width
+    channels: int = 3
+    d_out: int = 10
+    batch_size: int = 32
+    learning_rate: float = 1e-3
+    dtype: torch.dtype = torch.float32
+    variant: str = "sketched_fixed"  # standard | sketched_fixed
+    sketch: SketchConfig = SketchConfig()
+
+    @property
+    def num_tokens(self) -> int:
+        """The tree's row binding: stage 1's im2col rows, B * hw^2;
+        stage 2's B * (hw/2)^2 rows are zero-padded up to it."""
+        return self.batch_size * self.hw * self.hw
+
+
+CIFAR_CONV = ConvConfig()
 
 # §5.1.2 PINN: four-layer, 50-d hidden, 2D Poisson on [0,1]^2
 PINN_POISSON = MLPConfig(
@@ -66,5 +93,7 @@ MONITOR_PROBLEMATIC = dataclasses.replace(
     optimizer="sgd",
 )
 
-PAPER_CONFIGS = {c.name: c for c in (MNIST_MLP, CIFAR_HYBRID, PINN_POISSON,
-                                     MONITOR_HEALTHY, MONITOR_PROBLEMATIC)}
+# the launcher's table (launch/paper.py --config)
+PAPER_CONFIGS = {c.name: c for c in (MNIST_MLP, CIFAR_HYBRID, CIFAR_CONV,
+                                     PINN_POISSON, MONITOR_HEALTHY,
+                                     MONITOR_PROBLEMATIC)}

@@ -15,6 +15,10 @@ All of this is k-thin work on (d, k) and (k, k) matrices through
 ``torch.linalg``; no TPU kernel does it. A~ depends on the column signs
 of the QR factors, so it matches the reference only where both QRs take
 the same (LAPACK) sign convention.
+
+Both modes return NaN on a sketch that holds a NaN or an inf, and never
+raise: the train step's NaN guard then skips the step, on the card as on
+the CPU (``pinv``).
 """
 from __future__ import annotations
 
@@ -29,13 +33,13 @@ Tensor = torch.Tensor
 
 @dataclasses.dataclass
 class Reconstruction:
-    """A~ ~ left @ right.T   with left (N_b, k), right (d, k)."""
+    """A~ ~ left @ right^T   with left (..., N_b, k), right (..., d, k)."""
 
     left: Tensor
     right: Tensor
 
     def dense(self) -> Tensor:
-        return self.left @ self.right.T
+        return self.left @ self.right.mT
 
 
 def masked_qr(a: Tensor, k_active) -> Tensor:
@@ -44,18 +48,32 @@ def masked_qr(a: Tensor, k_active) -> Tensor:
     return mask_columns(q, k_active)
 
 
+def pinv(a: Tensor) -> Tensor:
+    """``jnp.linalg.pinv`` of (..., m, n), batched over leading dims:
+    singular values at most 10 * max(m, n) * eps * sigma_max are
+    dropped. A matrix holding a NaN or an inf gives an all-NaN result,
+    where ``torch.linalg.pinv`` would raise (its SVD refuses non-finite
+    input). The reference returns all NaN for a NaN; for an inf LAPACK
+    gives it a mix of NaN and 0, or does not return at all (ROADMAP
+    §C, C5), so the port takes NaN there too. No host sync: the pinv of
+    the matrix with its non-finite entries zeroed, then NaN over each
+    matrix that had one."""
+    finite = torch.isfinite(a)
+    rtol = 10.0 * max(a.shape[-2:]) * torch.finfo(a.dtype).eps
+    p = torch.linalg.pinv(torch.where(finite, a, 0.0), rtol=rtol)
+    ok = finite.all(dim=-1, keepdim=True).all(dim=-2, keepdim=True)
+    return torch.where(ok, p, torch.nan)
+
+
 def _pinv_apply(y_s: Tensor, rhs: Tensor, mode: str, ridge: float) -> Tensor:
-    """Y^+ @ rhs: SVD pinv ("faithful"), or the ridge-regularised normal
-    equations ("fast"), with the ridge RELATIVE to trace(Y^T Y)/k. The
-    pinv cut-off is the reference's (``jnp.linalg.pinv``): singular
-    values at most 10 * max(d, k) * eps * sigma_max are dropped. The
-    solve does not check its factorisation, as ``jnp.linalg.solve`` does
-    not: a sketch holding a NaN gives a NaN result, which the train
-    step's NaN guard then skips, where the card's ``torch.linalg.solve``
-    would raise (its LU reports the NaN matrix singular)."""
+    """Y^+ @ rhs: SVD pinv ("faithful", ``pinv``), or the
+    ridge-regularised normal equations ("fast"), with the ridge RELATIVE
+    to trace(Y^T Y)/k. The solve does not check its factorisation, as
+    ``jnp.linalg.solve`` does not: a sketch holding a NaN gives a NaN
+    result, where the card's ``torch.linalg.solve`` would raise (its LU
+    reports the NaN matrix singular)."""
     if mode == "faithful":
-        rtol = 10.0 * max(y_s.shape) * torch.finfo(y_s.dtype).eps
-        return torch.linalg.pinv(y_s, rtol=rtol) @ rhs
+        return pinv(y_s) @ rhs
     g = y_s.T @ y_s                              # (k, k)
     k = g.shape[0]
     lam = ridge * (torch.trace(g) / k + 1e-30)

@@ -11,7 +11,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.core.corange import CorangeProjections
 from repro_torch.sketches import NodeTree, PsparseProjections, SketchNode
+from repro_torch.sketches.psparse import PsparseCorangeProjections
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -104,23 +106,38 @@ def psparse_from_jax(params, num_tokens: int, k_max: int, density: float,
 
 
 def proj_from_jax(proj, device="cpu"):
-    """A dense {"upsilon","omega","phi"} projection dict, or the
-    reference's ``PsparseProjections`` (any object with ``params``,
-    ``num_tokens``, ``k_max`` and ``density``)."""
+    """A dense {"upsilon","omega","phi"} projection dict, the reference's
+    ``PsparseProjections`` (any object with ``params``, ``num_tokens``,
+    ``k_max`` and ``density``), or a corange tree's projections: dense
+    ``CorangeProjections`` (``upsilon``, ``omega``, ``phi``, ``psi``) or
+    ``PsparseCorangeProjections`` (``params``, ``d``, ``n_b``, ...)."""
+    if hasattr(proj, "n_b"):
+        rows = tuple(tuple(int(c) for c in row)
+                     for row in np.asarray(proj.params, dtype=np.uint32))
+        return PsparseCorangeProjections(
+            params=rows, d=int(proj.d), n_b=int(proj.n_b),
+            k_max=int(proj.k_max), density=float(proj.density),
+            device=torch.device(device))
     if hasattr(proj, "params"):
         return psparse_from_jax(proj.params, proj.num_tokens, proj.k_max,
                                 proj.density, device)
+    if hasattr(proj, "upsilon"):
+        return CorangeProjections(*(_tensor(getattr(proj, n), device)
+                                    for n in ("upsilon", "omega", "phi",
+                                              "psi")))
     return {k: _tensor(v, device) for k, v in proj.items()}
 
 
 def tree_from_jax(node_tree, device="cpu") -> NodeTree:
-    """A reference ``NodeTree`` of paper-kind nodes, with dense or
-    psparse projections -> the port's. Node stacks keep their layer
-    order; the refresh epoch carries over, the PRNG key has no
-    counterpart (the port's refreshes draw from its own seed)."""
+    """A reference ``NodeTree`` of paper- or corange-kind nodes (a node
+    without a ``kind`` is a paper one), with dense or psparse
+    projections -> the port's. Node stacks keep their layer order; the
+    refresh epoch carries over, the PRNG key has no counterpart (the
+    port's refreshes draw from its own seed)."""
     nodes = {
         name: SketchNode(x=_tensor(n.x, device), y=_tensor(n.y, device),
-                         z=_tensor(n.z, device), psi=_tensor(n.psi, device))
+                         z=_tensor(n.z, device), psi=_tensor(n.psi, device),
+                         kind=getattr(n, "kind", "paper"))
         for name, n in node_tree.nodes.items()
     }
     return NodeTree(nodes=nodes, proj=proj_from_jax(node_tree.proj, device),

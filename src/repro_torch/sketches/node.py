@@ -1,9 +1,9 @@
 """SketchNode — the per-node unit of sketch state (counterpart of
 ``repro.sketches.node``).
 
-One node is one monitored activation tensor: its EMA triple (x, y, z)
-and its interaction weights ``psi``. A node may carry leading stack dims
-(one entry per layer), as in the reference.
+One node is one monitored activation tensor: its EMA triple (x, y, z),
+its interaction weights ``psi`` and the kind of triple it holds. A node
+may carry leading stack dims (one entry per layer), as in the reference.
 """
 from __future__ import annotations
 
@@ -13,15 +13,29 @@ import torch
 
 Tensor = torch.Tensor
 
+KINDS = ("paper", "corange")
+
 
 @dataclasses.dataclass
 class SketchNode:
-    """EMA triple + psi: x/y/z (..., d, k_max), psi (..., k_max)."""
+    """EMA triple + psi for one activation node (possibly stacked).
+
+    kind "paper":   x/y/z (..., d, k_max), psi (..., k_max)
+    kind "corange": x (..., k_max, N_b), y (..., d, k_max),
+                    z (..., s_max, s_max), psi (..., 0): the core
+                    weights live in the tree's projections.
+    """
 
     x: Tensor
     y: Tensor
     z: Tensor
     psi: Tensor
+    kind: str = "paper"
+
+    def __post_init__(self):
+        if self.kind not in KINDS:
+            raise ValueError(f"SketchNode.kind must be one of {KINDS}, got "
+                             f"{self.kind!r}")
 
     @property
     def k_max(self) -> int:

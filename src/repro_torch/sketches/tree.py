@@ -43,7 +43,9 @@ class NodeTree:
 
     nodes: dict[str, SketchNode]
     proj: Any                   # {"upsilon","omega","phi"}: (T, k_max),
-    #                             or PsparseProjections
+    #                             PsparseProjections, or a corange
+    #                             tree's CorangeProjections or
+    #                             PsparseCorangeProjections
     rank: Tensor                # () int32 — active target rank r
     step: int = 0               # EMA update counter
     epoch: int = 0              # projection refreshes so far
@@ -105,9 +107,10 @@ def refresh_tree(tree: NodeTree) -> NodeTree:
     if is_psparse(tree.proj):
         proj = refresh_psparse_projections(tree.proj, gen)
     else:
-        proj = {name: torch.randn(p.shape, generator=gen, device=p.device,
-                                  dtype=p.dtype)
-                for name, p in tree.proj.items()}
+        fresh = [torch.randn(p.shape, generator=gen, device=p.device,
+                             dtype=p.dtype) for p in _proj_tensors(tree.proj)]
+        proj = (dict(zip(tree.proj, fresh)) if isinstance(tree.proj, dict)
+                else type(tree.proj)(*fresh))
     nodes = {}
     for name in sorted(tree.nodes):
         node = zero_node_sketches(tree.nodes[name])
@@ -120,23 +123,32 @@ def refresh_tree(tree: NodeTree) -> NodeTree:
                                step=0)
 
 
+def _proj_tensors(proj) -> list[Tensor]:
+    """The tensors of a dense projection: a {"upsilon","omega","phi"}
+    dict or a ``core.corange.CorangeProjections``."""
+    if isinstance(proj, dict):
+        return list(proj.values())
+    return [getattr(proj, f.name) for f in dataclasses.fields(proj)]
+
+
 def tree_memory_bytes(tree: NodeTree) -> int:
     """Bytes held by the tree: sketches, psi and projections (a psparse
-    tree's are its 12 uint32 coefficients)."""
+    tree's are its uint32 coefficients)."""
     total = sum(t.numel() * t.element_size()
                 for n in tree.nodes.values() for t in (n.x, n.y, n.z, n.psi))
     if is_psparse(tree.proj):
         return total + 4 * sum(len(row) for row in tree.proj.params)
     return total + sum(p.numel() * p.element_size()
-                       for p in tree.proj.values())
+                       for p in _proj_tensors(tree.proj))
 
 
 def proj_to(proj, device):
-    """A copy of a projection (dense dict or psparse) on ``device``."""
-    if is_psparse(proj):
-        return proj.to(device)
-    return {n: v.detach().to(device=device, copy=True)
-            for n, v in proj.items()}
+    """A copy of a projection (dense dict, corange or psparse) on
+    ``device``."""
+    if isinstance(proj, dict):
+        return {n: v.detach().to(device=device, copy=True)
+                for n, v in proj.items()}
+    return proj.to(device)
 
 
 def tree_to(tree: NodeTree, device) -> NodeTree:
@@ -144,8 +156,8 @@ def tree_to(tree: NodeTree, device) -> NodeTree:
     def mv(t):
         return t.detach().to(device=device, copy=True)
     return dataclasses.replace(
-        tree, nodes={n: SketchNode(x=mv(v.x), y=mv(v.y), z=mv(v.z),
-                                   psi=mv(v.psi))
+        tree, nodes={n: dataclasses.replace(v, x=mv(v.x), y=mv(v.y),
+                                            z=mv(v.z), psi=mv(v.psi))
                      for n, v in tree.nodes.items()},
         proj=proj_to(tree.proj, device), rank=mv(tree.rank))
 

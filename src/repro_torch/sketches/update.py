@@ -138,3 +138,44 @@ def proj_triple_increment(x_s, y_s, z_s, a, proj, psi, beta, k_active):
                                 zeros, proj.params, ps, beta=float(beta),
                                 m=proj.m)
     return mask_columns(ix, k_active), mask_columns(iy, k_active), iz
+
+
+# -- the corange (Tropp) triple ----------------------------------------------
+#
+# Three plain products against the batch matrix M = a^T (d, N_b); the
+# reference computes them outside any Pallas kernel, so no update kernel
+# runs for a corange node. Leading dims of the triple and of ``a`` are
+# batch dims (a stacked node's layers), which the projections broadcast
+# over.
+
+
+def _mask_rows(m: Tensor, k_active) -> Tensor:
+    """Zero the inactive trailing rows of (..., k_max, n)."""
+    return mask_columns(m.mT, k_active).mT
+
+
+def _mask_core(z: Tensor, s_active) -> Tensor:
+    return _mask_rows(mask_columns(z, s_active), s_active)
+
+
+def corange_triple_update(x_c: Tensor, y_c: Tensor, z_c: Tensor, a: Tensor,
+                          proj, beta: float, k_active
+                          ) -> tuple[Tensor, Tensor, Tensor]:
+    """EMA update of the Tropp triple against M = a^T: x_c (..., k_max,
+    N_b), y_c (..., d, k_max), z_c (..., s_max, s_max), a (..., N_b, d);
+    x masked along its k rows, y along its k columns, z on both dims at
+    s_active = 2 k_active + 1. ``proj`` has upsilon (k_max, d), omega
+    (N_b, k_max), phi (s_max, d) and psi (N_b, s_max)."""
+    dt = x_c.dtype
+    s_active = 2 * k_active + 1
+    m = a.detach().to(dt).mT                                 # (..., d, N_b)
+    ups = _mask_rows(proj.upsilon.to(dt), k_active)
+    omg = mask_columns(proj.omega.to(dt), k_active)
+    phi = _mask_rows(proj.phi.to(dt), s_active)
+    psi = mask_columns(proj.psi.to(dt), s_active)
+    x_new = beta * x_c + (1 - beta) * (ups @ m)
+    y_new = beta * y_c + (1 - beta) * (m @ omg)
+    z_new = beta * z_c + (1 - beta) * (phi @ (m @ psi))
+    return (_mask_rows(x_new, k_active), mask_columns(y_new, k_active),
+            _mask_core(z_new, s_active))
+

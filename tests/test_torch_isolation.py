@@ -44,6 +44,8 @@ def test_port_loads_without_jax():
         "import repro_torch.models.ssm, repro_torch.kernels.mlstm_chunk\n"
         "import repro_torch.kernels.ring_allreduce, repro_torch.parallel\n"
         "import repro_torch.parallel.collectives, repro_torch.sketches.wire\n"
+        "import repro_torch.core.corange, repro_torch.core.bounds\n"
+        "import repro_torch.models.mlp, repro_torch.sketches.psparse\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
         "assert not any(m == 'repro' or m.startswith('repro.')\n"
         "               for m in sys.modules), 'repro was imported'\n")
@@ -88,8 +90,9 @@ def _same_fields(ours, ref):
     assert set(dataclasses.asdict(ours)) == set(ref_fields)
 
 
-@pytest.mark.parametrize("name", ["MNIST_MLP", "CIFAR_HYBRID", "PINN_POISSON",
-                                  "MONITOR_HEALTHY", "MONITOR_PROBLEMATIC"])
+@pytest.mark.parametrize("name", ["MNIST_MLP", "CIFAR_HYBRID", "CIFAR_CONV",
+                                  "PINN_POISSON", "MONITOR_HEALTHY",
+                                  "MONITOR_PROBLEMATIC"])
 def test_paper_configs_match_reference(name):
     _same_fields(getattr(paper, name), getattr(jax_paper, name))
     assert paper.PAPER_CONFIGS[getattr(paper, name).name] is \
@@ -103,6 +106,19 @@ def test_paper_launcher_trains_on_cpu(capsys):
     assert len(res.history) == 4 and res.sketch.step == 4
     out = capsys.readouterr().out
     assert "test acc" in out and "pathology flags" in out
+
+
+@pytest.mark.parametrize("argv,says", [
+    (["--config", "mnist_mlp", "--variant", "corange"], "test acc"),
+    (["--config", "cifar_hybrid"], "test acc"),
+    (["--config", "cifar_conv", "--proj-kind", "psparse"], "pathology"),
+    (["--config", "pinn_poisson", "--variant", "monitor"],
+     "L2 relative error")])
+def test_paper_launcher_runs_every_experiment_on_cpu(argv, says, capsys):
+    res = paper_launcher.main(["--device", "cpu", "--steps", "2",
+                               "--log-every", "1"] + argv)
+    assert len(res.history) == 2
+    assert says in capsys.readouterr().out
 
 
 @pytest.mark.parametrize("name", ARCHS)

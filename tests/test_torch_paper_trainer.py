@@ -324,9 +324,17 @@ def test_psparse_rank_deficient_seed():
 
 
 def test_unported_variant_names_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match="ROADMAP A3"):
-        PT.make_step(MLPConfig(**CFG_KW), SketchConfig(**SCFG_KW), "corange",
-                     AdamWConfig())
+    """Every variant trains now; the data-parallel step refuses corange
+    with the reference's ValueError and message."""
+    with pytest.raises(ValueError, match="paper-kind variants") as ours:
+        PT.make_dp_step(MLPConfig(**CFG_KW), SketchConfig(**SCFG_KW),
+                        "corange", AdamWConfig(), 4)
+    with pytest.raises(ValueError) as ref:
+        JT.make_dp_step(JaxMLPConfig(**CFG_KW), JaxSketchConfig(**SCFG_KW),
+                        "corange", JaxAdamWConfig(), None)
+    assert str(ours.value) == str(ref.value)
+    PT.make_step(MLPConfig(**CFG_KW), SketchConfig(**SCFG_KW), "corange",
+                 AdamWConfig())
 
 
 @pytest.mark.parametrize("proj_kind", ["gaussian", "psparse"])
