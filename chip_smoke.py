@@ -143,17 +143,43 @@ nvcc and nvidia-smi. Phases, each of which raises on failure:
    with each projection kind and standard, the CIFAR hybrid, the PINN
    with the monitor on and off, and the MLP data-parallel step in both
    layouts (trees and losses bit for bit equal) and against the CPU;
-13. print ``{"kernels": [...]}``, the nvidia-smi line, and last
+13. xlstm training (``phase_xlstm_train``): ``mlstm_chunk_bwd`` at
+   MLSTM_BWD_CASES (xlstm-1.3b's train shapes B 4 x S 512 in bf16 and
+   f32 and B 1 x S 2048 with the model's forget gates, and a small case
+   where the denominator's exp(-m) branch wins) against its plain version on the same inputs
+   widened exactly, each gradient within rtol 1e-4, atol 1e-4 *
+   max|plain| (bf16 outputs with their one rounding on top:
+   ``mlstm_chunk.bwd_gap``), two calls equal bit for bit, timed beside
+   its bound (the f32 rate: every product on the FMA units) and its plain
+   version, no library call; then xlstm-1.3b at full width and all 48
+   layers (XLSTM_TRAIN: f32 parameters, bf16 compute, AdamW without the
+   global-norm clip (XLSTM_GRAD_CLIP), monitor sketches with the
+   mlstm_c/mlstm_n carry nodes at k_max 9), B 4 x S
+   512 for 10 steps with Gaussian projections on one repeated batch
+   (profiled: the backward's device share; the sLSTM blocks' share of a
+   step; learning: the mean of the last 3 losses XLSTM_LEARN_DROP below
+   the first 3's) and 3 with psparse ones on fresh batches,
+   then 2 steps at B 1 x S 2048: losses finite, no skip, peak under 80
+   GB, every sketch entry holding mass (but a carry node's psparse
+   sketch whose matrix has no support row below B, which stays zero in
+   the reference too); then reduced xlstm in f32 at B 2, one train step
+   on the card and on the CPU from one state at each XLSTM_DVC_STEPS (S
+   16 in one chunk, within TOL * max|CPU|; S 64 over four 16-token
+   chunks, within 5e-3: the gradient's conditioning there): loss,
+   gradients and tree;
+14. print ``{"kernels": [...]}``, the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 
-Every run of a path (3, 4, 5, 6's LM step, 7–12) sets the kernels'
+Every run of a path (3, 4, 5, 6's LM step, 7–13) sets the kernels'
 launch counts to 0 just before it and checks them just after: each
 monitored token step or train step launches one update kernel per sketched node,
 the projection kind's; each compressed LM step one insert and one top-k,
 and one quant with the int8 table; each prefill, refill and train step
 one flash forward an attention layer and each prefill and refill one
 mlstm_chunk an mLSTM layer, each train step one flash backward a layer,
-a decode step none, a corange step none, a conv step one a stage. A DP
+each xlstm train step one mlstm_chunk and one mlstm_chunk_bwd an mLSTM
+layer and one update a "res" layer and two (mlstm_c, mlstm_n) an mLSTM
+layer, a decode step none, a corange step none, a conv step one a stage. A DP
 step counts these per worker (the overlap layout's increment sweep adds
 a forward), one top-k, and one ring merge (fused) or two (overlap: the
 sketch, then the gradient wire).
@@ -221,11 +247,18 @@ SKETCH_UPDATE_CASES = [
     ("conv1", 32768, 27, 33, "float32"),
     ("conv2", 32768, 72, 33, "float32"),
     ("pinn", 1024, 50, 17, "float32"),
+    # xlstm-1.3b training at B 4 x S 512, k 9: "res" (T 2048), and the
+    # carry nodes' 4 rows against the projections' first 4 (mlstm_c at
+    # H Dk Dv = 2,097,152, mlstm_n at H Dk = 2048)
+    ("xlstm_res", 2048, 2048, 9, "bfloat16"),
+    ("xlstm_mlstm_c", 4, 2097152, 9, "float32"),
+    ("xlstm_mlstm_n", 4, 2048, 9, "float32"),
 ]
 # psparse_update at density 0.1: the trainer's nodes, the psparse serving
 # prefill and decode step, a ragged case (m = clamp(round(0.1 T), k, T)
 # support rows), the LM's FFN nodes, a bf16 case ragged in T, d and k,
-# bf16 at k=64 and the conv stem's two stages
+# bf16 at k=64, the conv stem's two stages and xlstm training's nodes
+# (PSPARSE_BINDING)
 PSPARSE_CASES = [
     ("mnist_mlp", 128, 512, 33, "float32"),
     ("monitor16", 128, 1024, 17, "float32"),
@@ -238,11 +271,19 @@ PSPARSE_CASES = [
     ("k64", 1024, 2048, 64, "bfloat16"),
     ("conv1", 32768, 27, 33, "float32"),
     ("conv2", 32768, 72, 33, "float32"),
+    ("xlstm_res", 2048, 2048, 9, "bfloat16"),
+    ("xlstm_mlstm_c", 4, 2097152, 9, "float32"),
+    ("xlstm_mlstm_n", 4, 2048, 9, "float32"),
 ]
+# the binding (num_tokens) of the psparse cases whose A has fewer rows:
+# the carry nodes' 4 rows against the tree's 2048 token rows, their hash
+# coefficients drawn until every matrix has a support row below 4
+PSPARSE_BINDING = {"xlstm_mlstm_c": 2048, "xlstm_mlstm_n": 2048}
 DENSITY = 0.1
 # the CUDA sources, one nvcc each
 KERNELS = ("sketch_update", "psparse_update", "csvec_insert", "csvec_topk",
-           "csvec_quant", "flash_attention", "mlstm_chunk", "ring_allreduce")
+           "csvec_quant", "flash_attention", "mlstm_chunk", "mlstm_chunk_bwd",
+           "ring_allreduce")
 # the count-sketch kernels: (label, r, c, n, ks). "train" is the LM train
 # step's geometry: tinyllama-1.1b's flat dimension, the table that
 # resolve_countsketch sizes for it (5 x 2^23), cs_k 256 and 2 x 256 p2
@@ -293,6 +334,60 @@ MLSTM_CASES = [
     ("serve", 8, 4, 2048, 512, 1024, 256),
     ("refill", 1, 4, 512, 512, 1024, 256),
 ]
+# mlstm_chunk_bwd: (label, B, H, S, Dk, Dv, chunk, dtype, li shift, forget
+# gates). xlstm-1.3b's train shapes (B 4 x S 512, two chunks, in bf16 as
+# the model runs and in f32; B 1 x S 2048, eight chunks) with the model's
+# forget gates, and a small case where the denominator's exp(-m) branch
+# wins on some rows. "model": lf = logsigmoid(b_h + N(0, 1)) with the
+# model's forget biases b_h = linspace(3, 6) over the heads (models/ssm.py),
+# a decay of e^-0.6 to e^-12.5 over a 256-token chunk, so the dC carried
+# into an earlier chunk is large; "steep": logsigmoid(N(0, 1) + 2), e^-33
+# a 256-token chunk, for short chunks only
+MLSTM_BWD_CASES = [
+    ("train_bf16", 4, 4, 512, 512, 1024, 256, "bfloat16", 0.0, "model"),
+    ("train_f32", 4, 4, 512, 512, 1024, 256, "float32", 0.0, "model"),
+    ("ctx_bf16", 1, 4, 2048, 512, 1024, 256, "bfloat16", 0.0, "model"),
+    ("floor_branch", 1, 2, 64, 8, 16, 16, "float32", -8.0, "steep"),
+]
+# xlstm-1.3b trained at full width and all 48 layers (f32 parameters,
+# bf16 compute, AdamW with warmup-cosine, monitor sketches with the
+# mlstm_c/mlstm_n carry nodes): B 4 x S 512 (two mLSTM chunks), STEPS
+# with Gaussian projections and PSPARSE_STEPS with psparse ones, then
+# CTX_STEPS at B 1 x S 2048, the model's context (eight chunks). k_max 9
+# is the reference's own xlstm tests' (tests/test_node_families.py): one
+# copy of the 42 mlstm_c triples takes 3 x 42 x 2,097,152 x k_max x 4 B,
+# 9.5 GB at 9 and 34.9 GB at the default 33, and the step holds two
+XLSTM_TRAIN = dict(batch=4, seq=512, steps=10, psparse_steps=3,
+                   ctx_batch=1, ctx_seq=2048, ctx_steps=2, k_max=9)
+# the Gaussian xlstm run trains on its first batch again and again and
+# must end with its last-3 mean loss this fraction below its first-3
+# mean. On fresh batches ten steps cannot show learning: at reduced size
+# neither xlstm's nor tinyllama's loss falls in ten steps there (the
+# batches' own spread is larger). On the repeated batch reduced xlstm
+# falls 12%, and not at all with its mLSTM gradient's sign flipped
+# (tools/xlstm_learn_witness.py, CPU)
+XLSTM_LEARN_DROP = 0.02
+# xlstm-1.3b's random init has a gradient norm of about 4.8e12 at B 4 x S
+# 512 on the card (the backward kernel and the plain one agree within 2%,
+# f32 alike), growing about twice a layer toward the input (PERF.md,
+# Findings). Reduced xlstm's grad_norm equals the reference's on the CPU
+# at S 16 to 512 (tests/test_torch_xlstm_train.py) and grows with S there;
+# the reference itself does not run at full width. Clipped to a global
+# norm of 1 (launch/train.py's default), the deep layers' gradients fall
+# far under AdamW's eps (1e-8) and their steps vanish: on one repeated
+# batch the loss moves 0.07% in 10 steps. The xlstm runs here turn the
+# clip off (AdamWConfig's 0); the repeated batch then falls 11%
+XLSTM_GRAD_CLIP = 0.0
+# the card against the CPU on reduced xlstm's train step at B 2: (S,
+# mLSTM chunk, tol). Its gradient is ill-conditioned at random init:
+# every weight moved by one f32 rounding (1e-7 relative) moves a gradient
+# leaf by 8.3e-6 to 2.1e-5 of its max at S 16 (8 perturbation seeds), and
+# by 7.0e-5 to 1.38e-3 at S 64 (32 seeds, median 4.1e-4; 6.2e-5 to
+# 1.67e-3 at chunk 16; tools/xlstm_chunk_spread.py --conditioning), where
+# the card read 8.3e-4 at chunk 256. S 16 is one chunk, held at TOL; S 64
+# at chunk 16 crosses three chunk boundaries, held at 3x the largest of
+# its readings
+XLSTM_DVC_STEPS = [(16, 256, TOL), (64, 16, 5e-3)]
 # xlstm-1.3b served at full width and depth: 2048-token prompts (eight
 # chunks), 32 new tokens, a 512-token refill (two chunks, one request)
 XLSTM_SERVE = dict(batch=8, prompt_len=2048, new_tokens=32, refill_len=512,
@@ -574,27 +669,35 @@ def phase_kernels(dev) -> dict[str, list[dict]]:
                   + 6 * d * k * 4, 6 * T * d * k, d, k, a.element_size())))
     for label, T, d, k, a_dtype in PSPARSE_CASES:
         dtype = getattr(torch, a_dtype)
-        m = psparse_dim(T, k, DENSITY)
+        n_tok = PSPARSE_BINDING.get(label, T)
+        m = psparse_dim(n_tok, k, DENSITY)
         a = rand(T, d).to(dtype)
         x, y, z, psi = rand(d, k), rand(d, k), rand(d, k), rand(k)
         coeffs = psparse_hash_params(gen)
-        dense = psparse_dense(coeffs, T, k, m, dev)
-        pcat = torch.cat([dense[n] for n in ("upsilon", "omega", "phi")],
+        while not all(bool((psparse_rows(c, m, n_tok) < T).any())
+                      for c in coeffs):
+            coeffs = psparse_hash_params(gen)
+        dense = psparse_dense(coeffs, n_tok, k, m, dev)
+        pcat = torch.cat([dense[n][:T] for n in ("upsilon", "omega", "phi")],
                          dim=1).to(dtype)
-        read = len(set().union(*(psparse_rows(c, m, T).tolist()
-                                 for c in coeffs)))
+        support = [psparse_rows(c, m, n_tok) for c in coeffs]
+        read = len(set().union(*(r[r < T].tolist() for r in support)))
+        # the slots that add anything: all 3m, or a carry's live ones
+        live = sum(int((r < T).sum()) for r in support)
         rows["psparse_update"].append(measure(
             "psparse_update",
-            dict(case=label, T=T, d=d, k=k, m=m, rows_read=read,
-                 a_dtype=a_dtype),
-            lambda: psparse_update(a, x, y, z, coeffs, psi, beta=0.9, m=m),
+            dict(case=label, T=T, d=d, k=k, m=m, num_tokens=n_tok,
+                 rows_read=read, live_slots=live, a_dtype=a_dtype),
+            lambda: psparse_update(a, x, y, z, coeffs, psi, beta=0.9, m=m,
+                                   num_tokens=n_tok),
             lambda: psparse_update_ref(a, x, y, z, coeffs, psi, beta=0.9,
-                                       m=m),
+                                       m=m, num_tokens=n_tok),
             lambda: torch.matmul(a.t(), pcat),
             # the distinct support rows this call's coefficients select,
-            # psi, the 12 coefficients, the sketches read and written
+            # psi, the 12 coefficients, the sketches read and written; an
+            # FMA a live slot, column and output
             bound(read * d * a.element_size() + k * 4 + 48 + 6 * d * k * 4,
-                  6 * m * d * k, d, k, a.element_size())))
+                  2 * live * d * k, d, k, a.element_size())))
     return rows
 
 
@@ -1287,7 +1390,7 @@ def _wrappers() -> dict:
     from repro_torch.kernels.flash_attention import (
         flash_attention_bwd, flash_attention_fwd,
     )
-    from repro_torch.kernels.mlstm_chunk import mlstm_chunk
+    from repro_torch.kernels.mlstm_chunk import mlstm_chunk, mlstm_chunk_bwd
     from repro_torch.kernels.psparse_update import psparse_update
     from repro_torch.kernels.ring_allreduce import ring_allreduce
     from repro_torch.kernels.sketch_update import sketch_update
@@ -1296,7 +1399,8 @@ def _wrappers() -> dict:
             "csvec_quant": csvec_quant,
             "flash_attention": flash_attention_fwd,
             "flash_attention_bwd": flash_attention_bwd,
-            "mlstm_chunk": mlstm_chunk, "ring_allreduce": ring_allreduce}
+            "mlstm_chunk": mlstm_chunk, "mlstm_chunk_bwd": mlstm_chunk_bwd,
+            "ring_allreduce": ring_allreduce}
 
 
 def reset_counts() -> None:
@@ -1880,13 +1984,15 @@ def _nan_guard_check(state, step, batch, want: dict) -> dict:
     return out
 
 
-def _profile_step(state, step, batch, top: int = 15):
+def _profile_step(state, step, batch, top: int = 15, groups=None):
     """One more train step under torch.profiler, recording the card's
     kernels only: the step's wall time (inflated by the profiler), the
     kernels' device time in all, and the kernels that took most of it
-    (device ms and launches by name). A spin kernel and a
-    synchronisation lead in, as in ``_device_kernels``. The caller sets
-    ``idle_share`` against its median step time."""
+    (device ms and launches by name); for each {label: regex} of
+    ``groups``, the device ms and share of the kernels whose names match.
+    A spin kernel and a synchronisation lead in, as in
+    ``_device_kernels``. The caller sets ``idle_share`` against its
+    median step time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -1909,13 +2015,19 @@ def _profile_step(state, step, batch, top: int = 15):
     # the EMA update kernels and the sum of their splits
     update_ms = sum(ms for n, ms, _ in rows if "sketch_update" in n
                     or "psparse_update" in n or "ema::" in n)
-    return state, dict(wall_ms=wall_ms, device_ms=device_ms,
-                       attention_ms=attention_ms,
-                       attention_share=attention_ms / max(device_ms, 1e-9),
-                       update_ms=update_ms,
-                       update_share=update_ms / max(device_ms, 1e-9),
-                       top=[dict(name=n[:120], ms=ms, calls=c)
-                            for n, ms, c in rows[:top]])
+    out = dict(wall_ms=wall_ms, device_ms=device_ms,
+               attention_ms=attention_ms,
+               attention_share=attention_ms / max(device_ms, 1e-9),
+               update_ms=update_ms,
+               update_share=update_ms / max(device_ms, 1e-9),
+               top=[dict(name=n[:120], ms=ms, calls=c)
+                    for n, ms, c in rows[:top]])
+    for label, pattern in (groups or {}).items():
+        hit = [(ms, c) for n, ms, c in rows if re.search(pattern, n)]
+        out[f"{label}_ms"] = sum(ms for ms, _ in hit)
+        out[f"{label}_calls"] = sum(c for _, c in hit)
+        out[f"{label}_share"] = out[f"{label}_ms"] / max(device_ms, 1e-9)
+    return state, out
 
 
 def lm_run(dev, cfg, mode: str, proj_kind: str, steps: int,
@@ -3038,6 +3150,329 @@ def phase_paper_experiments(dev) -> dict:
     return out
 
 
+def mlstm_bwd_bound(B, H, S, Dk, Dv, W, elem: int) -> tuple[float, str]:
+    """(bound_ms, bound_by) of one mlstm_chunk_bwd call: its operations
+    (``mlstm_chunk.mlstm_bwd_flops``: the causal products and the state
+    products, recomputed states included) at the f32 rate, as the kernels
+    run every product on the FMA units; bytes: q, k, v read once in their
+    type, li, lf, h and dh in f32, dq, dk, dv written once in their type
+    and dli, dlf in f32."""
+    from repro_torch.kernels.mlstm_chunk import mlstm_bwd_flops
+    flops = mlstm_bwd_flops(B, H, S, Dk, Dv, W)
+    nbytes = (2 * B * H * S * (2 * Dk + Dv) * elem
+              + 4 * B * H * S * (4 + 2 * Dv))
+    t_b, t_o = nbytes / PEAK_BYTES_S, flops / PEAK_F32_FLOP_S
+    return (t_b * 1e3, "bytes") if t_b >= t_o else (t_o * 1e3, "operations")
+
+
+def phase_mlstm_bwd(dev) -> list[dict]:
+    """mlstm_chunk_bwd at each MLSTM_BWD_CASES shape against its plain
+    version on the same inputs widened exactly (``mlstm_chunk.bwd_gap``:
+    each gradient within rtol 1e-4, atol 1e-4 * max|plain|, bf16 outputs
+    with their one rounding on top) and against a second call of itself
+    (bit for bit: no atomics), then timed beside its bound and the plain
+    version. h comes from the forward kernel, v is a view of (B, S, H, Dv)
+    storage, as in the model. No one PyTorch call computes the function:
+    library_ms is None."""
+    import torch
+    from repro_torch.kernels import mlstm_chunk as MC
+    gen = torch.Generator(device=dev).manual_seed(6)
+    rows = []
+    for label, B, H, S, Dk, Dv, chunk, dt, shift, gates in MLSTM_BWD_CASES:
+        dtype = getattr(torch, dt)
+
+        def rand(*shape):
+            return torch.randn(shape, generator=gen, device=dev)
+
+        q, k = rand(B, H, S, Dk).to(dtype), rand(B, H, S, Dk).to(dtype)
+        v = rand(B, S, H, Dv).to(dtype).transpose(1, 2)
+        li = rand(B, H, S) * 0.5 + shift
+        bias = (torch.linspace(3.0, 6.0, H, device=dev)[:, None]
+                if gates == "model" else 2.0)
+        lf = torch.nn.functional.logsigmoid(rand(B, H, S) + bias)
+        h, _ = MC.mlstm_chunk(q, k, v, li, lf, chunk=chunk)
+        dh = rand(B, H, S, Dv)
+        args = (q, k, v, li, lf, h, dh)
+        got = MC.mlstm_chunk_bwd(*args, chunk=chunk)
+        again = MC.mlstm_chunk_bwd(*args, chunk=chunk)
+        wide = (q.float(), k.float(), v.float(), li, lf, h, dh)
+        want = MC.mlstm_chunk_bwd_plain(*wide, chunk=chunk)
+        torch.cuda.synchronize()
+        names = ("dq", "dk", "dv", "dli", "dlf")
+        gaps = {n: MC.bwd_gap(g, w) for n, g, w in zip(names, got, want)}
+        if not max(gaps.values()) <= 1:
+            raise AssertionError(f"mlstm_chunk_bwd {label}: share of the "
+                                 f"allowance used {gaps}")
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"mlstm_chunk_bwd {label}: two calls "
+                                 f"differ")
+        abs_errs = {n: float((g.float() - w).abs().max())
+                    for n, g, w in zip(names, got, want)}
+        del got, again, want
+        big = S >= 512
+        it, plain_it = (10, 3) if big else (100, 10)
+        ms, call_ms = time_ms(lambda: MC.mlstm_chunk_bwd(*args, chunk=chunk),
+                              it, 2)
+        plain_ms, plain_call_ms = time_ms(
+            lambda: MC.mlstm_chunk_bwd_plain(*args, chunk=chunk), plain_it, 1)
+        bound_ms, bound_by = mlstm_bwd_bound(B, H, S, Dk, Dv, min(chunk, S),
+                                             q.element_size())
+        split = _device_kernels(
+            lambda: MC.mlstm_chunk_bwd(*args, chunk=chunk), 3) if big \
+            else None
+        rows.append(dict(
+            case=label, B=B, H=H, S=S, Dk=Dk, Dv=Dv, W=min(chunk, S),
+            dtype=dt, forget_gates=gates, gaps=gaps, abs_err=abs_errs,
+            max_abs_err=max(abs_errs.values()), ms=ms, plain_ms=plain_ms,
+            library_ms=None, bound_ms=bound_ms, bound_by=bound_by,
+            call_ms=call_ms, plain_call_ms=plain_call_ms,
+            us_by_kernel=split and {
+                (re.search(r"bwd_[a-z]+_kernel", n) or [n])[0]: us / 3
+                for n, (_, us) in split.items()}))
+        log(f"mlstm_chunk_bwd {json.dumps(rows[-1])}")
+        del q, k, v, li, lf, h, dh, args, wide
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _xlstm_run_config(proj_kind: str, steps: int, batch: int, seq: int):
+    from repro_torch.models.transformer import SketchSettings
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.state import RunConfig
+    # as launch/train.py builds it (lr 3e-4, warmup min(20, steps // 5 +
+    # 1)), at XLSTM_TRAIN's k_max, with the global-norm clip off
+    # (XLSTM_GRAD_CLIP)
+    return RunConfig(
+        seq_len=seq, global_batch=batch,
+        optimizer=AdamWConfig(lr=3e-4, grad_clip=XLSTM_GRAD_CLIP),
+        warmup_steps=min(20, steps // 5 + 1), total_steps=steps,
+        sketch=SketchSettings(enabled=True, k_max=XLSTM_TRAIN["k_max"],
+                              proj_kind=proj_kind))
+
+
+def _carry_mass(tree, batch: int) -> dict:
+    """Each node's stack entries whose x, y or z holds no mass. Where a
+    psparse matrix has no support row below the carry's B rows (the
+    reference's zero-padded rows reach only those), its sketch of a
+    carry node rightly stays zero: such sketches are listed, not
+    failed."""
+    import torch
+    from repro_torch.kernels.psparse_update import psparse_rows
+    from repro_torch.sketches import is_psparse
+    proj = tree.proj
+    dead = []
+    if is_psparse(proj):
+        dead = [a for a, p in zip("xyz", proj.params)
+                if not bool((psparse_rows(p, proj.m, proj.num_tokens)
+                             < batch).any())]
+    out = {}
+    for name, node in tree.nodes.items():
+        carry = name.startswith("mlstm_")
+        for a in "xyz":
+            mass = getattr(node, a).abs().sum(dim=(-2, -1))
+            empty = int((mass == 0).sum())
+            want = mass.numel() if carry and a in dead else 0
+            if empty != want or not bool(torch.isfinite(mass).all()):
+                raise AssertionError(
+                    f"{name}.{a}: {empty} of {mass.numel()} entries hold "
+                    f"no mass, expected {want}")
+            out[f"{name}.{a}"] = dict(entries=mass.numel(), empty=empty,
+                                      min_mass=float(mass.min()))
+    return dict(by_leaf=out, psparse_dead=dead)
+
+
+def _slstm_ms(state, cfg, batch: int, seq: int) -> float:
+    """Host ms of the sLSTM blocks' forward and backward at (batch, seq),
+    each block timed apart between synchronisations on the trained
+    weights and a random bf16 input: the one Python loop's cost a step."""
+    import torch
+    from repro_torch.models import ssm
+    gen = torch.Generator(
+        device=state.params["embed"]["embedding"].device).manual_seed(4)
+    total = 0.0
+    for l, kind in enumerate(cfg.layer_types):
+        if kind != "slstm":
+            continue
+        p = {n: t.detach().requires_grad_(True)
+             for n, t in state.params["layers"][l]["mix"].items()}
+        x = torch.randn((batch, seq, cfg.d_model), generator=gen,
+                        device=gen.device).to(cfg.dtype).requires_grad_(True)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        y, _ = ssm.slstm_apply(p, x, cfg=cfg, mode="train")
+        torch.autograd.grad(y.float().sum(), [x, *p.values()])
+        torch.cuda.synchronize()
+        total += time.perf_counter() - t
+        del p, x, y
+    return total * 1e3
+
+
+def xlstm_run(dev, cfg, proj_kind: str, steps: int, batch: int,
+              seq: int, profile: bool = False,
+              repeat_batch: bool = False) -> dict:
+    """One counted, timed run of ``steps`` xlstm train steps of (batch,
+    seq) from a fresh state (each step on the pipeline's next batch, or
+    with ``repeat_batch`` on its first): losses finite and no skip, launches (each
+    step: one mlstm_chunk and one mlstm_chunk_bwd an mLSTM layer, one
+    update kernel per node entry, "res" on every layer and the two carry
+    nodes on each mLSTM layer), peak memory under 80 GB, every sketch's
+    mass (``_carry_mass``); with ``profile`` one more step under
+    torch.profiler (the backward kernels' and the forward's device ms and
+    shares) and the sLSTM blocks' share of the median step."""
+    import gc
+    import torch
+    from repro_torch.data.pipeline import PipelineConfig, host_batch
+    from repro_torch.train.state import init_train_state
+    from repro_torch.train.step import make_train_step
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    left_mib = torch.cuda.memory_allocated() / 2**20
+    run = _xlstm_run_config(proj_kind, steps, batch, seq)
+    pipe = PipelineConfig(seed=0, global_batch=batch, seq_len=seq,
+                          vocab=cfg.vocab_size)
+    state = init_train_state(0, cfg, run, device=dev)
+    step = make_train_step(cfg, run)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    losses, skipped, stamps = [], [], [time.perf_counter()]
+    for s in range(steps):
+        tokens, labels = host_batch(pipe, 0 if repeat_batch else s,
+                                    device=dev)
+        state, m = step(state, {"tokens": tokens, "labels": labels})
+        losses.append(float(m["loss"]))
+        skipped.append(m["skipped_total"])
+        stamps.append(time.perf_counter())
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    what = f"xlstm {proj_kind} B={batch} S={seq}"
+    n_m = cfg.layer_types.count("mlstm")
+    kernel = "psparse_update" if proj_kind == "psparse" else "sketch_update"
+    check_counts(what, launches,
+                 {kernel: (cfg.num_layers + 2 * n_m) * steps,
+                  "mlstm_chunk": n_m * steps, "mlstm_chunk_bwd": n_m * steps})
+    if not all(math.isfinite(v) for v in losses) or skipped[-1]:
+        raise AssertionError(f"{what}: losses {losses}, skipped {skipped[-1]}")
+    if peak * 2**20 >= PEAK_LIMIT_BYTES:
+        raise AssertionError(f"{what}: peak {peak:.0f} MiB over 80 GB")
+    step_ms = [(b - a) * 1e3 for a, b in zip(stamps[:-1], stamps[1:])]
+    out = dict(batch=batch, seq=seq, steps=steps, proj_kind=proj_kind,
+               k_max=run.sketch.k_max, repeat_batch=repeat_batch,
+               step_ms=statistics.median(step_ms[1:] or step_ms),
+               step_ms_samples=step_ms, peak_mem_mib=peak,
+               allocated_before_mib=left_mib, launches=launches,
+               losses=losses, skipped=skipped[-1],
+               mass=_carry_mass(state.sketch, batch))
+    if profile:
+        tokens, labels = host_batch(pipe, steps, device=dev)
+        state, out["profile"] = _profile_step(
+            state, step, {"tokens": tokens, "labels": labels},
+            groups={"mlstm_chunk_bwd":
+                    r"bwd_(gates|states|scores|sweep|dqdk|grads)_kernel",
+                    "mlstm_chunk": r"mlstm_(gates|scores|state|n)_(kernel|tc)"})
+        out["profile"]["idle_share"] = max(
+            0.0, 1 - out["profile"]["device_ms"] / out["step_ms"])
+        out["slstm_ms"] = _slstm_ms(state, cfg, batch, seq)
+        out["slstm_share_of_step"] = out["slstm_ms"] / out["step_ms"]
+    log(f"{what}: " + json.dumps({k: v for k, v in out.items()
+                                  if k not in ("step_ms_samples",)}))
+    del state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _xlstm_step_vs_cpu(dev, S: int, chunk: int, tol: float) -> dict:
+    """Reduced xlstm (8 layers, 7 mLSTM) in f32, B 2 x S at mLSTM chunk
+    ``chunk``, monitor sketches at k_max 9: one train step's loss,
+    gradients and new tree on the card and on the CPU from one state,
+    within ``tol`` * max|CPU| each (XLSTM_DVC_STEPS); the card's step
+    counted."""
+    import functools
+    import torch
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.data.pipeline import PipelineConfig, host_batch
+    from repro_torch.models import ssm
+    from repro_torch.optim.flat import tree_leaves
+    from repro_torch.sketches import tree_to
+    from repro_torch.train.state import init_train_state
+    from repro_torch.train.step import make_train_step
+
+    cfg = reduced(get_arch("xlstm-1.3b"))
+    B = 2
+    run = _xlstm_run_config("gaussian", 1, B, S)
+    pipe = PipelineConfig(seed=3, global_batch=B, seq_len=S,
+                          vocab=cfg.vocab_size)
+    tokens, labels = host_batch(pipe, 0)
+    cpu = init_train_state(0, cfg, run, device="cpu")
+
+    def one_step(where):
+        state = init_train_state(0, cfg, run, device=where,
+                                 params=cpu.params,
+                                 sketch=tree_to(cpu.sketch, where))
+        reset_counts()
+        loss, _, _, grads, tree = make_train_step(cfg, run).loss_and_grads(
+            state, {"tokens": tokens.to(where), "labels": labels.to(where)})
+        if where != "cpu":
+            torch.cuda.synchronize()
+        leaves = [t for n in sorted(tree.nodes) for t in
+                  (tree.nodes[n].x, tree.nodes[n].y, tree.nodes[n].z)]
+        return ([loss.cpu()] + [g.cpu() for g in tree_leaves(grads)]
+                + [t.cpu() for t in leaves]), read_counts()
+
+    apply = ssm.mlstm_apply
+    try:
+        ssm.mlstm_apply = functools.partial(apply, chunk=chunk)
+        got, launches = one_step(dev)
+        want, _ = one_step("cpu")
+    finally:
+        ssm.mlstm_apply = apply
+    n_m = cfg.layer_types.count("mlstm")
+    what = f"xlstm step {cfg.name} S={S} chunk={chunk}"
+    check_counts(what, launches,
+                 {"sketch_update": cfg.num_layers + 2 * n_m,
+                  "mlstm_chunk": n_m, "mlstm_chunk_bwd": n_m})
+    err = 0.0
+    for g, w in zip(got, want):
+        scale = float(w.abs().max())
+        torch.testing.assert_close(g, w, rtol=tol, atol=tol * scale,
+                                   msg=lambda m: f"{what}: {m}")
+        err = max(err, float((g - w).abs().max()) / max(scale, 1e-30))
+    out = dict(B=B, S=S, chunk=chunk, tol=tol, loss=float(want[0]),
+               max_rel_err=err, launches=launches)
+    log(f"xlstm step device vs cpu: {json.dumps(out)}")
+    return out
+
+
+def phase_xlstm_train(dev) -> dict:
+    """xlstm-1.3b training: (a) the backward kernels at MLSTM_BWD_CASES
+    (``phase_mlstm_bwd``); (b) full width and all 48 layers at B 4 x S
+    512, Gaussian then psparse projections (XLSTM_TRAIN), the Gaussian
+    run profiled and, on one repeated batch, required to learn (the mean
+    of its last 3 losses XLSTM_LEARN_DROP below its first 3's); (c) B 1
+    x S 2048; (d) reduced xlstm, one step on the card against the CPU at
+    each of XLSTM_DVC_STEPS."""
+    from repro_torch.configs import get_arch
+    cfg = get_arch("xlstm-1.3b")
+    x = XLSTM_TRAIN
+    out = {"kernel_rows": phase_mlstm_bwd(dev)}
+    out["gaussian"] = xlstm_run(dev, cfg, "gaussian", x["steps"], x["batch"],
+                                x["seq"], profile=True, repeat_batch=True)
+    first, last = (statistics.mean(out["gaussian"]["losses"][:3]),
+                   statistics.mean(out["gaussian"]["losses"][-3:]))
+    if not last < (1 - XLSTM_LEARN_DROP) * first:
+        raise AssertionError(f"xlstm did not learn its repeated batch: mean "
+                             f"loss {first:.4f} -> {last:.4f}")
+    out["psparse"] = xlstm_run(dev, cfg, "psparse", x["psparse_steps"],
+                               x["batch"], x["seq"])
+    out["ctx"] = xlstm_run(dev, cfg, "gaussian", x["ctx_steps"],
+                           x["ctx_batch"], x["ctx_seq"])
+    for S, chunk, tol in XLSTM_DVC_STEPS:
+        out[f"vs_cpu_s{S}_w{chunk}"] = _xlstm_step_vs_cpu(dev, S, chunk, tol)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3111,6 +3546,8 @@ def main() -> int:
     dp_dvc = timed("dp_device_vs_cpu", phase_dp_vs_cpu, dev)
     dp_launcher = timed("dp_launcher", phase_dp_launcher, dev)
     paper = timed("paper_experiments", phase_paper_experiments, dev)
+    xlstm = timed("xlstm_train", phase_xlstm_train, dev)
+    kernel_rows["mlstm_chunk_bwd"] = xlstm.pop("kernel_rows")
     dp_phases_s = sum(phase_s[k] for k in
                       ("dp_train", "dp_device_vs_cpu", "dp_launcher"))
     log(f"data-parallel phases: {dp_phases_s:.1f} s")
@@ -3134,7 +3571,9 @@ def main() -> int:
                **{f"dp_vs_cpu/{k}": v["launches"] for k, v in dp_dvc.items()},
                "dp_launcher": dp_launcher["launches"],
                **{f"paper/{k}": v["launches"] for k, v in paper.items()
-                  if isinstance(v, dict) and "launches" in v}}
+                  if isinstance(v, dict) and "launches" in v},
+               **{f"xlstm_train/{k}": v["launches"]
+                  for k, v in xlstm.items()}}
     sources = {"sketch_update": ("src/repro_torch/csrc/sketch_update.cu",
                                  "src/repro/kernels/sketch_update.py:60",
                                  "prefill"),
@@ -3161,6 +3600,10 @@ def main() -> int:
                "mlstm_chunk": ("src/repro_torch/csrc/mlstm_chunk.cu",
                                "src/repro/kernels/mlstm_chunk.py:74",
                                "serve_bf16"),
+               "mlstm_chunk_bwd": (
+                   "src/repro_torch/csrc/mlstm_chunk_bwd.cu",
+                   "gradient of src/repro/models/ssm.py::_mlstm_chunk_scan; "
+                   "no Pallas backward", "train_bf16"),
                "ring_allreduce": ("src/repro_torch/csrc/ring_allreduce.cu",
                                   "src/repro/kernels/ring_allreduce.py:209",
                                   "fused_w4_fp32")}
@@ -3191,7 +3634,8 @@ def main() -> int:
         train_device_vs_cpu=train_dvc, lm_step_device_vs_cpu=lm_step_dvc,
         lm_train=lm, lm_launcher=launcher, dp_train=dp,
         dp_device_vs_cpu=dp_dvc, dp_launcher=dp_launcher,
-        dp_phases_s=dp_phases_s, paper_experiments=paper, phase_s=phase_s),
+        dp_phases_s=dp_phases_s, paper_experiments=paper,
+        xlstm_train=xlstm, phase_s=phase_s),
         indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

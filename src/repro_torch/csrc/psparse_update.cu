@@ -39,7 +39,9 @@
 //     +-1 sign fragments from the coefficients (exact in bf16), and wgmma
 //     m64n128k16 sums sgn^T A[rows] in f32 with no split at all.
 //   * f32 A, bf16 A with d % 8 != 0, or T <= 64: the FMA kernel, A read
-//     once for every k.
+//     once for every k. An A of fewer rows than T (a carry's B rows
+//     against the tree's token rows) takes it too, over only the slots
+//     whose row A holds, which the wrapper lists.
 // Both split the slots across gridDim.y blocks where the d-tiles alone
 // leave SMs idle; the splits' partials are summed in a fixed order by a
 // second small kernel (deterministic, no atomics).
@@ -83,6 +85,21 @@ struct Hashed {
     const int mat = s / m;
     if (n / k != mat) return 0.f;
     return sign(coeff(mat, 2), coeff(mat, 3), s - mat * m, n - mat * k);
+  }
+};
+
+// a carry's update: A holds the binding's first rows (a carry's B
+// against the tree's T token rows, the rest zero), so only the slots
+// whose row falls among them add anything; the wrapper lists those
+// slots, and row r of the product is slot slots[r]
+struct Listed {
+  Hashed h;
+  const int* slots;
+  __device__ __forceinline__ int row(int r) const {
+    return h.row(slots[r]);
+  }
+  __device__ __forceinline__ float val(int r, int n) const {
+    return h.val(slots[r], n);
   }
 };
 
@@ -210,7 +227,10 @@ extern "C" {
 
 // Launches the update on `stream`; returns 0 or a cudaError_t. `out` is
 // (3, d, k); `ws` holds splits*3*d*k floats and is unused when splits ==
-// 1. c{mat}{0..3} are matrix mat's a_row, b_row, a_sign, b_sign.
+// 1. c{mat}{0..3} are matrix mat's a_row, b_row, a_sign, b_sign. Rows
+// hash into [0, T). n_slots < 0 sums every one of the 3m slots; else A
+// holds fewer rows than T and only the n_slots slots listed in `slots`
+// (device int32, slot numbers in [0, 3m)) are summed, on the FMA kernel.
 // tensor_cores selects the tensor-core kernel (bf16 A, d % 8 == 0, A
 // 16-byte aligned) and splits/slots_per_split its plan (a whole number of
 // 64-slot stages a split), else the FMA kernel (a whole number of 32).
@@ -221,9 +241,9 @@ int psparse_update_launch(const void* a, int a_is_bf16, const float* psi,
                           uint32_t c03, uint32_t c10, uint32_t c11,
                           uint32_t c12, uint32_t c13, uint32_t c20,
                           uint32_t c21, uint32_t c22, uint32_t c23, int T,
-                          int d, int k, int m, int tensor_cores, int splits,
-                          int slots_per_split, float alpha, float beta,
-                          void* stream) {
+                          int d, int k, int m, const int* slots, int n_slots,
+                          int tensor_cores, int splits, int slots_per_split,
+                          float alpha, float beta, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Hashed src{{{{c00, c01, c02, c03},
                      {c10, c11, c12, c13},
@@ -231,7 +251,15 @@ int psparse_update_launch(const void* a, int a_is_bf16, const float* psi,
                    T, m, k};
   const Outs o{x_in, y_in, z_in, psi, out, ws, d, k, beta, alpha};
   int err;
-  if (tensor_cores) {
+  if (n_slots >= 0) {
+    if (tensor_cores) return cudaErrorInvalidValue;
+    const Listed listed{src, slots};
+    err = a_is_bf16
+              ? ema::launch_fma(static_cast<const bf16*>(a), listed, o,
+                                n_slots, splits, slots_per_split, s)
+              : ema::launch_fma(static_cast<const float*>(a), listed, o,
+                                n_slots, splits, slots_per_split, s);
+  } else if (tensor_cores) {
     if (!a_is_bf16 || d % 8 != 0) return cudaErrorInvalidValue;
     const bf16* ab = static_cast<const bf16*>(a);
     const int mt = (3 * k + 63) / 64;

@@ -49,6 +49,15 @@ against 132 SMs, hence the split over value columns on both paths.
 them; for CUDA tensors it launches the kernels or raises.
 ``mlstm_chunk.launches`` counts calls that launch, each of which
 enqueues the three FMA kernels or the four tensor-core ones.
+
+The gradient: ``mlstm_chunk_train`` is ``mlstm_chunk`` as an autograd
+Function that saves q, k, v, li, lf and h (no state: the chunk-start
+states would take B H (S / W) Dk Dv floats, 21 GiB over xlstm's 42
+layers at B 8 x S 2048) and whose backward is ``mlstm_chunk_bwd``: the
+six FMA kernels of ``csrc/mlstm_chunk_bwd.cu`` on the card (they
+recompute the states into scratch and sweep the chunks in reverse,
+carrying dC and dn), ``mlstm_chunk_bwd_plain`` on the CPU. The
+reference has no Pallas backward; it takes jax.grad of its scan.
 """
 from __future__ import annotations
 
@@ -122,6 +131,105 @@ def mlstm_chunk_plain(q: Tensor, k: Tensor, v: Tensor, li: Tensor,
         n = decay[..., None] * n + torch.einsum("bht,bhtd->bhd", wkv, kj)
         m = m_new
     return torch.cat(hs, dim=2), (C, n, m)
+
+
+def mlstm_chunk_bwd_plain(q: Tensor, k: Tensor, v: Tensor, li: Tensor,
+                          lf: Tensor, h: Tensor, dh: Tensor, *,
+                          chunk: int = 256):
+    """The gradient of ``mlstm_chunk_plain``'s h in plain PyTorch, in
+    f32, by the kernel's algorithm: the chunk-start states recomputed,
+    then one reverse sweep over the chunks carrying dC and dn. h is the
+    forward's output, dh its gradient; C, n and m carry none. Returns
+    (dq, dk, dv) in q's, k's and v's types and (dli, dlf) in f32.
+
+    The stabilisers m are constants: h = num / max(|den|, exp(-m_j)) is
+    the unstabilised num over max(|den|, 1), whatever m is, so the paths
+    through m, its max and amax sum to zero. With P = (scale q) k^T, D
+    the decayed mask exp(wlog - m_j), S = P * D, e_j = exp(F_j + m - m_j)
+    the inter-chunk weight, M_j the denominator and a_j its first branch:
+        dnum_j = dh_j / M_j,  dden_j = -a_j sign(den_j) (dh_j . h_j) / M_j
+        dS = dnum v^T + dden,  dP = dS * D,  dwlog = dS * S
+    and the state terms (C_c, n_c the chunk's start, dC, dn the gradient
+    of its end, g its decay, w the key weights):
+        dq  = scale (dP k + e (C_c dnum + dden n_c))
+        dk  = dP^T (scale q) + w (dC v + dn)
+        dv  = S^T dnum + w (k dC)
+        dC_c = g dC + (e scale q)^T dnum,  dn_c = g dn + (e dden scale q)
+    dF gathers dwlog's row sums less its column sums, de e, -dw w and, at
+    the chunk's last row, dg g + sum dw w; dli = dwlog's column sums +
+    dw w; dlf is the reversed in-chunk cumulative sum of dF."""
+    B, H, S, Dk = q.shape
+    Dv = v.shape[-1]
+    W = chunk_width(S, chunk)
+    dts = (q.dtype, k.dtype, v.dtype)
+    q, k, v, li, lf, h, dh = (t.float() for t in (q, k, v, li, lf, h, dh))
+    f32 = dict(dtype=torch.float32, device=q.device)
+    t = torch.arange(W, device=q.device)
+    tri = t[:, None] >= t[None, :]
+    scale = Dk ** -0.5
+    # the forward's gates and chunk-start states, recomputed
+    C = torch.zeros((B, H, Dk, Dv), **f32)
+    n = torch.zeros((B, H, Dk), **f32)
+    m = torch.zeros((B, H), **f32)
+    fwd = []
+    for c0 in range(0, S, W):
+        kj, vj = k[:, :, c0:c0 + W], v[:, :, c0:c0 + W]
+        lij = li[..., c0:c0 + W]
+        F = torch.cumsum(lf[..., c0:c0 + W], dim=-1)
+        Ftot = F[..., -1:]
+        wlog = F[..., :, None] - F[..., None, :] + lij[..., None, :]
+        wlog = torch.where(tri, wlog, float("-inf"))
+        mj = torch.maximum(wlog.amax(dim=-1), F + m[..., None])
+        m_new = torch.maximum(Ftot[..., 0] + m,
+                              (Ftot - F + lij).amax(dim=-1))
+        wkv = torch.exp(Ftot - F + lij - m_new[..., None])
+        decay = torch.exp(Ftot[..., 0] + m - m_new)
+        fwd.append(dict(F=F, D=torch.exp(wlog - mj[..., None]), mj=mj,
+                        inter=torch.exp(F + m[..., None] - mj), wkv=wkv,
+                        decay=decay, C=C, n=n))
+        C = decay[..., None, None] * C + torch.einsum(
+            "bhtd,bhtv->bhdv", wkv[..., None] * kj, vj)
+        n = decay[..., None] * n + torch.einsum("bht,bhtd->bhd", wkv, kj)
+        m = m_new
+    dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+    dli, dlf = torch.empty_like(li), torch.empty_like(lf)
+    dC = torch.zeros((B, H, Dk, Dv), **f32)
+    dn = torch.zeros((B, H, Dk), **f32)
+    for c in reversed(range(len(fwd))):
+        g = fwd[c]
+        sl = slice(c * W, (c + 1) * W)
+        qs, kj, vj = q[:, :, sl] * scale, k[:, :, sl], v[:, :, sl]
+        S_ = (qs @ kj.mT) * g["D"]
+        qn = torch.einsum("bhjd,bhd->bhj", qs, g["n"])
+        den = S_.sum(dim=-1) + g["inter"] * qn
+        floor = torch.exp(-g["mj"])
+        M = torch.maximum(den.abs(), floor)
+        delta = (dh[:, :, sl] * h[:, :, sl]).sum(dim=-1)
+        dnum = dh[:, :, sl] / M[..., None]
+        dden = torch.where(den.abs() >= floor, -torch.sign(den) * delta / M,
+                           torch.zeros_like(den))
+        dS = torch.where(tri, dnum @ vj.mT + dden[..., None], 0.0)
+        dP, dwlog = dS * g["D"], dS * S_
+        u = dnum @ g["C"].mT                          # C_c dnum_j
+        r = vj @ dC.mT + dn[:, :, None]               # dC v_t + dn
+        e, w = g["inter"], g["wkv"]
+        dq[:, :, sl] = scale * (dP @ kj + e[..., None] * u
+                                + (e * dden)[..., None] * g["n"][:, :, None])
+        dk[:, :, sl] = dP.mT @ qs + w[..., None] * r
+        dv[:, :, sl] = S_.mT @ dnum + w[..., None] * (kj @ dC)
+        dinter = (qs * u).sum(dim=-1) + dden * qn
+        dwkv = (kj * r).sum(dim=-1)
+        dg = (dC * g["C"]).sum(dim=(-2, -1)) + (dn * g["n"]).sum(dim=-1)
+        cols = dwlog.sum(dim=-2)
+        dF = dwlog.sum(dim=-1) - cols + dinter * e - dwkv * w
+        dF[..., -1] += dg * g["decay"] + (dwkv * w).sum(dim=-1)
+        dli[..., sl] = cols + dwkv * w
+        dlf[..., sl] = torch.flip(torch.cumsum(torch.flip(dF, [-1]), -1),
+                                  [-1])
+        dC = g["decay"][..., None, None] * dC + (e[..., None] * qs).mT @ dnum
+        dn = g["decay"][..., None] * dn + torch.einsum(
+            "bhj,bhjd->bhd", e * dden, qs)
+    return dq.to(dts[0]), dk.to(dts[1]), dv.to(dts[2]), dli, dlf
 
 
 def _check(q: Tensor, k: Tensor, v: Tensor, li: Tensor, lf: Tensor,
@@ -231,3 +339,137 @@ def mlstm_chunk(q: Tensor, k: Tensor, v: Tensor, li: Tensor, lf: Tensor, *,
 
 
 mlstm_chunk.launches = 0
+
+
+BWD_TOL = 1e-4       # the backward kernels against their plain version
+
+
+def bwd_gap(got: Tensor, want: Tensor, tol: float = BWD_TOL) -> float:
+    """The largest share of the backward check's allowance that ``got``
+    uses against the plain version's f32 gradient ``want`` (of the same
+    inputs widened exactly): rtol ``tol`` and atol ``tol`` * max|want|,
+    and for a bf16 ``got`` its one rounding, 2^-8 |want|. At most 1
+    passes; a NaN or inf where ``want`` is finite counts as inf."""
+    w, g = want.float(), got.float()
+    allow = tol * (w.abs().max() + w.abs())
+    if got.dtype == torch.bfloat16:
+        allow = allow + 2.0 ** -8 * w.abs()
+    return float(((g - w).abs() / allow).nan_to_num(float("inf")).max())
+
+
+def mlstm_bwd_flops(B: int, H: int, S: int, Dk: int, Dv: int,
+                    W: int) -> int:
+    """Operations of one backward call, as the kernels count them: per
+    chunk of a (b, h), the causal products (scale q) k^T, dnum v^T,
+    S^T dnum, dP k and dP^T q, W (W + 1) (3 Dk + 2 Dv), and the five
+    state products (C_c dnum, dC v, k dC, the dC update and the
+    recomputed C update), 10 W Dk Dv."""
+    return B * H * (S // W) * (W * (W + 1) * (3 * Dk + 2 * Dv)
+                               + 10 * W * Dk * Dv)
+
+
+def _bind_bwd(lib: ctypes.CDLL) -> None:
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.mlstm_chunk_bwd_workspace.argtypes = [i] * 6
+    lib.mlstm_chunk_bwd_workspace.restype = ctypes.c_longlong
+    lib.mlstm_chunk_bwd_launch.argtypes = (
+        [p] * 13 + [i] * 7 + [p, ctypes.c_float, p])
+    lib.mlstm_chunk_bwd_launch.restype = i
+    lib.mlstm_chunk_bwd_error_string.argtypes = [i]
+    lib.mlstm_chunk_bwd_error_string.restype = ctypes.c_char_p
+
+
+def mlstm_chunk_bwd(q: Tensor, k: Tensor, v: Tensor, li: Tensor, lf: Tensor,
+                    h: Tensor, dh: Tensor, *, chunk: int = 256):
+    """(dq, dk, dv, dli, dlf) as ``mlstm_chunk_bwd_plain`` returns them,
+    each contiguous. CPU tensors take the plain version; CUDA tensors
+    launch the six kernels of ``csrc/mlstm_chunk_bwd.cu``, which read q,
+    k and v (one type, f32 or bf16, unit stride along the last dimension)
+    in place and h and dh as f32.
+
+    Bound on an H100 SXM: ``mlstm_bwd_flops`` at 67 TFLOP/s (every
+    product on the FMA units), B H (S / W) (W (W + 1) (3 Dk + 2 Dv) +
+    10 W Dk Dv) operations: 50.5 GFLOP, 0.75 ms at xlstm's train shape
+    (B 4, H 4, S 512, Dk 512, Dv 1024, W 256), against 0.04 ms of bytes
+    (bf16 q, k, v read and dq, dk, dv written once, f32 h, dh, li, lf,
+    dli, dlf: 134 MB). ``mlstm_chunk_bwd.launches`` counts the calls that
+    launched."""
+    W = _check(q, k, v, li, lf, chunk)
+    for name, t in (("h", h), ("dh", dh)):
+        if tuple(t.shape) != tuple(v.shape) or t.device != q.device:
+            raise ValueError(f"{name} must be {tuple(v.shape)} on "
+                             f"{q.device}, got {tuple(t.shape)} on {t.device}")
+    if q.device.type == "cpu":
+        return mlstm_chunk_bwd_plain(q, k, v, li, lf, h, dh, chunk=chunk)
+    if q.device.type != "cuda":
+        raise ValueError(f"mlstm_chunk_bwd runs on cpu or cuda, not "
+                         f"{q.device}")
+    if q.dtype not in (torch.float32, torch.bfloat16) or \
+            k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"q, k and v must share one type, float32 or "
+                        f"bfloat16; got {q.dtype}, {k.dtype}, {v.dtype}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.stride(-1) != 1:
+            raise ValueError(f"{name} must have stride 1 along its last "
+                             f"dimension, got strides {t.stride()}")
+    li, lf, h, dh = (t.float().contiguous() for t in (li, lf, h, dh))
+    B, H, S, Dk = q.shape
+    Dv = v.shape[-1]
+    lib = _build.load("mlstm_chunk_bwd", _bind_bwd)
+    n_ws = lib.mlstm_chunk_bwd_workspace(B, H, S, Dk, Dv, W)
+    if n_ws < 0:
+        raise ValueError(f"the mlstm_chunk_bwd kernels refuse B {B}, H {H}, "
+                         f"S {S}, Dk {Dk}, Dv {Dv}, W {W}")
+    # scratch (the recomputed states, S and dP, the sweep's dC and dn a
+    # chunk, the rows' partial sums), then the outputs
+    ws = torch.empty((n_ws,), dtype=torch.float32, device=q.device)
+    dq, dk = torch.empty((2, B, H, S, Dk), dtype=q.dtype, device=q.device)
+    dv = torch.empty((B, H, S, Dv), dtype=q.dtype, device=q.device)
+    dli, dlf = torch.empty((2, B, H, S), dtype=torch.float32,
+                           device=q.device)
+    strides = [st for t in (q, k, v) for st in t.stride()[:3]]
+    with torch.cuda.device(q.device):
+        err = lib.mlstm_chunk_bwd_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), li.data_ptr(),
+            lf.data_ptr(), h.data_ptr(), dh.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), dli.data_ptr(), dlf.data_ptr(),
+            ws.data_ptr(), int(q.dtype == torch.bfloat16), B, H, S, Dk, Dv,
+            W, (ctypes.c_longlong * 9)(*strides), Dk ** -0.5,
+            torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(
+            f"mlstm_chunk_bwd kernel launch failed: "
+            f"{lib.mlstm_chunk_bwd_error_string(err).decode()} ({err})")
+    mlstm_chunk_bwd.launches += 1
+    return dq, dk, dv, dli, dlf
+
+
+mlstm_chunk_bwd.launches = 0
+
+
+class _MLSTMChunk(torch.autograd.Function):
+    """Saves q, k, v, li, lf and h; its backward is ``mlstm_chunk_bwd``.
+    C, n and m are outputs without a gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, li, lf, chunk):
+        h, (C, n, m) = mlstm_chunk(q, k, v, li, lf, chunk=chunk)
+        ctx.mark_non_differentiable(C, n, m)
+        ctx.save_for_backward(q, k, v, li, lf, h)
+        ctx.chunk = chunk
+        return h, C, n, m
+
+    @staticmethod
+    def backward(ctx, dh, dC, dn, dm):
+        q, k, v, li, lf, h = ctx.saved_tensors
+        return (*mlstm_chunk_bwd(q, k, v, li, lf, h, dh, chunk=ctx.chunk),
+                None)
+
+
+def mlstm_chunk_train(q: Tensor, k: Tensor, v: Tensor, li: Tensor,
+                      lf: Tensor, *, chunk: int = 256):
+    """``mlstm_chunk`` with h differentiable in q, k, v, li and lf: the
+    forward kernels (or the plain version on the CPU), and on the
+    backward ``mlstm_chunk_bwd``. Returns (h, (C, n, m))."""
+    h, C, n, m = _MLSTMChunk.apply(q, k, v, li, lf, chunk)
+    return h, (C, n, m)

@@ -37,7 +37,9 @@ T > 64 takes the tensor-core kernel, which gathers the support rows with
 cp.async and sums sgn^T A[rows] on wgmma (+-1 is exact in bf16; alpha is
 applied in the epilogue); the rest the FMA kernel. Both split the 3m
 support slots across blocks by ``sketch_update.launch_plan`` and sum the
-splits in a fixed order in a second kernel.
+splits in a fixed order in a second kernel. An A with fewer rows than
+the binding (a carry's B rows against the tree's token rows) takes the
+FMA kernel over only the few slots whose row it holds (``live_slots``).
 
 ``psparse_update`` takes the plain version for CPU tensors and only for
 them; for CUDA tensors it launches a kernel or raises.
@@ -48,6 +50,7 @@ the slots are split).
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -124,18 +127,25 @@ def psparse_dense(params, num_tokens: int, k: int, m: int,
 
 
 def psparse_triple_increment(a: Tensor, params, psi: Tensor, beta: float,
-                             m: int) -> tuple[Tensor, Tensor, Tensor]:
+                             m: int, num_tokens: int | None = None
+                             ) -> tuple[Tensor, Tensor, Tensor]:
     """The (1-beta)-scaled f32 increments against the implicit
     projections: A[rows]^T (alpha * sgn) for each matrix, the Z one
     times psi (pre-masked, (k,)). Gathers the m support rows of A and
-    never materialises a projection."""
-    T, k = a.shape[0], psi.shape[-1]
+    never materialises a projection. The rows hash into [0, num_tokens)
+    (default: A's rows); an A with fewer rows (a carry's B) is the
+    binding's first rows, the rest zero, so its support rows past A's
+    are skipped."""
+    T, k = num_tokens or a.shape[0], psi.shape[-1]
     a = a.detach().float()
     scale = (1.0 - beta) * psparse_scale(T, m)
     outs = []
     for p in params:
         rows = psparse_rows(p, m, T, a.device)
         sgn = psparse_signs(p, m, k, a.device)
+        if T > a.shape[0]:
+            live = rows < a.shape[0]
+            rows, sgn = rows[live], sgn[live]
         outs.append(scale * (a.index_select(0, rows).T @ sgn))
     return outs[0], outs[1], outs[2] * psi.float()[None, :]
 
@@ -144,18 +154,23 @@ def psparse_triple_increment(a: Tensor, params, psi: Tensor, beta: float,
 
 
 def psparse_update_ref(a, x_s, y_s, z_s, params, psi, *, beta: float,
-                       m: int):
+                       m: int, num_tokens: int | None = None):
     """The plain version: ``beta * S + increment`` for each sketch."""
-    inc = psparse_triple_increment(a, params, psi, beta, m)
+    inc = psparse_triple_increment(a, params, psi, beta, m, num_tokens)
     return tuple(beta * s + i for s, i in zip((x_s, y_s, z_s), inc))
 
 
-def _check(a, x_s, y_s, z_s, params, psi, m) -> tuple[int, int, int]:
+def _check(a, x_s, y_s, z_s, params, psi, m,
+           num_tokens) -> tuple[int, int, int]:
     if a.ndim != 2:
         raise ValueError(f"a must be (T, d), got shape {tuple(a.shape)}")
     if a.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"a must be float32 or bfloat16, got {a.dtype}")
-    T, d = a.shape
+    rows, d = a.shape
+    T = num_tokens or rows
+    if not 1 <= rows <= T:
+        raise ValueError(f"a has {rows} rows, past the binding's "
+                         f"num_tokens={T}")
     if x_s.ndim != 2 or x_s.shape[0] != d:
         raise ValueError(f"sketches must be (d={d}, k), got {tuple(x_s.shape)}")
     k = x_s.shape[1]
@@ -195,33 +210,57 @@ def _check(a, x_s, y_s, z_s, params, psi, m) -> tuple[int, int, int]:
 def _bind(lib: ctypes.CDLL) -> None:
     p, i, u, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
     lib.psparse_update_launch.argtypes = (
-        [p, i] + [p] * 6 + [u] * 12 + [i] * 7 + [f, f, p])
+        [p, i] + [p] * 6 + [u] * 12 + [i] * 4 + [p] + [i] * 4 + [f, f, p])
     lib.psparse_update_launch.restype = i
     lib.psparse_update_error_string.argtypes = [i]
     lib.psparse_update_error_string.restype = ctypes.c_char_p
 
 
-def psparse_update(a, x_s, y_s, z_s, params, psi, *, beta: float, m: int):
+@functools.lru_cache(maxsize=64)
+def live_slots(params: tuple, m: int, num_tokens: int, rows: int,
+               device) -> Tensor:
+    """(n,) int32 on ``device``: the slots s = mat m + u of the 3m whose
+    support row falls below ``rows``, the only ones that add anything
+    when A holds the binding's first ``rows`` rows (a carry's B). Made
+    once for each binding, so a launch reads no device memory back."""
+    slots = [mat * m + u for mat, p in enumerate(params)
+             for u in (psparse_rows(p, m, num_tokens) < rows)
+             .nonzero()[:, 0].tolist()]
+    return torch.tensor(slots, dtype=torch.int32, device=device)
+
+
+def psparse_update(a, x_s, y_s, z_s, params, psi, *, beta: float, m: int,
+                   num_tokens: int | None = None):
     """Fused psparse EMA update; returns new f32 (x, y, z), each (d, k),
     views of one (3, d, k) buffer.
 
-    a (T, d) f32 or bf16; x/y/z (d, k) and psi (k,) f32, psi pre-masked;
-    ``params`` 3 rows of 4 uint32 host integers; all tensors contiguous
-    on one device; k <= 64. Column masking of the outputs is the
-    caller's. CPU tensors take ``psparse_update_ref``; CUDA tensors
-    launch the tensor-core kernel when ``uses_tensor_cores(T, d,
-    a.dtype)``, else the FMA kernel.
+    a (rows, d) f32 or bf16; x/y/z (d, k) and psi (k,) f32, psi
+    pre-masked; ``params`` 3 rows of 4 uint32 host integers; all tensors
+    contiguous on one device; k <= 64. The support rows hash into [0,
+    num_tokens) (default: a's rows); an ``a`` with fewer rows is the
+    binding's first rows, and the support rows past them add nothing
+    (a carry's B rows against the tree's B S). Column masking of the
+    outputs is the caller's. CPU tensors take ``psparse_update_ref``;
+    CUDA tensors launch the tensor-core kernel when
+    ``uses_tensor_cores(T, d, a.dtype)`` and a holds every row, else the
+    FMA kernel, which for fewer rows sums only the ``live_slots``.
     """
-    T, d, k = _check(a, x_s, y_s, z_s, params, psi, m)
+    T, d, k = _check(a, x_s, y_s, z_s, params, psi, m, num_tokens)
     if a.device.type == "cpu":
         return psparse_update_ref(a, x_s, y_s, z_s, params, psi, beta=beta,
-                                  m=m)
+                                  m=m, num_tokens=T)
     if a.device.type != "cuda":
         raise ValueError(f"psparse_update runs on cpu or cuda, not {a.device}")
-    tc = uses_tensor_cores(T, d, a.dtype)
+    slots = None
+    if a.shape[0] < T:
+        slots = live_slots(tuple(tuple(int(c) for c in p) for p in params),
+                           m, T, a.shape[0], a.device)
+    tc = slots is None and uses_tensor_cores(T, d, a.dtype)
     if tc:
         check_aligned(a=a)
-    splits, per = launch_plan(3 * m, d, _build.num_sms(a.device), tc)
+    n_slots = 3 * m if slots is None else slots.numel()
+    splits, per = launch_plan(max(n_slots, 1), d, _build.num_sms(a.device),
+                              tc)
     check_index_range(d, k, splits)
     lib = _build.load("psparse_update", _bind)
     out = torch.empty((3, d, k), dtype=torch.float32, device=a.device)
@@ -234,7 +273,9 @@ def psparse_update(a, x_s, y_s, z_s, params, psi, *, beta: float, m: int):
             a.data_ptr(), int(a.dtype == torch.bfloat16), psi.data_ptr(),
             x_s.data_ptr(), y_s.data_ptr(), z_s.data_ptr(), out.data_ptr(),
             ws.data_ptr() if ws is not None else None, *coeffs, T, d, k, m,
-            int(tc), splits, per, psparse_scale(T, m), float(beta), stream)
+            slots.data_ptr() if slots is not None else None,
+            -1 if slots is None else n_slots, int(tc), splits, per,
+            psparse_scale(T, m), float(beta), stream)
     if err:
         raise RuntimeError(
             f"psparse_update kernel launch failed: "

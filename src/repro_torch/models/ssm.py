@@ -4,16 +4,19 @@
 mLSTM is a gated linear-attention recurrence with matrix memory
     C_t = f_t C_{t-1} + i_t k_t v_t^T,  n_t = f_t n_{t-1} + i_t k_t,
     h_t = (q_t^T C_t) / max(|q_t^T n_t|, exp(-m_t))
-with exponential gating stabilised by the running max m_t. Eval and
-prefill run the stabilised chunkwise form from a zero state through
+with exponential gating stabilised by the running max m_t. Train, eval
+and prefill run the stabilised chunkwise form from a zero state through
 ``kernels.mlstm_chunk`` (the Hopper kernels on the card, the plain
 version on the CPU), where the reference runs its own scan
-``_mlstm_chunk_scan``; decode is the one-step recurrence
-``mlstm_step``, plain PyTorch as the reference computes it in XLA.
+``_mlstm_chunk_scan``; train mode goes through ``mlstm_chunk_train``,
+whose backward is the ``mlstm_chunk_bwd`` kernels (the reference takes
+jax.grad of its scan). Decode is the one-step recurrence ``mlstm_step``,
+plain PyTorch as the reference computes it in XLA.
 
 sLSTM has scalar memory with block-diagonal (per-head) recurrent
-mixing: one Python loop over time. The reference's per-step and chunked
-scans compute the same cells in the same order.
+mixing: one Python loop over time, and its gradient is autograd through
+that loop (the reference has no kernel there). The reference's per-step
+and chunked scans compute the same cells in the same order.
 
 Parameters and caches keep the reference's names and layouts.
 """
@@ -22,7 +25,9 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.mlstm_chunk import chunk_width, mlstm_chunk
+from repro_torch.kernels.mlstm_chunk import (
+    chunk_width, mlstm_chunk, mlstm_chunk_train,
+)
 from repro_torch.models.layers import dense_init
 
 Tensor = torch.Tensor
@@ -116,9 +121,13 @@ def mlstm_sequential_ref(q, k, v, li, lf, C0, n0, m0):
     return torch.stack(hs, dim=2), carry
 
 
-def mlstm_apply(p, x, *, cfg, mode, cache=None, chunk=MLSTM_CHUNK):
+def mlstm_apply(p, x, *, cfg, mode, cache=None, chunk=MLSTM_CHUNK,
+                return_carry=False):
     """Full mLSTM block. x (B, S, d) -> (y, new_cache); the cache is
-    {"C", "m_n", "m_m", "conv"} in prefill and decode, None in eval."""
+    {"C", "m_n", "m_m", "conv"} in prefill and decode, None in train and
+    eval. With ``return_carry`` a third output is the end-of-sequence
+    matrix memory (C (B, H, dk, dv), n (B, H, dk)), which the
+    mlstm_c/mlstm_n sketch nodes observe; it carries no gradient."""
     B, S, d = x.shape
     inner, H, dk, dv = mlstm_dims(cfg)
     dt = x.dtype
@@ -152,13 +161,16 @@ def mlstm_apply(p, x, *, cfg, mode, cache=None, chunk=MLSTM_CHUNK):
     else:
         # q, k and v stay in the compute type: the kernel widens them
         # exactly, as the reference's astype(float32) does
-        h, (C, n, m) = mlstm_chunk(q, k, v, li, lf, chunk=chunk)
+        run = mlstm_chunk_train if mode == "train" else mlstm_chunk
+        h, (C, n, m) = run(q, k, v, li, lf, chunk=chunk)
 
     h = h.transpose(1, 2).reshape(B, S, inner).to(dt)
     out = h * F.silu(z.float()).to(dt)
     y = out @ p["w_m_down"].to(dt)
     new_cache = {"C": C, "m_n": n, "m_m": m, "conv": conv_state} \
         if mode in ("decode", "prefill") else None
+    if return_carry:
+        return y, new_cache, (C, n)
     return y, new_cache
 
 
@@ -201,14 +213,26 @@ def slstm_init(gen, cfg, dtype) -> dict:
     }
 
 
-def slstm_cell(zx, ix, fx, ox, state, r_s, H):
-    """One sLSTM step. gate inputs (B, d) f32; state (c, n, m, h) (B, d)."""
+def pack_recurrent(r_s: Tensor) -> Tensor:
+    """The recurrent weights (4, H, dh, dh) as (H, dh, 4 dh), f32: each
+    head's four gate matrices side by side, for ``slstm_cell``'s one
+    batched product a step. Packed once a block: a product that permuted
+    r_s every step would keep a permuted copy for the backward each step
+    (16 MB at xlstm-1.3b, 48 GB over a 512-step sequence and 6 layers)."""
+    g, H, dh, _ = r_s.shape
+    return r_s.float().permute(1, 2, 0, 3).reshape(H, dh, g * dh)
+
+
+def slstm_cell(zx, ix, fx, ox, state, r_hd, H):
+    """One sLSTM step. gate inputs (B, d) f32; state (c, n, m, h) (B, d);
+    r_hd the packed recurrent weights (``pack_recurrent``)."""
     c, n, m, h = state
     B, d = zx.shape
     dh = d // H
     hh = h.reshape(B, H, dh)
-    rec = torch.einsum("bhd,ghde->gbhe", hh, r_s.to(h.dtype))
-    rec = rec.reshape(4, B, d)
+    # rec[g, b, h, e] = sum_d hh[b, h, d] r_s[g, h, d, e]
+    rec = torch.bmm(hh.transpose(0, 1), r_hd)        # (H, B, 4 dh)
+    rec = rec.reshape(H, B, 4, dh).permute(2, 1, 0, 3).reshape(4, B, d)
     z = torch.tanh(zx + rec[0])
     li = ix + rec[1]
     lf = F.logsigmoid(fx + rec[2])
@@ -229,7 +253,7 @@ def slstm_apply(p, x, *, cfg, mode, cache=None):
     dt = x.dtype
     gates = (x @ p["w_s_in"].to(dt)).float() + p["b_s"].float()
     zx, ix, fx, ox = torch.split(gates, d, dim=-1)
-    r_s = p["r_s"].float()          # cast once; the cell casts to f32
+    r_hd = pack_recurrent(p["r_s"])
 
     if mode == "decode":
         state = (cache["s_c"], cache["s_n"], cache["s_m"], cache["s_h"])
@@ -239,7 +263,7 @@ def slstm_apply(p, x, *, cfg, mode, cache=None):
     hs = []
     for t in range(S):
         state = slstm_cell(zx[:, t], ix[:, t], fx[:, t], ox[:, t], state,
-                           r_s, H)
+                           r_hd, H)
         hs.append(state[3])
     hs = torch.stack(hs, dim=1)                     # (B, S, d)
 

@@ -22,11 +22,18 @@ Monitoring (paper §4.6 in the serving path): with
 feeds that layer's "res" EMA triple in prefill and decode. The nodes
 have no consumer, so the generated tokens do not depend on them.
 
-Recurrent blocks (``models/ssm.py``) run eval, prefill and decode; a
-block with ``mlp_type="none"`` has no FFN. Training them, and the
-reference's ``mlstm_c``/``mlstm_n`` carry nodes that come with it, is
-not ported yet: ``mode="train"`` and ``sketch_groups`` raise for such
-archs rather than differ from the reference.
+Recurrent blocks (``models/ssm.py``) run in every mode; a block with
+``mlp_type="none"`` has no FFN. In train mode an arch with mLSTM blocks
+also sketches each mLSTM layer's end-of-sequence matrix memory: the
+carry nodes "mlstm_c" (C, H*dk*dv wide) and "mlstm_n" (n, H*dk), stacked
+over the mLSTM layers only, in layer order (the reference's group-major
+stack). Their B rows are contracted against the projections' first B
+token rows (``sketches.update.limit_rows``), which is the reference's
+zero-padded update without the pad.
+
+The updated tree is written into one new (L, w, k) buffer per node and
+leaf as the layers go; the old tree stays whole, since the NaN guard
+may keep it.
 """
 from __future__ import annotations
 
@@ -48,6 +55,7 @@ from repro_torch.sketches import (
     NodeSpec, NodeTree, SketchNode, init_node_tree, proj_triple_increment,
     proj_triple_update,
 )
+from repro_torch.sketches.update import limit_rows
 from repro_torch.sketches.linear import sketched_matmul
 
 Tensor = torch.Tensor
@@ -55,9 +63,12 @@ ATTN_KINDS = ("full", "swa", "local", "global")
 RECURRENT_KINDS = ("mlstm", "slstm")
 # the leaves the reference casts to f32, not to the compute type, at use
 F32_LEAVES = ("b_gates", "b_s", "r_s")
-RECURRENT_TRAINING = ("training archs with recurrent blocks is not ported "
-                      "yet: ROADMAP open item 1, xlstm training (an mLSTM "
-                      "backward kernel and the mlstm_c/mlstm_n carry nodes)")
+#: carry node -> the block kind whose layers update it; every other node
+#: updates at every layer
+CARRY_NODE_KINDS = {
+    "mlstm_c": "mlstm",       # matrix memory C, flattened H*dk*dv
+    "mlstm_n": "mlstm",       # normaliser n, flattened H*dk
+}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -105,23 +116,41 @@ class SketchSettings:
 
 
 def sketch_groups(cfg: ArchConfig) -> dict[str, int]:
-    """{node name: width} of the sketched activation nodes of a layer."""
+    """{node name: width} of the sketched activation nodes: "res" in
+    monitor mode, else "ffn_in" and "ffn_h"; with mLSTM blocks, in
+    either mode, the carry nodes "mlstm_c" and "mlstm_n"."""
     if cfg.sketch_mode == "none":
         return {}
-    if "mlstm" in cfg.pattern:
-        raise NotImplementedError(f"{cfg.name}: the sketch groups of "
-                                  f"{RECURRENT_TRAINING}")
     if cfg.sketch_mode == "monitor":
-        return {"res": cfg.d_model}
-    groups = {"ffn_in": cfg.d_model}
-    if cfg.mlp_type in ("swiglu", "gelu"):
-        groups["ffn_h"] = cfg.d_ff
+        groups = {"res": cfg.d_model}
+    else:
+        groups = {"ffn_in": cfg.d_model}
+        if cfg.mlp_type in ("swiglu", "gelu"):
+            groups["ffn_h"] = cfg.d_ff
+    if "mlstm" in cfg.pattern:
+        _, H, dk, dv = ssm.mlstm_dims(cfg)
+        groups["mlstm_c"] = H * dk * dv
+        groups["mlstm_n"] = H * dk
     return groups
 
 
+def node_layers(name: str, cfg: ArchConfig) -> list[int]:
+    """The layers that update node ``name``, in the order of its stack:
+    every layer, or for a carry node the layers of its kind."""
+    kind = CARRY_NODE_KINDS.get(name)
+    return [l for l, k in enumerate(cfg.layer_types)
+            if kind is None or k == kind]
+
+
+def node_layer_count(cfg: ArchConfig, name: str) -> int:
+    """Stacked entries of node ``name``."""
+    return len(node_layers(name, cfg))
+
+
 def transformer_node_specs(cfg: ArchConfig) -> dict[str, NodeSpec]:
-    """One NodeSpec per node group, stacked over the layers."""
-    return {g: NodeSpec(width=w, layers=cfg.num_layers)
+    """One NodeSpec per node group, stacked over the layers that update
+    it."""
+    return {g: NodeSpec(width=w, layers=node_layer_count(cfg, g))
             for g, w in sketch_groups(cfg).items()}
 
 
@@ -297,6 +326,17 @@ def _update_triple(node: SketchNode, a: Tensor, proj, k_active,
     return new, new
 
 
+def _update_carry_triple(node: SketchNode, a: Tensor, proj, k_active,
+                         st: SketchSettings) -> SketchNode:
+    """A carry node's update on its B rows ``a`` (B, w): ``_update_triple``
+    against the projections' first B token rows. The reference pads
+    ``a`` with zero rows to the tree's binding instead, which adds
+    nothing to any increment. Returns the emitted node; carry nodes have
+    no consumer."""
+    return _update_triple(node, a, limit_rows(proj, a.shape[0]), k_active,
+                          st)[1]
+
+
 def _apply_sketched_mlp(p, x, cfg, sk, proj, omega, k_active,
                         st: SketchSettings):
     """Dense FFN with sketched backprop on both matmuls; returns (y,
@@ -322,15 +362,24 @@ def _apply_sketched_mlp(p, x, cfg, sk, proj, omega, k_active,
 
 
 def _apply_block(kind, p, x, *, cfg, positions, mode, cache, seq_len_ctx,
-                 sk=None, proj=None, omega=None, k_active=None,
+                 sk=None, carry=None, proj=None, omega=None, k_active=None,
                  st: SketchSettings = SketchSettings()):
     """One decoder block. ``sk`` holds this layer's nodes of the
-    sketched FFN in train mode. Returns (x, new_cache, new nodes)."""
+    sketched FFN in train mode, ``carry`` an mLSTM layer's carry nodes.
+    Returns (x, new_cache, new nodes)."""
     h = rmsnorm_apply(p["norm1"], x, cfg.norm_eps)
+    new_sk = {}
     if kind in ATTN_KINDS:
         mix, new_cache = attn.attn_apply(
             p["attn"], h, cfg=cfg, layer_type=kind, positions=positions,
             mode=mode, cache=cache, seq_len_ctx=seq_len_ctx)
+    elif kind == "mlstm" and carry:
+        mix, new_cache, (C, n) = ssm.mlstm_apply(
+            p["mix"], h, cfg=cfg, mode=mode, cache=cache, return_carry=True)
+        B = x.shape[0]
+        new_sk = {name: _update_carry_triple(carry[name], t.reshape(B, -1),
+                                             proj, k_active, st)
+                  for name, t in (("mlstm_c", C), ("mlstm_n", n))}
     elif kind == "mlstm":
         mix, new_cache = ssm.mlstm_apply(p["mix"], h, cfg=cfg, mode=mode,
                                          cache=cache)
@@ -339,13 +388,13 @@ def _apply_block(kind, p, x, *, cfg, positions, mode, cache, seq_len_ctx,
                                          cache=cache)
     x = x + mix
     if cfg.mlp_type == "none":
-        return x, new_cache, {}
+        return x, new_cache, new_sk
     h2 = rmsnorm_apply(p["norm2"], x, cfg.norm_eps)
     if sk is None:
-        return x + mlp_apply(p["mlp"], h2, cfg.mlp_type), new_cache, {}
-    y, new_sk = _apply_sketched_mlp(p["mlp"], h2, cfg, sk, proj, omega,
+        return x + mlp_apply(p["mlp"], h2, cfg.mlp_type), new_cache, new_sk
+    y, mlp_sk = _apply_sketched_mlp(p["mlp"], h2, cfg, sk, proj, omega,
                                     k_active, st)
-    return x + y, new_cache, new_sk
+    return x + y, new_cache, {**new_sk, **mlp_sk}
 
 
 def forward(
@@ -366,10 +415,11 @@ def forward(
     ``seq_len_ctx`` is the context length caches are sized for (decode
     must pass it; train, eval and prefill default to S). In train mode
     the "ffn_in"/"ffn_h" nodes of a backprop tree update and feed the
-    sketched FFN; under an active monitor, layer l's output (B*S, d)
-    updates "res" entry l. Whenever nodes update, the returned tree has
-    its step advanced; otherwise it comes back as given. ``aux`` (the
-    MoE balance loss of the reference) is 0 for these dense archs.
+    sketched FFN, and each mLSTM layer updates its "mlstm_c"/"mlstm_n"
+    entries; under an active monitor, layer l's output (B*S, d) updates
+    "res" entry l. Whenever nodes update, the returned tree has its step
+    advanced; otherwise it comes back as given. ``aux`` (the MoE balance
+    loss of the reference) is 0 for these archs.
     """
     _check_ported(cfg)
     if settings.dp_axis is not None:
@@ -377,8 +427,6 @@ def forward(
             "SketchSettings.dp_axis: one worker's forward cannot psum "
             "across workers; train.step runs the per-node layout as a "
             "dp_defer sweep, the merge and a dp_premerged sweep")
-    if mode == "train" and set(cfg.pattern) & set(RECURRENT_KINDS):
-        raise NotImplementedError(f"{cfg.name}: {RECURRENT_TRAINING}")
     B, S = tokens.shape
     dt = cfg.dtype
     d = cfg.d_model
@@ -392,33 +440,47 @@ def forward(
     nodes = sketch_state.nodes if sketch_state is not None else {}
     sketched = mode == "train" and "ffn_in" in nodes
     monitor = "res" in nodes and _monitor_active(mode, settings)
+    carried = mode == "train" and "mlstm_c" in nodes
+    live = [name for name in nodes
+            if (name in CARRY_NODE_KINDS and carried)
+            or (name == "res" and monitor)
+            or (name in ("ffn_in", "ffn_h") and sketched)]
     proj = k_active = omega = None
-    if sketched or monitor:
+    if live:
         proj, k_active = sketch_state.proj, sketch_state.k_active
-        new = {name: ([], [], []) for name in nodes}
     if sketched:  # psparse materialises omega: once a step, not per layer
         omega = proj["omega"]
+    # each live node's new (L, w, k) leaves, written entry by entry, and
+    # the stack entry each layer updates
+    new = {name: [torch.empty_like(getattr(nodes[name], a)) for a in "xyz"]
+           for name in live}
+    entry = {name: {l: i for i, l in enumerate(node_layers(name, cfg))}
+             for name in live}
+
+    def node_at(name, l):
+        n, i = nodes[name], entry[name][l]
+        return SketchNode(x=n.x[i], y=n.y[i], z=n.z[i], psi=n.psi[i])
 
     new_cache = [] if mode in ("prefill", "decode") else None
     for l, kind in enumerate(cfg.layer_types):
-        sk = ({name: SketchNode(x=n.x[l], y=n.y[l], z=n.z[l], psi=n.psi[l])
-               for name, n in nodes.items()} if sketched else None)
+        sk = ({name: node_at(name, l) for name in ("ffn_in", "ffn_h")
+               if name in nodes} if sketched else None)
+        carry = ({name: node_at(name, l) for name in CARRY_NODE_KINDS
+                  if l in entry.get(name, ())} if carried else None)
         x, nc, new_sk = _apply_block(
             kind, params["layers"][l], x, cfg=cfg, positions=positions,
             mode=mode, cache=cache[l] if cache is not None else None,
-            seq_len_ctx=seq_len_ctx, sk=sk, proj=proj, omega=omega,
-            k_active=k_active, st=settings)
+            seq_len_ctx=seq_len_ctx, sk=sk, carry=carry, proj=proj,
+            omega=omega, k_active=k_active, st=settings)
         if new_cache is not None:
             new_cache.append(nc)
         if monitor:
-            res = nodes["res"]
-            new_sk = {"res": _update_triple(
-                SketchNode(x=res.x[l], y=res.y[l], z=res.z[l],
-                           psi=res.psi[l]),
-                x.reshape(B * S, d), proj, k_active, settings)[1]}
+            new_sk["res"] = _update_triple(node_at("res", l),
+                                           x.reshape(B * S, d), proj,
+                                           k_active, settings)[1]
         for name, node in new_sk.items():
-            for acc, t in zip(new[name], (node.x, node.y, node.z)):
-                acc.append(t)
+            for buf, t in zip(new[name], (node.x, node.y, node.z)):
+                buf[entry[name][l]].copy_(t)
 
     x = rmsnorm_apply(params["final_norm"], x, cfg.norm_eps)
     if logits_only_last:
@@ -426,12 +488,11 @@ def forward(
     logits = unembed_apply(params["embed"], x, dt)
 
     new_sketch = sketch_state
-    if sketched or monitor:  # stacked in layer order, as the reference
-        new_nodes = {
-            name: SketchNode(x=torch.stack(new[name][0]),
-                             y=torch.stack(new[name][1]),
-                             z=torch.stack(new[name][2]), psi=n.psi)
-            for name, n in nodes.items()}
+    if live:
+        new_nodes = dict(nodes)
+        for name, (nx, ny, nz) in new.items():
+            new_nodes[name] = SketchNode(x=nx, y=ny, z=nz,
+                                         psi=nodes[name].psi)
         new_sketch = dataclasses.replace(sketch_state, nodes=new_nodes,
                                          step=sketch_state.step + 1)
     return {"logits": logits, "cache": new_cache,

@@ -10,7 +10,9 @@ import dataclasses
 
 import torch
 
+from repro_torch.optim.flat import _set_path
 from repro_torch.optim.flat import get_path as _get
+from repro_torch.optim.flat import leaf_paths
 from repro_torch.optim.flat import tree_leaves as _leaves
 from repro_torch.optim.flat import tree_like as _like
 
@@ -46,7 +48,11 @@ def adamw_update(params, grads, state, cfg: AdamWConfig, lr_scale=1.0):
     """Returns (new_params, new_state, metrics). The global-norm clip
     scales each gradient leaf as the update reads it, so no clipped copy
     of the gradients is held. ``grads=None`` is the update with zero
-    gradients, without a tree of zeros."""
+    gradients, without a tree of zeros. The update consumes ``grads``:
+    each leaf is set to None in it once read, so the gradients leave
+    memory as the new leaves arrive and the step's peak holds the old
+    and the new state, not the gradients beside them (8.5 GB at
+    xlstm-1.3b)."""
     if grads is None:
         gn = torch.zeros((), dtype=torch.float32,
                          device=_leaves(params)[0].device)
@@ -62,8 +68,10 @@ def adamw_update(params, grads, state, cfg: AdamWConfig, lr_scale=1.0):
     b2c = 1.0 - torch.pow(torch.tensor(cfg.b2, device=t.device), t)
     lr = cfg.lr * lr_scale
     new_p, new_m, new_v = [], [], []
-    for p, g, m, v in zip(_leaves(params), _leaves(grads),
-                          _leaves(state["m"]), _leaves(state["v"])):
+    for path, p, m, v in zip(leaf_paths(params), _leaves(params),
+                             _leaves(state["m"]), _leaves(state["v"])):
+        g = _get(grads, path)
+        _set_path(grads, path, None)
         if scale is not None:
             g = g * scale.to(g.dtype)
         gf = g.to(cfg.moment_dtype)

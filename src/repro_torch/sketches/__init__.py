@@ -13,8 +13,8 @@ from repro_torch.sketches.tree import (
 )
 from repro_torch.sketches.update import (
     active_mask, ema_apply_increment, ema_triple_increment,
-    ema_triple_update, mask_columns, pad_activation_rows, proj_num_tokens,
-    proj_triple_increment, proj_triple_update,
+    ema_triple_update, limit_rows, mask_columns, pad_activation_rows,
+    proj_num_tokens, proj_triple_increment, proj_triple_update,
 )
 
 __all__ = [
@@ -22,8 +22,9 @@ __all__ = [
     "active_mask", "ema_apply_increment", "ema_triple_increment",
     "ema_triple_update", "gaussian_projections", "init_node_tree",
     "init_paper_node", "init_psparse_projections", "is_psparse",
-    "mask_columns", "node_paths", "pad_activation_rows", "proj_num_tokens",
-    "proj_to", "proj_triple_increment", "proj_triple_update",
+    "limit_rows", "mask_columns", "node_paths", "pad_activation_rows",
+    "proj_num_tokens", "proj_to", "proj_triple_increment",
+    "proj_triple_update",
     "refresh_psparse_projections", "refresh_tree", "tree_memory_bytes",
     "tree_to", "zero_node_sketches", "zero_sketches",
 ]

@@ -55,6 +55,25 @@ def pad_activation_rows(a: Tensor, num_tokens: int) -> Tensor:
     return torch.nn.functional.pad(a, (0, 0, 0, num_tokens - rows))
 
 
+def limit_rows(proj, rows: int):
+    """The projections for an activation of ``rows`` rows, fewer than
+    the tree's binding T (a carry's B rows): the dense matrices' first
+    ``rows`` rows, or psparse projections as they are (their kernel
+    skips the support rows past the activation's). The update against
+    them is the update of the activation zero-padded to T rows
+    (``pad_activation_rows``), whose zero rows add nothing, without the
+    (T, d) pad."""
+    T = proj_num_tokens(proj)
+    if rows > T:
+        raise ValueError(
+            f"activation has {rows} rows but the sketch tree is bound "
+            f"to num_tokens={T}; re-init the tree with num_tokens >= the "
+            f"largest node's row count")
+    if rows == T or is_psparse(proj):
+        return proj
+    return {name: t[:rows] for name, t in proj.items()}
+
+
 def _f32(t: Tensor) -> Tensor:
     return t.to(torch.float32).contiguous()
 
@@ -120,7 +139,7 @@ def proj_triple_update(x_s, y_s, z_s, a, proj, psi, beta, k_active):
     ps = _f32(mask_columns(psi.to(torch.float32), k_active))
     outs = psparse_update(a.detach().contiguous(), _f32(x_s), _f32(y_s),
                           _f32(z_s), proj.params, ps, beta=float(beta),
-                          m=proj.m)
+                          m=proj.m, num_tokens=proj.num_tokens)
     return tuple(mask_columns(o.to(x_s.dtype), k_active) for o in outs)
 
 
@@ -136,7 +155,7 @@ def proj_triple_increment(x_s, y_s, z_s, a, proj, psi, beta, k_active):
     zeros = torch.zeros(x_s.shape, dtype=torch.float32, device=x_s.device)
     ix, iy, iz = psparse_update(a.detach().contiguous(), zeros, zeros,
                                 zeros, proj.params, ps, beta=float(beta),
-                                m=proj.m)
+                                m=proj.m, num_tokens=proj.num_tokens)
     return mask_columns(ix, k_active), mask_columns(iy, k_active), iz
 
 

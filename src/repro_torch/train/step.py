@@ -353,7 +353,14 @@ def _split_batch(batch: dict, workers: int) -> list[dict]:
             for w in range(workers)]
 
 
+RECURRENT_DP = ("data-parallel training of archs with recurrent blocks "
+                "is not ported yet: ROADMAP A15, xlstm data-parallel "
+                "training")
+
+
 def _make_dp_step(cfg: ArchConfig, run: RunConfig, cs_params) -> Callable:
+    if set(cfg.pattern) & set(transformer.RECURRENT_KINDS):
+        raise NotImplementedError(f"{cfg.name}: {RECURRENT_DP}")
     W, comp = run.dp_workers, run.compression
     groups = transformer.sketch_groups(cfg) if run.sketch.enabled else {}
     consumed = bool(groups) and "res" not in groups

@@ -383,10 +383,10 @@ def test_adamw_on_the_lm_tree_matches_reference():
         jnew, jst, jm = jax_adamw_update(jparams, jgrads, jst,
                                          JAdamWConfig(lr=1e-2), 0.5)
     params = interop.params_from_jax(_tree_np(jparams))
-    grads = interop.params_from_jax(_tree_np(jgrads))
     from repro_torch.optim.adamw import init_adamw
     st = init_adamw(params, AdamWConfig(lr=1e-2))
-    for _ in range(2):
+    for _ in range(2):   # the update consumes its gradient tree
+        grads = interop.params_from_jax(_tree_np(jgrads))
         new, st, m = adamw_update(params, grads, st, AdamWConfig(lr=1e-2),
                                   0.5)
     np.testing.assert_allclose(float(m["grad_norm"]), float(jm["grad_norm"]),

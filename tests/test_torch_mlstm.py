@@ -285,18 +285,6 @@ def test_init_cache_matches_reference_shapes():
              for k, t in layer.items()} for layer in got] == want
 
 
-def test_training_and_carry_groups_raise_naming_the_next_slice():
-    _, cfg = _cfg()
-    params = transformer.init_params(torch.Generator().manual_seed(0), cfg)
-    tokens = torch.zeros((1, 8), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="xlstm training"):
-        transformer.forward(params, tokens, cfg=cfg, mode="train")
-    with pytest.raises(NotImplementedError, match="mlstm_c/mlstm_n"):
-        transformer.sketch_groups(cfg)
-    with pytest.raises(NotImplementedError, match="mlstm_c/mlstm_n"):
-        transformer.transformer_node_specs(cfg)
-
-
 def test_decode_matches_parallel():
     """One-step recurrence == the eval forward at the last position (the
     port's own check, as test_ssm_rglru.py's for the reference)."""

@@ -153,6 +153,45 @@ def test_psparse_tile_edges_match_plain_version(T, d, k, dtype):
 
 
 @pytest.mark.requires_cuda
+@pytest.mark.parametrize("rows,T,d,dtype", [
+    (4, 2048, 50, torch.float32), (4, 2048, 5632, torch.float32),
+    (1, 2048, 1000, torch.bfloat16), (300, 1024, 136, torch.bfloat16),
+    (700, 1024, 1000, torch.float32)])
+def test_psparse_carry_rows_match_plain_version(rows, T, d, dtype):
+    """An A of fewer rows than the binding (a carry's B against the
+    tree's token rows): only the ``live_slots`` are summed, on the FMA
+    kernel, split where there are many; with no live slot the call is
+    the decay alone, beta S exactly."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    args = _device_inputs(rows, d, 9, dtype, seed=rows + d)[:4]
+    psi = torch.randn(9, device="cuda")
+    m = P.psparse_dim(T, 9, 0.1)
+    gen = torch.Generator().manual_seed(rows)
+    coeffs = P.psparse_hash_params(gen)
+    while not all(bool((P.psparse_rows(c, m, T) < rows).any())
+                  for c in coeffs):
+        coeffs = P.psparse_hash_params(gen)
+    got = P.psparse_update(*args, coeffs, psi, beta=BETA, m=m, num_tokens=T)
+    again = P.psparse_update(*args, coeffs, psi, beta=BETA, m=m,
+                             num_tokens=T)
+    want = P.psparse_update_ref(*args, coeffs, psi, beta=BETA, m=m,
+                                num_tokens=T)
+    for g, h, w in zip(got, again, want):
+        torch.testing.assert_close(g, w, rtol=TOL,
+                                   atol=TOL * float(w.abs().max()))
+        assert torch.equal(g, h), "two calls differ"
+    if rows > 4:   # some slot is live for nearly every draw
+        return
+    while bool(torch.cat([P.psparse_rows(c, m, T) for c in coeffs]).lt(
+            rows).any()):
+        coeffs = P.psparse_hash_params(gen)
+    got = P.psparse_update(*args, coeffs, psi, beta=BETA, m=m, num_tokens=T)
+    for g, s in zip(got, args[1:]):
+        assert torch.equal(g, BETA * s)
+
+
+@pytest.mark.requires_cuda
 @pytest.mark.parametrize("tc", [True, False], ids=["tensor_cores", "fma"])
 def test_psparse_every_slot_split_count(tc):
     """d 128, density 1 (m = T > 64 on the tensor cores): each split
