@@ -75,10 +75,10 @@ nvcc and nvidia-smi. Phases, each of which raises on failure:
    layers: 5 local with a 1024-token window, 1 global): 2 prompts of
    2048 tokens, 16 new tokens, a refill of 1100 tokens, max_context 2304,
    so the local layers' caches are rings and their attention skips tiles.
-   The same on xlstm-1.3b at full width and all 48 layers (42 mLSTM, 6
-   sLSTM; 2.12 B parameters, bf16): 8 prompts of 2048 tokens (eight
-   chunks), 32 new tokens, a 512-token refill, max_context 2304, and the
-   sLSTM loop's share of one more prefill;
+   The same on xlstm-1.3b at full width cut to two pattern periods (16
+   layers: 14 mLSTM, 2 sLSTM; XLSTM_SERVE_LAYERS): 8 prompts of 2048
+   tokens (eight chunks), 32 new tokens, a 512-token refill, max_context
+   2304, and the sLSTM loop's share of one more prefill;
 4. the serving engine on reduced tinyllama in f32 on the card and on the
    CPU, from the same weights and monitor state: equal tokens, and logits
    and sketches within rtol 1e-4, atol 1e-4; then reduced xlstm with
@@ -145,12 +145,15 @@ nvcc and nvidia-smi. Phases, each of which raises on failure:
    layouts (trees and losses bit for bit equal) and against the CPU;
 13. xlstm training (``phase_xlstm_train``): ``mlstm_chunk_bwd`` at
    MLSTM_BWD_CASES (xlstm-1.3b's train shapes B 4 x S 512 in bf16 and
-   f32 and B 1 x S 2048 with the model's forget gates, and a small case
-   where the denominator's exp(-m) branch wins) against its plain version on the same inputs
-   widened exactly, each gradient within rtol 1e-4, atol 1e-4 *
-   max|plain| (bf16 outputs with their one rounding on top:
-   ``mlstm_chunk.bwd_gap``), two calls equal bit for bit, timed beside
-   its bound (the f32 rate: every product on the FMA units) and its plain
+   f32 and B 1 x S 2048 with the model's forget gates, a small case
+   where the denominator's exp(-m) branch wins, and a narrow bf16 case
+   on the tensor cores with and without that branch) against its plain
+   version on the same inputs widened exactly, each gradient within rtol
+   1e-4, atol 1e-4 * max|plain| (bf16 outputs with their one rounding on
+   top: ``mlstm_chunk.bwd_gap``), two calls equal bit for bit, each row
+   with its path (the bf16 rows at xlstm's widths must take the tensor
+   cores), timed beside its path's bound (the tensor cores' products at
+   the bf16 rate, the FMA kernels' at the f32 rate) and its plain
    version, no library call; then xlstm-1.3b at full width and all 48
    layers (XLSTM_TRAIN: f32 parameters, bf16 compute, AdamW without the
    global-norm clip (XLSTM_GRAD_CLIP), monitor sketches with the
@@ -338,8 +341,10 @@ MLSTM_CASES = [
 # gates). xlstm-1.3b's train shapes (B 4 x S 512, two chunks, in bf16 as
 # the model runs and in f32; B 1 x S 2048, eight chunks) with the model's
 # forget gates, and a small case where the denominator's exp(-m) branch
-# wins on some rows. "model": lf = logsigmoid(b_h + N(0, 1)) with the
-# model's forget biases b_h = linspace(3, 6) over the heads (models/ssm.py),
+# wins on some rows, and a narrow tensor-core case (Dv 128, four 64-token
+# chunks) with and without that branch. "model": lf = logsigmoid(b_h +
+# N(0, 1)) with the model's forget biases b_h = linspace(3, 6) over the
+# heads (models/ssm.py),
 # a decay of e^-0.6 to e^-12.5 over a 256-token chunk, so the dC carried
 # into an earlier chunk is large; "steep": logsigmoid(N(0, 1) + 2), e^-33
 # a 256-token chunk, for short chunks only
@@ -348,7 +353,11 @@ MLSTM_BWD_CASES = [
     ("train_f32", 4, 4, 512, 512, 1024, 256, "float32", 0.0, "model"),
     ("ctx_bf16", 1, 4, 2048, 512, 1024, 256, "bfloat16", 0.0, "model"),
     ("floor_branch", 1, 2, 64, 8, 16, 16, "float32", -8.0, "steep"),
+    ("narrow_tc", 1, 2, 256, 512, 128, 64, "bfloat16", 0.0, "steep"),
+    ("narrow_tc_floor", 1, 2, 256, 512, 128, 64, "bfloat16", -8.0, "steep"),
 ]
+# the MLSTM_BWD_CASES rows that must take the tensor cores
+MLSTM_BWD_TC = ("train_bf16", "ctx_bf16", "narrow_tc", "narrow_tc_floor")
 # xlstm-1.3b trained at full width and all 48 layers (f32 parameters,
 # bf16 compute, AdamW with warmup-cosine, monitor sketches with the
 # mlstm_c/mlstm_n carry nodes): B 4 x S 512 (two mLSTM chunks), STEPS
@@ -388,10 +397,13 @@ XLSTM_GRAD_CLIP = 0.0
 # at chunk 16 crosses three chunk boundaries, held at 3x the largest of
 # its readings
 XLSTM_DVC_STEPS = [(16, 256, TOL), (64, 16, 5e-3)]
-# xlstm-1.3b served at full width and depth: 2048-token prompts (eight
-# chunks), 32 new tokens, a 512-token refill (two chunks, one request)
+# xlstm-1.3b served at full width: 2048-token prompts (eight chunks), 32
+# new tokens, a 512-token refill (two chunks, one request); cut in depth
+# to two 7:1 pattern periods (16 layers) to keep the script inside its
+# time limit (phase 13 trains all 48)
 XLSTM_SERVE = dict(batch=8, prompt_len=2048, new_tokens=32, refill_len=512,
                    max_context=2304)
+XLSTM_SERVE_LAYERS = 16
 # reduced models amplify rounding over long prompts: at 512 tokens the JAX
 # reference's own logits move by 7.3e-4 of their max when only its mLSTM
 # chunk changes, the port's CPU prefill reads 7.2e-4 against it, and one
@@ -463,7 +475,14 @@ RECON_TOL = 1e-3
 # shows them
 INSERT_KERNELS = ("csvec_insert_bin_records", "csvec_insert_sum_bins")
 RING_KERNELS = ("ring_fold_f32", "ring_amax0_int8", "ring_level_int8")
+# mlstm_chunk_bwd's kernels, both paths (not the flash backward's)
+MLSTM_BWD_KERNELS = (r"(?<!flash_)bwd_(gates|n|states|scores|dn|sweep|dqdk|dv|"
+                     r"grads)_(kernel|tc)")
 PROFILE_TRIES = 3       # profiles of a timing before a short count is taken
+# calls a timing's device profile holds at most (its CUDA-event timing
+# runs them all): torch.profiler's records of many calls cost the host
+# more than the calls do
+PROFILE_CALLS = 50
 SPIN_CYCLES = 2_000_000  # about 1 ms of torch.cuda._sleep at 1.98 GHz
 
 
@@ -512,18 +531,20 @@ def _device_kernels(fn, calls: int) -> dict[str, tuple[int, float]] | None:
 
 
 def time_ms(fn, iters: int, warmup: int = 10) -> tuple[float, float]:
-    """(device ms, call ms) of one call of ``fn``, each a mean over
-    ``iters`` calls after ``warmup``. Call ms comes from CUDA events
-    around the loop, so it includes the host's enqueue time where that
-    is longer (small shapes). Device ms sums the kernels that
-    torch.profiler records, and is the call ms when it records none.
+    """(device ms, call ms) of one call of ``fn``. Call ms is a mean over
+    ``iters`` calls after ``warmup``, from CUDA events around the loop,
+    so it includes the host's enqueue time where that is longer (small
+    shapes). Device ms sums the kernels that torch.profiler records over
+    min(iters, PROFILE_CALLS) calls, a mean a call, and is the call ms
+    when it records none. ``time_ms.source`` then says which it is:
+    "profile", "scaled" (below) or "call".
 
-    Each kernel's records over the ``iters`` calls must number ``iters``
-    times its records in a profile of one call, or both profiles are
-    taken again, up to PROFILE_TRIES times: a profile that lost records
-    would understate device ms. If the counts never agree, each kernel
-    counts as the mean of its kept records times the most records a
-    one-call profile kept, and the shortfall is logged."""
+    Each kernel's records over those calls must number as many times its
+    records in a profile of one call, or both profiles are taken again,
+    up to PROFILE_TRIES times: a profile that lost records would
+    understate device ms. If the counts never agree, each kernel counts
+    as the mean of its kept records times the most records a one-call
+    profile kept, and the shortfall is logged."""
     import torch
     for _ in range(warmup):
         fn()
@@ -535,32 +556,40 @@ def time_ms(fn, iters: int, warmup: int = 10) -> tuple[float, float]:
     end.record()
     torch.cuda.synchronize()
     call_ms = start.elapsed_time(end) / iters
+    calls = min(iters, PROFILE_CALLS)
     per_call: dict[str, int] = {}
     seen = None
     for _ in range(PROFILE_TRIES):
-        one, many = _device_kernels(fn, 1), _device_kernels(fn, iters)
+        one, many = _device_kernels(fn, 1), _device_kernels(fn, calls)
         if one is None or many is None:
             continue
         if not one and not many:
+            time_ms.source = "call"
             return call_ms, call_ms
         for name, (n, _) in one.items():
             per_call[name] = max(per_call.get(name, 0), n)
         seen = many
-        if {k: iters * n for k, n in per_call.items()} == {
+        if {k: calls * n for k, n in per_call.items()} == {
                 k: n for k, (n, _) in seen.items()}:
-            return sum(us for _, us in seen.values()) / 1e3 / iters, call_ms
+            time_ms.source = "profile"
+            return sum(us for _, us in seen.values()) / 1e3 / calls, call_ms
     if not seen:
         log(f"time_ms: torch.profiler lost its markers in {PROFILE_TRIES} "
             f"profiles; device ms is the call ms")
+        time_ms.source = "call"
         return call_ms, call_ms
-    want = {k: per_call.get(k, max(1, round(n / iters))) for k, (n, _)
+    want = {k: per_call.get(k, max(1, round(n / calls))) for k, (n, _)
             in seen.items()}
     log(f"time_ms: torch.profiler kept {sum(n for n, _ in seen.values())} "
-        f"kernel records where {iters} calls make "
-        f"{iters * sum(want.values())}, in each of {PROFILE_TRIES} tries; "
+        f"kernel records where {calls} calls make "
+        f"{calls * sum(want.values())}, in each of {PROFILE_TRIES} tries; "
         f"device ms from the mean of each kernel's kept records")
+    time_ms.source = "scaled"
     return sum(us / n * want[k] for k, (n, us) in seen.items()) / 1e3, \
         call_ms
+
+
+time_ms.source = None
 
 
 def graph_ms(fn, iters: int = 100, replays: int = 5) -> float:
@@ -621,10 +650,12 @@ def measure(name: str, case: dict, kernel, plain, library, bound) -> dict:
         if not torch.equal(g, h):
             raise AssertionError(f"{name} {case}: two calls differ")
     ms, call_ms = time_ms(kernel, 200)
+    ms_from = time_ms.source
     plain_ms, plain_call_ms = time_ms(plain, 200)
     lib_ms, lib_call_ms = time_ms(library, 200)
     bound_ms, bound_by = bound
-    row = dict(case, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+    row = dict(case, max_abs_err=err, ms=ms, ms_from=ms_from,
+               plain_ms=plain_ms,
                library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by,
                call_ms=call_ms, plain_call_ms=plain_call_ms,
                library_call_ms=lib_call_ms)
@@ -1294,23 +1325,21 @@ def phase_saved_bytes(dev, B=4, Hq=32, Hkv=4, S=2048, D=64) -> dict:
 
 def mlstm_bound(B, H, S, Dk, Dv, W, elem: int,
                 tensor_cores: bool) -> tuple[float, str, float]:
-    """(bound_ms, bound_by, f32_bound_ms). The f32 bound, the FMA
-    kernels' arithmetic: W (W + 1) (Dk + Dv) + 4 W Dk Dv operations a
-    chunk of a (b, h) (causal q k^T and s v, q C and the C update) at
-    the f32 rate. The tensor-core kernels' bound: W^2 Dk (causal q k^T)
-    + 2 W^2 Dv (causal s v, s split into bf16 hi and lo) + 8 W Dk Dv (q
-    C and the update, C and w v split) at the bf16 rate. Bytes: q, k, v
-    read once in their type, li and lf in f32, h, C, n, m written once
-    in f32. bound_ms is the path's own."""
+    """(bound_ms, bound_by, f32_bound_ms). Operations: W (W + 1) (Dk +
+    Dv) + 4 W Dk Dv a chunk of a (b, h) (causal q k^T and s v, q C and
+    the C update), each product counted once, at the bf16 rate on the
+    tensor-core path and at the f32 rate (the FMA kernels' arithmetic;
+    f32_bound_ms on both paths). The tensor-core kernels split s, C and
+    w v into bf16 hi and lo, two products each: the design's own work,
+    not in the bound. Bytes: q, k, v read once in their type, li and lf
+    in f32, h, C, n, m written once in f32."""
     nc = S // W
-    f32_flops = B * H * nc * (W * (W + 1) * (Dk + Dv) + 4 * W * Dk * Dv)
-    tc_flops = B * H * nc * (W * W * Dk + 2 * W * W * Dv + 8 * W * Dk * Dv)
+    flops = B * H * nc * (W * (W + 1) * (Dk + Dv) + 4 * W * Dk * Dv)
     nbytes = (B * H * S * (2 * Dk + Dv) * elem + 2 * B * H * S * 4
               + 4 * B * H * (S * Dv + Dk * Dv + Dk + 1))
     t_b = nbytes / PEAK_BYTES_S
-    t_f32 = max(t_b, f32_flops / PEAK_F32_FLOP_S)
-    t_o = tc_flops / PEAK_BF16_FLOP_S if tensor_cores else \
-        f32_flops / PEAK_F32_FLOP_S
+    t_f32 = max(t_b, flops / PEAK_F32_FLOP_S)
+    t_o = flops / (PEAK_BF16_FLOP_S if tensor_cores else PEAK_F32_FLOP_S)
     return (t_b * 1e3, "bytes", t_f32 * 1e3) if t_b >= t_o else (
         t_o * 1e3, "operations", t_f32 * 1e3)
 
@@ -3150,19 +3179,28 @@ def phase_paper_experiments(dev) -> dict:
     return out
 
 
-def mlstm_bwd_bound(B, H, S, Dk, Dv, W, elem: int) -> tuple[float, str]:
-    """(bound_ms, bound_by) of one mlstm_chunk_bwd call: its operations
-    (``mlstm_chunk.mlstm_bwd_flops``: the causal products and the state
-    products, recomputed states included) at the f32 rate, as the kernels
-    run every product on the FMA units; bytes: q, k, v read once in their
-    type, li, lf, h and dh in f32, dq, dk, dv written once in their type
-    and dli, dlf in f32."""
+def mlstm_bwd_bound(B, H, S, Dk, Dv, W, elem: int,
+                    tensor_cores: bool) -> tuple[float, str, float]:
+    """(bound_ms, bound_by, f32_bound_ms) of one mlstm_chunk_bwd call.
+    Operations: ``mlstm_chunk.mlstm_bwd_flops``, the function's causal
+    products and state products (recomputed states included) each
+    counted once, at the bf16 rate on the tensor-core path and at the
+    f32 rate (the FMA kernels' arithmetic; f32_bound_ms on both paths).
+    The tensor-core kernels' extra products (each split two or three
+    times, full tiles past the causal half: ``mlstm_bwd_tc_flops``) are
+    the design's own work, not the function's, and are not in the
+    bound. Bytes: q, k, v read once in their type, li, lf, h and dh in
+    f32, dq, dk, dv written once in their type and dli, dlf in f32."""
     from repro_torch.kernels.mlstm_chunk import mlstm_bwd_flops
-    flops = mlstm_bwd_flops(B, H, S, Dk, Dv, W)
     nbytes = (2 * B * H * S * (2 * Dk + Dv) * elem
               + 4 * B * H * S * (4 + 2 * Dv))
-    t_b, t_o = nbytes / PEAK_BYTES_S, flops / PEAK_F32_FLOP_S
-    return (t_b * 1e3, "bytes") if t_b >= t_o else (t_o * 1e3, "operations")
+    t_b = nbytes / PEAK_BYTES_S
+    flops = mlstm_bwd_flops(B, H, S, Dk, Dv, W)
+    t_f32 = flops / PEAK_F32_FLOP_S
+    t_o = flops / PEAK_BF16_FLOP_S if tensor_cores else t_f32
+    f32_ms = max(t_b, t_f32) * 1e3
+    return (t_b * 1e3, "bytes", f32_ms) if t_b >= t_o else (
+        t_o * 1e3, "operations", f32_ms)
 
 
 def phase_mlstm_bwd(dev) -> list[dict]:
@@ -3172,7 +3210,10 @@ def phase_mlstm_bwd(dev) -> list[dict]:
     with their one rounding on top) and against a second call of itself
     (bit for bit: no atomics), then timed beside its bound and the plain
     version. h comes from the forward kernel, v is a view of (B, S, H, Dv)
-    storage, as in the model. No one PyTorch call computes the function:
+    storage, as in the model. Each row names its path
+    (``uses_tensor_cores``); the MLSTM_BWD_TC rows must take the tensor
+    cores, and where the profiler kept the kernels' names, those of the
+    tensor-core kernels. No one PyTorch call computes the function:
     library_ms is None."""
     import torch
     from repro_torch.kernels import mlstm_chunk as MC
@@ -3213,22 +3254,36 @@ def phase_mlstm_bwd(dev) -> list[dict]:
         it, plain_it = (10, 3) if big else (100, 10)
         ms, call_ms = time_ms(lambda: MC.mlstm_chunk_bwd(*args, chunk=chunk),
                               it, 2)
+        ms_from = time_ms.source
         plain_ms, plain_call_ms = time_ms(
             lambda: MC.mlstm_chunk_bwd_plain(*args, chunk=chunk), plain_it, 1)
-        bound_ms, bound_by = mlstm_bwd_bound(B, H, S, Dk, Dv, min(chunk, S),
-                                             q.element_size())
+        tc = MC.uses_tensor_cores(q, k, v, chunk)
+        if tc != (label in MLSTM_BWD_TC):
+            raise AssertionError(f"mlstm_chunk_bwd {label}: tensor cores "
+                                 f"{tc}, expected {label in MLSTM_BWD_TC}")
+        bound_ms, bound_by, f32_bound_ms = mlstm_bwd_bound(
+            B, H, S, Dk, Dv, min(chunk, S), q.element_size(), tc)
         split = _device_kernels(
             lambda: MC.mlstm_chunk_bwd(*args, chunk=chunk), 3) if big \
             else None
+        us_by_kernel = split and {
+            (re.search(r"bwd_[a-z]+_(kernel|tc)", n) or [n])[0]: us / 3
+            for n, (_, us) in split.items()}
+        if us_by_kernel and tc != ("bwd_sweep_tc" in us_by_kernel):
+            raise AssertionError(f"mlstm_chunk_bwd {label}: kernels "
+                                 f"{sorted(us_by_kernel)} on the path "
+                                 f"tensor cores {tc}")
         rows.append(dict(
             case=label, B=B, H=H, S=S, Dk=Dk, Dv=Dv, W=min(chunk, S),
-            dtype=dt, forget_gates=gates, gaps=gaps, abs_err=abs_errs,
-            max_abs_err=max(abs_errs.values()), ms=ms, plain_ms=plain_ms,
-            library_ms=None, bound_ms=bound_ms, bound_by=bound_by,
+            dtype=dt, forget_gates=gates,
+            path="tensor_cores" if tc else "fma", gaps=gaps,
+            abs_err=abs_errs, max_abs_err=max(abs_errs.values()), ms=ms,
+            ms_from=ms_from, plain_ms=plain_ms, library_ms=None,
+            bound_ms=bound_ms, bound_by=bound_by, f32_bound_ms=f32_bound_ms,
+            issued_gflop=MC.mlstm_bwd_tc_flops(
+                B, H, S, Dk, Dv, min(chunk, S)) / 1e9 if tc else None,
             call_ms=call_ms, plain_call_ms=plain_call_ms,
-            us_by_kernel=split and {
-                (re.search(r"bwd_[a-z]+_kernel", n) or [n])[0]: us / 3
-                for n, (_, us) in split.items()}))
+            us_by_kernel=us_by_kernel))
         log(f"mlstm_chunk_bwd {json.dumps(rows[-1])}")
         del q, k, v, li, lf, h, dh, args, wide
         torch.cuda.empty_cache()
@@ -3368,8 +3423,7 @@ def xlstm_run(dev, cfg, proj_kind: str, steps: int, batch: int,
         tokens, labels = host_batch(pipe, steps, device=dev)
         state, out["profile"] = _profile_step(
             state, step, {"tokens": tokens, "labels": labels},
-            groups={"mlstm_chunk_bwd":
-                    r"bwd_(gates|states|scores|sweep|dqdk|grads)_kernel",
+            groups={"mlstm_chunk_bwd": MLSTM_BWD_KERNELS,
                     "mlstm_chunk": r"mlstm_(gates|scores|state|n)_(kernel|tc)"})
         out["profile"]["idle_share"] = max(
             0.0, 1 - out["profile"]["device_ms"] / out["step_ms"])
@@ -3527,9 +3581,11 @@ def main() -> int:
     serve_gemma = timed("serve_gemma3", phase_serve, dev, gemma, batch=2,
                         prompt_len=2048, new_tokens=16, refill_len=1100,
                         max_context=2304)
-    # xlstm-1.3b at full width and all 48 layers, random bf16 weights
+    # xlstm-1.3b at full width, two pattern periods, random bf16 weights
     serve_xlstm = timed("serve_xlstm", phase_serve, dev,
-                        get_arch("xlstm-1.3b"), **XLSTM_SERVE)
+                        dataclasses.replace(get_arch("xlstm-1.3b"),
+                                            num_layers=XLSTM_SERVE_LAYERS),
+                        **XLSTM_SERVE)
     dvc = timed("device_vs_cpu", phase_device_vs_cpu, dev)
     # reduced xlstm, two 256-token chunks a prompt
     dvc_xlstm = timed("device_vs_cpu_xlstm", phase_device_vs_cpu, dev,

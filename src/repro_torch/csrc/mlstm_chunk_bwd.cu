@@ -7,8 +7,8 @@
 // v (B, H, S, Dv) in f32 or bf16 with any b/h/s strides and unit stride
 // along the last dimension; li, lf (B, H, S) f32; h and its gradient dh
 // (B, H, S, Dv) f32, contiguous. Out: dq, dk, dv in the inputs' type and
-// dli, dlf f32, all contiguous; C, n and m carry no gradient. Every
-// product runs in f32 on the FMA units and each output is rounded once.
+// dli, dlf f32, all contiguous; C, n and m carry no gradient. Each
+// output is rounded once.
 //
 // The stabilisers are constants (h is the unstabilised num over max(|den|,
 // 1) whatever m is), so with the forward's F, D, S, e (inter-chunk
@@ -25,8 +25,11 @@
 // + de e - dw w, plus dg g + sum_t dw_t w_t at the chunk's last row;
 // dli = colsum(dwlog) + dw w; dlf is the reversed in-chunk sum of dF.
 //
-// Six kernels, in order on the caller's stream, through one f32 scratch
-// buffer that the wrapper allocates (mlstm_chunk_bwd_workspace floats):
+// Two paths. bf16 inputs at xlstm's widths take the tensor cores
+// (namespace tc below: nine kernels, the products on wgmma). Every other
+// input takes six FMA kernels, every product in f32, in order on the
+// caller's stream, through one f32 scratch buffer that the wrapper
+// allocates (mlstm_chunk_bwd_workspace floats):
 //   gates    one block per (b, h): F, the chain of m, w, g, and each row's
 //            mj and e, as the forward's gates and scores kernels take them.
 //   states   one block per (b, h) and 32 value columns: C_c[:, cols] and
@@ -41,8 +44,9 @@
 //   dqdk     one block per 64 rows and 64 key columns of a chunk: dq, dk
 //            and the rows' partial de and dw over those columns.
 //   grads    one block per (b, h): dli and dlf.
-// Bound on an H100 SXM, per chunk of a (b, h): the causal products P, dnum
-// v^T, S^T dnum, dP k and dP^T q (W (W + 1) (3 Dk + 2 Dv) operations) and
+// The FMA path's bound on an H100 SXM, per chunk of a (b, h): the causal
+// products P, dnum v^T, S^T dnum, dP k and dP^T q (W (W + 1) (3 Dk + 2 Dv)
+// operations) and
 // the state products (C_c dnum, dC v, k dC, the dC update and the
 // recomputed C update: 10 W Dk Dv) at 67 TFLOP/s: at B 4, H 4, S 512, Dk
 // 512, Dv 1024, W 256 that is 50.5 GFLOP, 0.75 ms, against 0.04 ms of
@@ -53,6 +57,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "mlstm_tc.cuh"
 
 namespace {
 
@@ -93,7 +99,13 @@ struct Work {
                                   // dC at its end
 };
 
-Dims make_dims(int B, int H, int S, int Dk, int Dv, int W) {
+// tc: the tensor-core path's partial sums (two 256-wide key tiles for
+// de and dw; dg's terms: one a (64 value, 256 key) state tile, then one
+// a 32 key columns of dn)
+Dims make_dims(int B, int H, int S, int Dk, int Dv, int W, bool tc) {
+  if (tc)
+    return Dims{B, H, S, Dk, Dv, W, S / W, W / RB, Dk / 256,
+                Dv / 64 * (Dk / 256) + Dk / 32};
   return Dims{B, H, S, Dk, Dv, W, S / W, (W + RB - 1) / RB,
               (Dk + DKB - 1) / DKB, (Dv + DVB - 1) / DVB};
 }
@@ -180,18 +192,28 @@ __global__ void bwd_gates_kernel(const float* __restrict__ li,
     }
     m_end = m;
   }
-  __syncthreads();
-  for (int i = threadIdx.x; i < S; i += blockDim.x) {
-    const int c = i / W, t0 = c * W;
-    const float ftot = Fb[t0 + W - 1];
+  // each chunk's F and li in shared memory, its rows in parallel
+  __shared__ float Fs[WMAX], ls[WMAX];
+  for (int c = 0; c < nc; ++c) {
+    const int t0 = c * W;
+    __syncthreads();
+    for (int r = threadIdx.x; r < W; r += blockDim.x) {
+      Fs[r] = Fb[t0 + r];
+      ls[r] = lib[t0 + r];
+    }
+    __syncthreads();
+    const float ftot = Fs[W - 1];
     const float mn = c + 1 < nc ? ms[c + 1] : m_end;
-    w.wkv[bh * S + i] = expf(((ftot - Fb[i]) + lib[i]) - mn);
-    float mx = -INFINITY;
-    for (int t = t0; t <= i; ++t) mx = fmaxf(mx, (Fb[i] - Fb[t]) + lib[t]);
-    const float bi = Fb[i] + ms[c];
-    const float mj = fmaxf(mx, bi);
-    w.mj[bh * S + i] = mj;
-    w.inter[bh * S + i] = expf(bi - mj);
+    for (int r = threadIdx.x; r < W; r += blockDim.x) {
+      const long long i = bh * S + t0 + r;
+      w.wkv[i] = expf(((ftot - Fs[r]) + ls[r]) - mn);
+      float mx = -INFINITY;
+      for (int u = 0; u <= r; ++u) mx = fmaxf(mx, (Fs[r] - Fs[u]) + ls[u]);
+      const float bi = Fs[r] + ms[c];
+      const float mj = fmaxf(mx, bi);
+      w.mj[i] = mj;
+      w.inter[i] = expf(bi - mj);
+    }
   }
 }
 
@@ -979,10 +1001,986 @@ cudaError_t launch(const void* q_, const void* k_, const void* v_,
   return cudaGetLastError();
 }
 
-bool dims_ok(int B, int H, int S, int Dk, int Dv, int W) {
+// ---------------------------------------------------------------------
+// The tensor-core path (namespace tc): bf16 q, k, v with Dk 512, Dv and
+// W multiples of 64, 16-byte aligned rows (the wrapper's
+// uses_tensor_cores, as the forward's). Nine kernels in order on the
+// caller's stream, through the same scratch buffer, whose f32 regions
+// for S, dP, C_c and dC hold bf16 hi and lo halves instead:
+//   gates   the FMA path's bwd_gates_kernel.
+//   n       one block per (32 key columns, b, h): n_c at each chunk's
+//           start, w_t k_t summed down the chunk by 16 lanes (f32 FMAs).
+//   states  one warpgroup per (64 value columns, 256 key columns, b, h):
+//           C_c^T in the accumulator registers across the chunks, the
+//           forward's C update C^T = g C^T + ((w v)^T hi + lo) k on
+//           wgmma (m64n256, k read MN-major); C_c written as hi and lo at
+//           each chunk's start, (B H nc, Dv, Dk).
+//   scores  one warpgroup per 64 rows of a chunk: P = q k^T (exact bf16
+//           products), S = scale P D, den, M, dden; then dnum v^T with
+//           dnum = dh / M split into hi + lo in registers (v read
+//           K-major), dS, scale dP = scale dS D and dwlog = dS S; S and
+//           scale dP written as hi and lo (W x W a chunk, zeros above the
+//           diagonal), M, dden, dwlog's row sums and its column sums.
+//   dn      as n, in reverse: dn at each chunk's end from e_j scale dden_j
+//           q_j, and <dn, n_c> over its 32 columns.
+//   sweep   as states, in reverse: dC^T = g dC^T + (e scale dnum)^T q,
+//           dnum from dh split in registers, q read MN-major; dC at each
+//           chunk's end written as hi and lo, and <dC, C_c> a block.
+//   dqdk    one warpgroup per 64 rows of a chunk and 256 key columns, dq
+//           or dk (four blocks a row block): dq = scale e (C_c dnum +
+//           dden n_c) + (scale dP) k, C_c dnum from dnum split in
+//           registers and C_c hi, lo (three products); dk = w (dC v + dn)
+//           + (scale dP)^T q, dP^T read MN-major from dP's rows; the
+//           rows' partial de and dw over those columns.
+//   dv      one warpgroup per 64 value columns of a chunk: dv^T = w (dC^T
+//           k^T) + dnum^T S over all the chunk's keys (m64n256), S read
+//           MN-major, dnum^T split in registers (three products).
+//   grads   the FMA path's bwd_grads_kernel.
+// Every f32 operand of a product is carried as bf16 hi + lo, about 2^-17
+// of |x| (one bf16 or TF32 rounding would miss the 1e-4 allowance):
+// two products where the other operand is exact in bf16 (q, k, v), three
+// (hi hi + hi lo + lo hi) where both are f32 (dnum against C_c and S).
+// The states and the sweep walk each (b, h)'s chunks in series, its
+// state split over (Dv / 64) x 2 (value, key) tiles: 512 blocks at B 4 x
+// S 512 and 128 at B 1 x S 2048 (an H100 has 132 SMs); no partial sum
+// crosses blocks but the rows' de, dw and dg terms, which grads adds in a
+// fixed order (no atomics). Bound on an H100 SXM: the products as run
+// (mlstm_chunk.mlstm_bwd_tc_flops, the splits counted two or three
+// times) at 989 TFLOP/s: 106.3 GFLOP, 0.11 ms at B 4 x S 512, and 119.2
+// GFLOP, 0.12 ms at B 1 x S 2048 (Dk 512, Dv 1024, W 256).
+// ---------------------------------------------------------------------
+namespace tc {
+
+using namespace mlstm_tc;
+
+constexpr int DK = 512;           // key width
+constexpr int DT = 256;           // key columns of a state, dq or dk block
+constexpr int NDT = DK / DT;      // key tiles
+constexpr int XT = 64;            // value columns of a state or dv block
+constexpr int LDR = 72;           // f32 row of a dh tile read along rows
+constexpr int LDC = 68;           // f32 row of a dh tile read down columns
+constexpr int VLD = 72;           // bf16 row of a v tile read down columns
+constexpr int NL = 16;            // lanes down the rows of an n column
+
+// the bf16 hi and lo halves of a scratch region of n f32
+struct Split {
+  bf16 *hi, *lo;
+  __host__ __device__ Split(float* p, long long n)
+      : hi(reinterpret_cast<bf16*>(p)), lo(reinterpret_cast<bf16*>(p) + n) {}
+};
+
+__device__ __forceinline__ float val(float x) { return x; }
+__device__ __forceinline__ float val(bf16 x) { return __bfloat162float(x); }
+
+// hi + lo of a packed pair's element e
+__device__ __forceinline__ float hilo(uint32_t hi, uint32_t lo, int e) {
+  return e ? bf(hi >> 16) + bf(lo >> 16) : bf(hi & 0xffffu) + bf(lo & 0xffffu);
+}
+
+// A fragment of k-step kk from an f32 tile read along its rows: element
+// (m, k) is a[m * LDR + k] / den[m] (dnum = dh / M), split into hi + lo
+__device__ __forceinline__ void frag_rows(const float* a, const float* den,
+                                          int kk, int w, int lane,
+                                          uint32_t (&hi)[4],
+                                          uint32_t (&lo)[4]) {
+#pragma unroll
+  for (int x = 0; x < 4; ++x) {
+    const int m = 16 * w + lane / 4 + 8 * (x & 1);
+    const int k = 16 * kk + 2 * (lane % 4) + 8 * (x >> 1);
+    const float2 p = *reinterpret_cast<const float2*>(a + m * LDR + k);
+    split2(p.x / den[m], p.y / den[m], hi[x], lo[x]);
+  }
+}
+
+// A fragment of k-step kk from a tile read down its columns: element (m,
+// k) is a[k * ld + m] * coef[k], split into hi + lo
+template <typename T>
+__device__ __forceinline__ void frag_cols(const T* a, int ld,
+                                          const float* coef, int kk, int w,
+                                          int lane, uint32_t (&hi)[4],
+                                          uint32_t (&lo)[4]) {
+#pragma unroll
+  for (int x = 0; x < 4; ++x) {
+    const int m = 16 * w + lane / 4 + 8 * (x & 1);
+    const int k = 16 * kk + 2 * (lane % 4) + 8 * (x >> 1);
+    split2(val(a[k * ld + m]) * coef[k], val(a[(k + 1) * ld + m]) * coef[k + 1],
+           hi[x], lo[x]);
+  }
+}
+
+// 64 rows of 64 f32 from `src` (row stride `ld`) into a tile of row
+// stride `lds`, 16 bytes a cp.async
+__device__ __forceinline__ void load_f32(float* tile, int lds,
+                                         const float* src, long long ld,
+                                         int tid) {
+  for (int e = tid; e < 64 * 16; e += 128) {
+    const int r = e >> 4, c4 = e & 15;
+    cp_async16(tile + r * lds + c4 * 4, src + r * ld + c4 * 4, 16);
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void zero(float (&a)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) a[i] = 0.f;
+}
+
+// ---- n and dn: n at each chunk's start, dn at each chunk's end ----
+
+// out[c] = the sum so far; then sum = decay_c sum + mult sum_t c1_t c2_t
+// x_t over chunk c's rows, the chunks in order (REV: in reverse, with
+// <out[c], dot[c]> over this block's columns into dg_p[c * ndv + slot])
+template <bool REV>
+__device__ __forceinline__ void nvec_body(
+    const bf16* __restrict__ x, Strides sx, const float* __restrict__ c1,
+    const float* __restrict__ c2, float mult, const float* __restrict__ decay,
+    float* __restrict__ out, const float* __restrict__ dot,
+    float* __restrict__ dg_p, int ndv, int slot, int H, int S, int Dk,
+    int W, int nc) {
+  __shared__ float part[NL][33];
+  const int lane = threadIdx.x & 31, tl = threadIdx.x >> 5;
+  const int d = blockIdx.x * 32 + lane;
+  const int bh = blockIdx.y, b = bh / H, hh = bh % H;
+  const bf16* xh = x + b * sx.b + hh * sx.h;
+  const float* c1b = c1 + (long long)bh * S;
+  const float* c2b = c2 + (long long)bh * S;
+  float n = 0.f;
+  for (int s = 0; s < nc; ++s) {
+    const int c = REV ? nc - 1 - s : s;
+    float acc = 0.f;
+    if (d < Dk)
+      for (int t = c * W + tl; t < (c + 1) * W; t += NL)
+        acc = fmaf(REV ? c1b[t] * c2b[t] : c1b[t],
+                   __bfloat162float(xh[t * sx.s + d]), acc);
+    part[tl][lane] = acc;
+    __syncthreads();
+    if (tl == 0) {
+      const long long o = ((long long)bh * nc + c) * Dk + d;
+      if (REV) {
+        const float pd = warp_sum(d < Dk ? n * dot[o] : 0.f);
+        if (lane == 0) dg_p[((long long)bh * nc + c) * ndv + slot] = pd;
+      }
+      if (d < Dk) {
+        out[o] = n;
+        float sum = 0.f;
+#pragma unroll
+        for (int u = 0; u < NL; ++u) sum += part[u][lane];
+        n = decay[(long long)bh * nc + c] * n + mult * sum;
+      }
+    }
+    __syncthreads();
+  }
+}
+
+__global__ void __launch_bounds__(32 * NL)
+bwd_n_kernel(const bf16* __restrict__ k, Strides sk,
+             const float* __restrict__ wkv, const float* __restrict__ decay,
+             float* __restrict__ n0, int H, int S, int Dk, int W, int nc) {
+  nvec_body<false>(k, sk, wkv, wkv, 1.f, decay, n0, nullptr, nullptr, 0, 0,
+                   H, S, Dk, W, nc);
+}
+
+// dn at each chunk's end, and <dn, n_c> over the block's 32 columns into
+// dg_p's slots from ndv - Dk / 32 on
+__global__ void __launch_bounds__(32 * NL)
+bwd_dn_kernel(const bf16* __restrict__ q, Strides sq,
+              const float* __restrict__ inter, const float* __restrict__ dden,
+              float scale, const float* __restrict__ decay,
+              float* __restrict__ dn1, const float* __restrict__ n0,
+              float* __restrict__ dg_p, int ndv, int H, int S, int Dk, int W,
+              int nc) {
+  nvec_body<true>(q, sq, inter, dden, scale, decay, dn1, n0, dg_p, ndv,
+                  ndv - Dk / 32 + blockIdx.x, H, S, Dk, W, nc);
+}
+
+// ---- states and sweep: the chain over a (b, h)'s chunks ----
+
+// a slot of the two-slot ring: 64 rows x 256 key columns of k or q
+// (MN-major), 64 rows x 64 value columns of v (bf16) or dh (f32), and
+// the rows' two weight factors
+constexpr int CH_SLOT = 51200;
+constexpr int CH_A = 32768;
+constexpr int CH_CO = CH_A + 64 * LDC * 4;
+constexpr int CH_SMEM = 1024 + 2 * CH_SLOT + 512;
+
+// X^T (64 value columns x 256 key columns) in the accumulator registers:
+// at each step out[c] = X^T (hi and lo, (chunk, Dv, Dk)), then X^T = g_c
+// X^T + (a A)^T Bm over chunk c's rows, a_t = c1_t (REV: c1_t mult /
+// c2_t), A the value rows (v, or dh), Bm the key rows (k, or q). The
+// chunks in order (REV: in reverse, with <X^T, dot[c]> a block into
+// dg_p); the last step only writes.
+template <bool REV, typename TA>
+__device__ __forceinline__ void chain_body(
+    const bf16* __restrict__ kq, Strides sb, const TA* __restrict__ av,
+    Strides sa, const float* __restrict__ c1, const float* __restrict__ c2,
+    float mult, const float* __restrict__ decay, Split out, Split dot,
+    float* __restrict__ dg_p, int ndv, int H, int S, int Dv, int W, int nc) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = align_1024(smem_raw);
+  float* red = reinterpret_cast<float*>(base + 2 * CH_SLOT);
+  constexpr int LDA = sizeof(TA) == 4 ? LDC : VLD;
+  constexpr int PER = 16 / sizeof(TA);        // elements a 16-byte copy
+  const int col0 = blockIdx.x * XT, d0 = blockIdx.y * DT;
+  const int bh = blockIdx.z, b = bh / H, hh = bh % H;
+  const int tid = threadIdx.x, w = tid / 32, lane = tid % 32;
+  const bf16* bh_ = kq + b * sb.b + hh * sb.h + d0;
+  const TA* ah = av + b * sa.b + hh * sa.h + col0;
+  const int R = W / 64, total = (nc - 1) * R;
+  auto chunk_of = [&](int s) { return REV ? nc - 1 - s : s; };
+
+  auto fetch = [&](int p) {
+    const int c = chunk_of(p / R), i = p % R;
+    uint8_t* slot = base + (p & 1) * CH_SLOT;
+    const long long t0 = (long long)c * W + 64 * i;
+    load_tile(slot, bh_ + t0 * sb.s, sb.s, 64, DT, 64, DT, tid, 128);
+    TA* at = reinterpret_cast<TA*>(slot + CH_A);
+    for (int e = tid; e < 64 * (64 / PER); e += 128) {
+      const int r = e / (64 / PER), cc = e % (64 / PER);
+      cp_async16(at + r * LDA + cc * PER, ah + (t0 + r) * sa.s + cc * PER, 16);
+    }
+    if (tid < 32) {
+      float* co = reinterpret_cast<float*>(slot + CH_CO);
+      const float* src = (tid < 16 ? c1 : c2) + (long long)bh * S + t0;
+      cp_async16(co + (tid / 16) * 64 + (tid % 16) * 4, src + (tid % 16) * 4,
+                 REV || tid < 16 ? 16 : 0);
+    }
+  };
+
+  float acc[128];
+  zero(acc);
+  if (total > 0) fetch(0);
+  cp_async_commit();
+  for (int p = 0; p <= total; ++p) {
+    const int s = p / R, i = p % R, c = chunk_of(s);
+    if (i == 0) {
+      // X^T out at this step's chunk, with <X^T, dot[c]> for the sweep
+      const long long o0 = ((long long)bh * nc + c) * Dv;
+      float part = 0.f;
+#pragma unroll
+      for (int j = 0; j < DT / 8; ++j)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const int x = col0 + 16 * w + lane / 4 + 8 * hf;
+          const int d = d0 + 8 * j + 2 * (lane % 4);
+          const long long o = ((o0 + x) * DK + d) >> 1;
+          uint32_t hi, lo;
+          split2(acc[4 * j + 2 * hf], acc[4 * j + 2 * hf + 1], hi, lo);
+          reinterpret_cast<uint32_t*>(out.hi)[o] = hi;
+          reinterpret_cast<uint32_t*>(out.lo)[o] = lo;
+          if (REV) {
+            const uint32_t ch = reinterpret_cast<const uint32_t*>(dot.hi)[o];
+            const uint32_t cl = reinterpret_cast<const uint32_t*>(dot.lo)[o];
+            part = fmaf(acc[4 * j + 2 * hf], hilo(ch, cl, 0), part);
+            part = fmaf(acc[4 * j + 2 * hf + 1], hilo(ch, cl, 1), part);
+          }
+        }
+      if (REV) {
+        part = warp_sum(part);
+        if (lane == 0) red[w] = part;
+        __syncthreads();
+        if (tid == 0)
+          dg_p[((long long)bh * nc + c) * ndv + blockIdx.y * gridDim.x +
+               blockIdx.x] = ((red[0] + red[1]) + red[2]) + red[3];
+        __syncthreads();
+      }
+      if (p == total) break;
+      const float g = decay[(long long)bh * nc + c];
+#pragma unroll
+      for (int u = 0; u < 128; ++u) acc[u] *= g;
+    }
+    if (p + 1 < total) fetch(p + 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    fence_proxy_async();
+    __syncthreads();
+    const uint8_t* slot = base + (p & 1) * CH_SLOT;
+    const TA* at = reinterpret_cast<const TA*>(slot + CH_A);
+    const float* co = reinterpret_cast<const float*>(slot + CH_CO);
+    float* coef = red + 4;            // [64]
+    if (tid < 64) coef[tid] = REV ? co[tid] * mult / co[64 + tid] : co[tid];
+    __syncthreads();
+    uint32_t hi[4][4], lo[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      frag_cols(at, LDA, coef, kk, w, lane, hi[kk], lo[kk]);
+    fence_regs(acc);
+    fence_regs(hi);
+    fence_regs(lo);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint64_t bd = mnmaj(slot, 0, kk);
+      mma_rs_n256_mn(acc, hi[kk], bd);
+      mma_rs_n256_mn(acc, lo[kk], bd);
+    }
+    wgmma_commit();
+    wgmma_wait();
+    fence_regs(acc);
+    fence_regs(hi);
+    fence_regs(lo);
+    __syncthreads();
+  }
+}
+
+// C_c at each chunk's start, from (w v)^T k
+__global__ void __launch_bounds__(128, 1)
+bwd_states_tc(const bf16* __restrict__ k, Strides sk,
+              const bf16* __restrict__ v, Strides sv,
+              const float* __restrict__ wkv, const float* __restrict__ decay,
+              Split C0, int H, int S, int Dv, int W, int nc) {
+  chain_body<false>(k, sk, v, sv, wkv, wkv, 1.f, decay, C0, C0, nullptr, 0,
+                    H, S, Dv, W, nc);
+}
+
+// dC at each chunk's end, from (e scale dnum)^T q, and <dC, C_c>
+__global__ void __launch_bounds__(128, 1)
+bwd_sweep_tc(const bf16* __restrict__ q, Strides sq,
+             const float* __restrict__ dh, Strides sdh,
+             const float* __restrict__ inter, const float* __restrict__ Md,
+             float scale, const float* __restrict__ decay, Split dC1,
+             Split C0, float* __restrict__ dg_p, int ndv, int H, int S,
+             int Dv, int W, int nc) {
+  chain_body<true>(q, sq, dh, sdh, inter, Md, scale, decay, dC1, C0, dg_p,
+                   ndv, H, S, Dv, W, nc);
+}
+
+// the product loop of the scores, dq, dk and dv blocks: for p in [p0,
+// p1) fetch(p) loads slot p & 1 (SLOT bytes each), then mma(p, slot)
+// multiplies it, each piece's loads in flight while the one before is
+// multiplied
+template <int SLOT, typename Fetch, typename Mma>
+__device__ __forceinline__ void pieces(uint8_t* base, int p0, int p1,
+                                       Fetch fetch, Mma mma) {
+  if (p0 < p1) fetch(p0, base + (p0 & 1) * SLOT);
+  cp_async_commit();
+  for (int p = p0; p < p1; ++p) {
+    if (p + 1 < p1) fetch(p + 1, base + ((p + 1) & 1) * SLOT);
+    cp_async_commit();
+    cp_async_wait<1>();
+    fence_proxy_async();
+    __syncthreads();
+    mma(p, base + (p & 1) * SLOT);
+    __syncthreads();
+  }
+}
+
+// ---- scores ----
+
+// a slot: phase 1 k rows [1][256][64] at 0 and q rows [1][64][64] at
+// 32768; phase 2 v rows [1][256][64] at 0 and dh rows [64][LDR] f32 at
+// 32768
+constexpr int SC_SLOT = 51200;
+constexpr int SC_SMALL = 2 * 256 + 6 * 64 + DK + 4 * 256;   // floats
+constexpr int SC_SMEM = 1024 + 2 * SC_SLOT + SC_SMALL * 4;
+
+__global__ void __launch_bounds__(128, 1)
+bwd_scores_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
+              const bf16* __restrict__ v, Strides sq, Strides sk, Strides sv,
+              const float* __restrict__ li, const float* __restrict__ h,
+              const float* __restrict__ dh, Work wk, Dims dm, float scale) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = align_1024(smem_raw);
+  float* Fc = reinterpret_cast<float*>(base + 2 * SC_SLOT);   // [256]
+  float* lic = Fc + 256;              // [256]
+  float* mjc = lic + 256;             // [64] this block's rows
+  float* Mc = mjc + 64;               // [64]
+  float* ddc = Mc + 64;               // [64]
+  float* qnc = ddc + 64;              // [64] q . n_c
+  float* part = qnc + 64;             // [64] row sums
+  float* dlt = part + 64;             // [64] dh . h
+  float* ns = dlt + 64;               // [DK] n_c
+  float* csum = ns + DK;              // [4][256] per-warp column sums
+
+  const int W = dm.W, nc = dm.nc, Dv = dm.Dv;
+  const int rb = blockIdx.x, c = blockIdx.y, bh = blockIdx.z;
+  const int b = bh / dm.H, hh = bh % dm.H;
+  const int tid = threadIdx.x, w = tid / 32, lane = tid % 32;
+  const int r0 = rb * 64;
+  const long long chunk = (long long)bh * nc + c;
+  const long long row0 = (long long)bh * dm.S + (long long)c * W;
+  const long long tb = (long long)c * W;
+  const bf16* qb = q + b * sq.b + hh * sq.h + (tb + r0) * sq.s;
+  const bf16* kb = k + b * sk.b + hh * sk.h + tb * sk.s;
+  const bf16* vb = v + b * sv.b + hh * sv.h + tb * sv.s;
+  const float* dhb = dh + (row0 + r0) * Dv;
+  const long long nss = (long long)dm.B * dm.H * nc * W * W;
+  const Split Sx(wk.Sx, nss), dPx(wk.dPx, nss);
+  for (int t = tid; t < 256; t += 128) {
+    Fc[t] = t < W ? wk.F[row0 + t] : 0.f;
+    lic[t] = t < W ? li[row0 + t] : 0.f;
+  }
+  for (int d = tid; d < DK; d += 128) ns[d] = wk.n0[chunk * DK + d];
+  if (tid < 64) mjc[tid] = wk.mj[row0 + r0 + tid];
+
+  // P = q k^T over Dk in 64-wide pieces (k rows past W zero); q . n_c
+  // alongside, two threads a row
+  float acc[128];
+  zero(acc);
+  float qn = 0.f;
+  pieces<SC_SLOT>(base, 0, DK / 64, [&](int p, uint8_t* slot) {
+    load_tile(slot, kb + 64 * p, sk.s, 256, 64, W, 64, tid, 128);
+    load_tile(slot + 32768, qb + 64 * p, sq.s, 64, 64, 64, 64, tid, 128);
+  }, [&](int p, const uint8_t* slot) {
+    const uint8_t* qt = slot + 32768;
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      mma_ss_n256<0, 0>(acc, kmaj(qt, kk), kmaj(slot, kk));
+    wgmma_commit();
+    const int rr = tid >> 1, half = tid & 1;
+#pragma unroll
+    for (int ch = 4 * half; ch < 4 * half + 4; ++ch) {
+      const uint4 x = *reinterpret_cast<const uint4*>(
+          qt + sw128_offset(64, rr, 0, ch));
+      const uint32_t wd[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        qn = fmaf(bf(wd[u] & 0xffffu), ns[64 * p + 8 * ch + 2 * u], qn);
+        qn = fmaf(bf(wd[u] >> 16), ns[64 * p + 8 * ch + 2 * u + 1], qn);
+      }
+    }
+    wgmma_wait();
+    fence_regs(acc);
+  });
+
+  // S = scale P D over this block's rows and every key (zeros above the
+  // diagonal and past W), written as hi and lo; the row sums, then den,
+  // M and dden
+  {
+    float rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < 32; ++j)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int rr = 16 * w + lane / 4 + 8 * hf, r = r0 + rr;
+        const int t = 8 * j + 2 * (lane % 4);
+        float x[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          x[e] = t + e <= r ? acc[4 * j + 2 * hf + e] * scale *
+                                  expf(((Fc[r] - Fc[t + e]) + lic[t + e]) -
+                                       mjc[rr])
+                            : 0.f;
+          rs[hf] += x[e];
+        }
+        if (t < W) {
+          const long long o = ((chunk * W + r) * W + t) >> 1;
+          uint32_t hi, lo;
+          split2(x[0], x[1], hi, lo);
+          reinterpret_cast<uint32_t*>(Sx.hi)[o] = hi;
+          reinterpret_cast<uint32_t*>(Sx.lo)[o] = lo;
+        }
+      }
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      float x = rs[hf];
+      x += __shfl_xor_sync(0xffffffffu, x, 1);
+      x += __shfl_xor_sync(0xffffffffu, x, 2);
+      if (lane % 4 == 0) part[16 * w + lane / 4 + 8 * hf] = x;
+    }
+  }
+  qn += __shfl_xor_sync(0xffffffffu, qn, 1);
+  if ((tid & 1) == 0) qnc[tid >> 1] = qn;
+  // dh . h, a warp a row
+  for (int rr = w * 16; rr < w * 16 + 16; ++rr) {
+    const float4* hr =
+        reinterpret_cast<const float4*>(h + (row0 + r0 + rr) * Dv);
+    const float4* dr = reinterpret_cast<const float4*>(dhb + rr * Dv);
+    float dl = 0.f;
+    for (int x4 = lane; x4 < Dv / 4; x4 += 32) {
+      const float4 a = dr[x4], bb = hr[x4];
+      dl = fmaf(a.x, bb.x, dl);
+      dl = fmaf(a.y, bb.y, dl);
+      dl = fmaf(a.z, bb.z, dl);
+      dl = fmaf(a.w, bb.w, dl);
+    }
+    dl = warp_sum(dl);
+    if (lane == 0) dlt[rr] = dl;
+  }
+  __syncthreads();
+  if (tid < 64) {
+    const long long row = row0 + r0 + tid;
+    const float den = part[tid] + wk.inter[row] * (scale * qnc[tid]);
+    const float floor = expf(-mjc[tid]);
+    const float M = fmaxf(fabsf(den), floor);
+    const float dd = fabsf(den) >= floor
+                         ? (-(den > 0.f ? 1.f : -1.f) * dlt[tid]) / M
+                         : 0.f;
+    Mc[tid] = M;
+    ddc[tid] = dd;
+    wk.Md[row] = M;
+    wk.dden[row] = dd;
+  }
+  __syncthreads();
+
+  // dnum v^T over Dv in 64-wide pieces, dnum split in registers
+  zero(acc);
+  pieces<SC_SLOT>(base, 0, Dv / 64, [&](int p, uint8_t* slot) {
+    load_tile(slot, vb + 64 * p, sv.s, 256, 64, W, 64, tid, 128);
+    load_f32(reinterpret_cast<float*>(slot + 32768), LDR, dhb + 64 * p, Dv,
+             tid);
+  }, [&](int p, const uint8_t* slot) {
+    const float* at = reinterpret_cast<const float*>(slot + 32768);
+    uint32_t hi[4][4], lo[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      frag_rows(at, Mc, kk, w, lane, hi[kk], lo[kk]);
+    fence_regs(acc);
+    fence_regs(hi);
+    fence_regs(lo);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      mma_rs_n256<0>(acc, hi[kk], kmaj(slot, kk));
+      mma_rs_n256<0>(acc, lo[kk], kmaj(slot, kk));
+    }
+    wgmma_commit();
+    wgmma_wait();
+    fence_regs(acc);
+    fence_regs(hi);
+    fence_regs(lo);
+  });
+
+  // dS = dnum v^T + dden, scale dP = scale dS D, dwlog = dS S: scale dP
+  // as hi and lo, dwlog's row sums and this block's column sums
+  float rs[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < 32; ++j) {
+    float col[2] = {0.f, 0.f};
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int rr = 16 * w + lane / 4 + 8 * hf, r = r0 + rr;
+      const int t = 8 * j + 2 * (lane % 4);
+      if (t >= W) continue;
+      const long long o = ((chunk * W + r) * W + t) >> 1;
+      const uint32_t sh = reinterpret_cast<const uint32_t*>(Sx.hi)[o];
+      const uint32_t sl = reinterpret_cast<const uint32_t*>(Sx.lo)[o];
+      float dp[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        dp[e] = 0.f;
+        if (t + e <= r) {
+          const float dS = acc[4 * j + 2 * hf + e] + ddc[rr];
+          dp[e] = dS * expf(((Fc[r] - Fc[t + e]) + lic[t + e]) - mjc[rr]) *
+                  scale;
+          const float dwl = dS * hilo(sh, sl, e);
+          rs[hf] += dwl;
+          col[e] += dwl;
+        }
+      }
+      uint32_t hi, lo;
+      split2(dp[0], dp[1], hi, lo);
+      reinterpret_cast<uint32_t*>(dPx.hi)[o] = hi;
+      reinterpret_cast<uint32_t*>(dPx.lo)[o] = lo;
+    }
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      float x = col[e];
+      x += __shfl_xor_sync(0xffffffffu, x, 4);
+      x += __shfl_xor_sync(0xffffffffu, x, 8);
+      x += __shfl_xor_sync(0xffffffffu, x, 16);
+      if (lane < 4) csum[w * 256 + 8 * j + 2 * lane + e] = x;
+    }
+  }
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    float x = rs[hf];
+    x += __shfl_xor_sync(0xffffffffu, x, 1);
+    x += __shfl_xor_sync(0xffffffffu, x, 2);
+    if (lane % 4 == 0) wk.rsum[row0 + r0 + 16 * w + lane / 4 + 8 * hf] = x;
+  }
+  __syncthreads();
+  for (int t = tid; t < W; t += 128)
+    wk.csum_p[(chunk * dm.nrb + rb) * W + t] =
+        ((csum[t] + csum[256 + t]) + csum[512 + t]) + csum[768 + t];
+}
+
+// ---- dq, dk and dv ----
+
+// a slot: two [4][64][64] B tiles (hi, lo; or one) at 0 and 32768, the A
+// side at 65536: a dh tile of f32 rows, or two [1][64][64] tiles (hi,
+// lo; or one)
+constexpr int DQ_SLOT = 83968;
+constexpr int DQ_A = 65536;
+constexpr int DQ_SMEM = 1024 + 2 * DQ_SLOT + 4 * 256 * 4;
+
+// blockIdx.x: 0, 1 dq over key columns [256 x, 256 x + 256), 2, 3 dk;
+// blockIdx.y the 64-row block, blockIdx.z the chunk of a (b, h)
+__global__ void __launch_bounds__(128, 1)
+bwd_dqdk_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
+            const bf16* __restrict__ v, Strides sq, Strides sk, Strides sv,
+            const float* __restrict__ dh, bf16* __restrict__ dq,
+            bf16* __restrict__ dk, Work wk, Dims dm, float scale) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = align_1024(smem_raw);
+  float* Mc = reinterpret_cast<float*>(base + 2 * DQ_SLOT);   // [64]
+  float* vec = Mc + 64;               // [256] n_c or dn on these columns
+  const int W = dm.W, nc = dm.nc, Dv = dm.Dv, R = W / 64;
+  const bool is_dq = blockIdx.x < NDT;
+  const int d0 = (blockIdx.x % NDT) * DT;
+  const int rb = blockIdx.y, c = blockIdx.z % nc, bh = blockIdx.z / nc;
+  const int b = bh / dm.H, hh = bh % dm.H;
+  const int tid = threadIdx.x, w = tid / 32, lane = tid % 32;
+  const int r0 = rb * 64;
+  const long long chunk = (long long)bh * nc + c;
+  const long long row0 = (long long)bh * dm.S + (long long)c * W;
+  const long long tb = (long long)c * W;
+  const bf16* qh = q + b * sq.b + hh * sq.h + tb * sq.s + d0;
+  const bf16* kh = k + b * sk.b + hh * sk.h + tb * sk.s + d0;
+  const bf16* vh = v + b * sv.b + hh * sv.h + tb * sv.s;
+  const long long nss = (long long)dm.B * dm.H * nc * W * W;
+  const long long nst = (long long)dm.B * dm.H * nc * DK * Dv;
+  const Split dPx(wk.dPx, nss), C0(wk.C0, nst), dC1(wk.dC1, nst);
+  const long long sbase = chunk * W * W;          // S, dP rows of the chunk
+  const long long cbase = chunk * Dv * DK;        // C_c^T, dC^T of it
+  if (tid < 64) Mc[tid] = wk.Md[row0 + r0 + tid];
+  for (int d = tid; d < DT; d += 128)
+    vec[d] = (is_dq ? wk.n0 : wk.dn1)[chunk * DK + d0 + d];
+  __syncthreads();
+
+  float acc[128];
+  zero(acc);
+  const int PA = Dv / 64;
+  if (is_dq) {
+    // u = dnum C_c^T: dnum split in registers, C_c^T hi and lo
+    pieces<DQ_SLOT>(base, 0, PA, [&](int p, uint8_t* slot) {
+      load_tile(slot, C0.hi + cbase + 64 * p * DK + d0, DK, 64, DT, 64, DT,
+                tid, 128);
+      load_tile(slot + 32768, C0.lo + cbase + 64 * p * DK + d0, DK, 64, DT,
+                64, DT, tid, 128);
+      load_f32(reinterpret_cast<float*>(slot + DQ_A), LDR,
+               dh + (row0 + r0) * Dv + 64 * p, Dv, tid);
+    }, [&](int p, const uint8_t* slot) {
+      const float* at = reinterpret_cast<const float*>(slot + DQ_A);
+      uint32_t hi[4][4], lo[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        frag_rows(at, Mc, kk, w, lane, hi[kk], lo[kk]);
+      fence_regs(acc);
+      fence_regs(hi);
+      fence_regs(lo);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        mma_rs_n256_mn(acc, hi[kk], mnmaj(slot, 0, kk));
+        mma_rs_n256_mn(acc, hi[kk], mnmaj(slot + 32768, 0, kk));
+        mma_rs_n256_mn(acc, lo[kk], mnmaj(slot, 0, kk));
+      }
+      wgmma_commit();
+      wgmma_wait();
+      fence_regs(acc);
+      fence_regs(hi);
+      fence_regs(lo);
+    });
+    // de over these columns: sum_d scale q (u + dden n_c); then acc =
+    // scale e (u + dden n_c)
+    float pe[2] = {0.f, 0.f};
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int rr = 16 * w + lane / 4 + 8 * hf;
+      const long long row = row0 + r0 + rr;
+      const float dd = wk.dden[row], se = scale * wk.inter[row];
+#pragma unroll
+      for (int j = 0; j < DT / 8; ++j) {
+        const int dl = 8 * j + 2 * (lane % 4);
+        const uint32_t qq = *reinterpret_cast<const uint32_t*>(
+            qh + (long long)(r0 + rr) * sq.s + dl);
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float x = fmaf(dd, vec[dl + e], acc[4 * j + 2 * hf + e]);
+          pe[hf] = fmaf(bf(e ? qq >> 16 : qq & 0xffffu) * scale, x,
+                        pe[hf]);
+          acc[4 * j + 2 * hf + e] = se * x;
+        }
+      }
+    }
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      float x = pe[hf];
+      x += __shfl_xor_sync(0xffffffffu, x, 1);
+      x += __shfl_xor_sync(0xffffffffu, x, 2);
+      if (lane % 4 == 0)
+        wk.dinter_p[(row0 + r0 + 16 * w + lane / 4 + 8 * hf) * dm.nds +
+                    blockIdx.x % NDT] = x;
+    }
+    // + (scale dP) k over the keys t < r0 + 64
+    pieces<DQ_SLOT>(base, 0, rb + 1, [&](int p, uint8_t* slot) {
+      load_tile(slot, kh + 64 * p * sk.s, sk.s, 64, DT, 64, DT, tid, 128);
+      load_tile(slot + DQ_A, dPx.hi + sbase + r0 * W + 64 * p, W, 64, 64,
+                64, 64, tid, 128);
+      load_tile(slot + DQ_A + 8192, dPx.lo + sbase + r0 * W + 64 * p, W, 64,
+                64, 64, 64, tid, 128);
+    }, [&](int p, const uint8_t* slot) {
+      fence_regs(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        mma_ss_n256<0, 1>(acc, kmaj(slot + DQ_A, kk), mnmaj(slot, 0, kk));
+        mma_ss_n256<0, 1>(acc, kmaj(slot + DQ_A + 8192, kk),
+                          mnmaj(slot, 0, kk));
+      }
+      wgmma_commit();
+      wgmma_wait();
+      fence_regs(acc);
+    });
+  } else {
+    // r = v dC^T (v exact), dC^T hi and lo
+    pieces<DQ_SLOT>(base, 0, PA, [&](int p, uint8_t* slot) {
+      load_tile(slot, dC1.hi + cbase + 64 * p * DK + d0, DK, 64, DT, 64, DT,
+                tid, 128);
+      load_tile(slot + 32768, dC1.lo + cbase + 64 * p * DK + d0, DK, 64, DT,
+                64, DT, tid, 128);
+      load_tile(slot + DQ_A, vh + (long long)r0 * sv.s + 64 * p, sv.s, 64,
+                64, 64, 64, tid, 128);
+    }, [&](int p, const uint8_t* slot) {
+      fence_regs(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        mma_ss_n256<0, 1>(acc, kmaj(slot + DQ_A, kk), mnmaj(slot, 0, kk));
+        mma_ss_n256<0, 1>(acc, kmaj(slot + DQ_A, kk),
+                          mnmaj(slot + 32768, 0, kk));
+      }
+      wgmma_commit();
+      wgmma_wait();
+      fence_regs(acc);
+    });
+    // dw over these columns: sum_d k (r + dn); then acc = w (r + dn)
+    float pw[2] = {0.f, 0.f};
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int rr = 16 * w + lane / 4 + 8 * hf;
+      const float wt = wk.wkv[row0 + r0 + rr];
+#pragma unroll
+      for (int j = 0; j < DT / 8; ++j) {
+        const int dl = 8 * j + 2 * (lane % 4);
+        const uint32_t kv = *reinterpret_cast<const uint32_t*>(
+            kh + (long long)(r0 + rr) * sk.s + dl);
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float x = acc[4 * j + 2 * hf + e] + vec[dl + e];
+          pw[hf] = fmaf(bf(e ? kv >> 16 : kv & 0xffffu), x, pw[hf]);
+          acc[4 * j + 2 * hf + e] = wt * x;
+        }
+      }
+    }
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      float x = pw[hf];
+      x += __shfl_xor_sync(0xffffffffu, x, 1);
+      x += __shfl_xor_sync(0xffffffffu, x, 2);
+      if (lane % 4 == 0)
+        wk.dwkv_p[(row0 + r0 + 16 * w + lane / 4 + 8 * hf) * dm.nds +
+                  blockIdx.x % NDT] = x;
+    }
+    // + (scale dP)^T q over the rows j >= r0: dP's rows read MN-major
+    pieces<DQ_SLOT>(base, rb, R, [&](int p, uint8_t* slot) {
+      load_tile(slot, qh + 64 * p * sq.s, sq.s, 64, DT, 64, DT, tid, 128);
+      load_tile(slot + DQ_A, dPx.hi + sbase + 64 * p * W + r0, W, 64, 64, 64,
+                64, tid, 128);
+      load_tile(slot + DQ_A + 8192, dPx.lo + sbase + 64 * p * W + r0, W, 64,
+                64, 64, 64, tid, 128);
+    }, [&](int p, const uint8_t* slot) {
+      fence_regs(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        mma_ss_n256<1, 1>(acc, mnmaj(slot + DQ_A, 0, kk), mnmaj(slot, 0, kk));
+        mma_ss_n256<1, 1>(acc, mnmaj(slot + DQ_A + 8192, 0, kk),
+                          mnmaj(slot, 0, kk));
+      }
+      wgmma_commit();
+      wgmma_wait();
+      fence_regs(acc);
+    });
+  }
+  bf16* out = is_dq ? dq : dk;
+#pragma unroll
+  for (int j = 0; j < DT / 8; ++j)
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int rr = 16 * w + lane / 4 + 8 * hf;
+      const int d = d0 + 8 * j + 2 * (lane % 4);
+      *reinterpret_cast<uint32_t*>(out + (row0 + r0 + rr) * DK + d) =
+          pack_bf16(acc[4 * j + 2 * hf], acc[4 * j + 2 * hf + 1]);
+    }
+}
+
+// one block per 64 value columns of a chunk: dv^T = w (dC^T k^T) + dnum^T S
+__global__ void __launch_bounds__(128, 1)
+bwd_dv_tc(const bf16* __restrict__ k, Strides sk,
+          const float* __restrict__ dh, bf16* __restrict__ dv, Work wk,
+          Dims dm) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = align_1024(smem_raw);
+  float* Mc = reinterpret_cast<float*>(base + 2 * DQ_SLOT);   // [256]
+  float* wc = Mc + 256;               // [256]
+  const int W = dm.W, nc = dm.nc, Dv = dm.Dv, R = W / 64;
+  const int col0 = blockIdx.x * XT, c = blockIdx.y, bh = blockIdx.z;
+  const int b = bh / dm.H, hh = bh % dm.H;
+  const int tid = threadIdx.x, w = tid / 32, lane = tid % 32;
+  const long long chunk = (long long)bh * nc + c;
+  const long long row0 = (long long)bh * dm.S + (long long)c * W;
+  const bf16* kh = k + b * sk.b + hh * sk.h + (long long)c * W * sk.s;
+  const long long nss = (long long)dm.B * dm.H * nc * W * W;
+  const long long nst = (long long)dm.B * dm.H * nc * DK * Dv;
+  const Split Sx(wk.Sx, nss), dC1(wk.dC1, nst);
+  const long long sbase = chunk * W * W, cbase = (chunk * Dv + col0) * DK;
+  for (int t = tid; t < 256; t += 128) {
+    Mc[t] = t < W ? wk.Md[row0 + t] : 1.f;
+    wc[t] = t < W ? wk.wkv[row0 + t] : 0.f;
+  }
+  __syncthreads();
+
+  float acc[128];
+  zero(acc);
+  // dC^T k^T over the key columns: dC^T hi and lo, k exact, K-major both
+  pieces<DQ_SLOT>(base, 0, DK / 64, [&](int p, uint8_t* slot) {
+    load_tile(slot, kh + 64 * p, sk.s, 256, 64, W, 64, tid, 128);
+    load_tile(slot + DQ_A, dC1.hi + cbase + 64 * p, DK, 64, 64, 64, 64, tid,
+              128);
+    load_tile(slot + DQ_A + 8192, dC1.lo + cbase + 64 * p, DK, 64, 64, 64,
+              64, tid, 128);
+  }, [&](int p, const uint8_t* slot) {
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      mma_ss_n256<0, 0>(acc, kmaj(slot + DQ_A, kk), kmaj(slot, kk));
+      mma_ss_n256<0, 0>(acc, kmaj(slot + DQ_A + 8192, kk), kmaj(slot, kk));
+    }
+    wgmma_commit();
+    wgmma_wait();
+    fence_regs(acc);
+  });
+  // times w_t, column t = 8 j + 2 (lane % 4) + e % 2
+#pragma unroll
+  for (int j = 0; j < 32; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      acc[4 * j + e] *= wc[8 * j + 2 * (lane % 4) + (e & 1)];
+  // + dnum^T S over the chunk's rows: dnum^T split in registers, S hi and
+  // lo read MN-major
+  pieces<DQ_SLOT>(base, 0, R, [&](int p, uint8_t* slot) {
+    load_tile(slot, Sx.hi + sbase + 64 * p * W, W, 64, 256, 64, W, tid, 128);
+    load_tile(slot + 32768, Sx.lo + sbase + 64 * p * W, W, 64, 256, 64, W,
+              tid, 128);
+    load_f32(reinterpret_cast<float*>(slot + DQ_A), LDC,
+             dh + (row0 + 64 * p) * Dv + col0, Dv, tid);
+  }, [&](int p, const uint8_t* slot) {
+    const float* at = reinterpret_cast<const float*>(slot + DQ_A);
+    uint32_t hi[4][4], lo[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+      for (int x = 0; x < 4; ++x) {
+        const int m = 16 * w + lane / 4 + 8 * (x & 1);
+        const int kr = 16 * kk + 2 * (lane % 4) + 8 * (x >> 1);
+        split2(at[kr * LDC + m] / Mc[64 * p + kr],
+               at[(kr + 1) * LDC + m] / Mc[64 * p + kr + 1], hi[kk][x],
+               lo[kk][x]);
+      }
+    }
+    fence_regs(acc);
+    fence_regs(hi);
+    fence_regs(lo);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      mma_rs_n256_mn(acc, hi[kk], mnmaj(slot, 0, kk));
+      mma_rs_n256_mn(acc, hi[kk], mnmaj(slot + 32768, 0, kk));
+      mma_rs_n256_mn(acc, lo[kk], mnmaj(slot, 0, kk));
+    }
+    wgmma_commit();
+    wgmma_wait();
+    fence_regs(acc);
+    fence_regs(hi);
+    fence_regs(lo);
+  });
+  // dv[t, x] from dv^T's element (x, t)
+#pragma unroll
+  for (int j = 0; j < 32; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int x = col0 + 16 * w + lane / 4 + 8 * (e >> 1);
+      const int t = 8 * j + 2 * (lane % 4) + (e & 1);
+      if (t < W) dv[(row0 + t) * Dv + x] = __float2bfloat16(acc[4 * j + e]);
+    }
+}
+
+cudaError_t launch(const void* q_, const void* k_, const void* v_,
+                   const float* li, const float* lf, const float* h,
+                   const float* dh, void* dq_, void* dk_, void* dv_,
+                   float* dli, float* dlf, float* ws, const Dims& dm,
+                   const long long* strides, float scale,
+                   cudaStream_t stream) {
+  const bf16* q = static_cast<const bf16*>(q_);
+  const bf16* k = static_cast<const bf16*>(k_);
+  const bf16* v = static_cast<const bf16*>(v_);
+  const Strides sq{strides[0], strides[1], strides[2]};
+  const Strides sk{strides[3], strides[4], strides[5]};
+  const Strides sv{strides[6], strides[7], strides[8]};
+  const Strides sdh{(long long)dm.H * dm.S * dm.Dv, (long long)dm.S * dm.Dv,
+                    dm.Dv};
+  Work w;
+  carve(w, ws, dm);
+  const int BH = dm.B * dm.H;
+  const long long nst = (long long)BH * dm.nc * DK * dm.Dv;
+  const Split C0(w.C0, nst), dC1(w.dC1, nst);
+  cudaError_t err;
+  auto smem = [](const void* fn, int bytes) {
+    return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                bytes);
+  };
+
+  bwd_gates_kernel<<<BH, 128, 0, stream>>>(li, lf, w, dm.S, dm.W, dm.nc);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  bwd_n_kernel<<<dim3(DK / 32, BH), 32 * NL, 0, stream>>>(
+      k, sk, w.wkv, w.decay, w.n0, dm.H, dm.S, DK, dm.W, dm.nc);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if ((err = smem((const void*)bwd_states_tc, CH_SMEM)) != cudaSuccess)
+    return err;
+  bwd_states_tc<<<dim3(dm.Dv / XT, NDT, BH), 128, CH_SMEM, stream>>>(
+      k, sk, v, sv, w.wkv, w.decay, C0, dm.H, dm.S, dm.Dv, dm.W, dm.nc);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if ((err = smem((const void*)bwd_scores_tc, SC_SMEM)) != cudaSuccess)
+    return err;
+  bwd_scores_tc<<<dim3(dm.W / 64, dm.nc, BH), 128, SC_SMEM, stream>>>(
+      q, k, v, sq, sk, sv, li, h, dh, w, dm, scale);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  bwd_dn_kernel<<<dim3(DK / 32, BH), 32 * NL, 0, stream>>>(
+      q, sq, w.inter, w.dden, scale, w.decay, w.dn1, w.n0, w.dg_p, dm.ndv,
+      dm.H, dm.S, DK, dm.W, dm.nc);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if ((err = smem((const void*)bwd_sweep_tc, CH_SMEM)) != cudaSuccess)
+    return err;
+  bwd_sweep_tc<<<dim3(dm.Dv / XT, NDT, BH), 128, CH_SMEM, stream>>>(
+      q, sq, dh, sdh, w.inter, w.Md, scale, w.decay, dC1, C0, w.dg_p,
+      dm.ndv, dm.H, dm.S, dm.Dv, dm.W, dm.nc);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if ((err = smem((const void*)bwd_dqdk_tc, DQ_SMEM)) != cudaSuccess)
+    return err;
+  bwd_dqdk_tc<<<dim3(2 * NDT, dm.W / 64, dm.nc * BH), 128, DQ_SMEM,
+                stream>>>(q, k, v, sq, sk, sv, dh, static_cast<bf16*>(dq_),
+                          static_cast<bf16*>(dk_), w, dm, scale);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if ((err = smem((const void*)bwd_dv_tc, DQ_SMEM)) != cudaSuccess)
+    return err;
+  bwd_dv_tc<<<dim3(dm.Dv / XT, dm.nc, BH), 128, DQ_SMEM, stream>>>(
+      k, sk, dh, static_cast<bf16*>(dv_), w, dm);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  bwd_grads_kernel<<<BH, NT, 0, stream>>>(w, dm, dli, dlf);
+  return cudaGetLastError();
+}
+
+}  // namespace tc
+
+bool dims_ok(int B, int H, int S, int Dk, int Dv, int W, bool tc) {
   if (B < 1 || H < 1 || W < 1 || W > WMAX || S < W || S % W || Dk < 1 ||
       Dk > DKMAX || Dv < 1)
     return false;
+  if (tc && (Dk != tc::DK || Dv % 64 || W % 64)) return false;
   const long long bh = (long long)B * H;
   return bh <= 65535 && bh * (S / W) <= 65535;
 }
@@ -991,28 +1989,35 @@ bool dims_ok(int B, int H, int S, int Dk, int Dv, int W) {
 
 extern "C" {
 
-// Floats of the scratch buffer that mlstm_chunk_bwd_launch takes, or -1
-// for shapes it refuses.
+// Floats of the scratch buffer that mlstm_chunk_bwd_launch takes on the
+// path tensor_cores names, or -1 for shapes it refuses.
 long long mlstm_chunk_bwd_workspace(int B, int H, int S, int Dk, int Dv,
-                                    int W) {
-  if (!dims_ok(B, H, S, Dk, Dv, W)) return -1;
+                                    int W, int tensor_cores) {
+  if (!dims_ok(B, H, S, Dk, Dv, W, tensor_cores)) return -1;
   Work w;
-  return carve(w, nullptr, make_dims(B, H, S, Dk, Dv, W));
+  return carve(w, nullptr, make_dims(B, H, S, Dk, Dv, W, tensor_cores));
 }
 
 // Launches the backward on `stream`; returns 0 or a cudaError_t. strides
 // holds q's, k's and v's b, h and s strides in elements; ws holds
-// mlstm_chunk_bwd_workspace(...) floats.
+// mlstm_chunk_bwd_workspace(..., tensor_cores) floats. tensor_cores
+// selects the tc path (bf16, Dk 512, Dv and W multiples of 64, q, k, v
+// and their b/h/s strides 16-byte aligned, as the wrapper's
+// uses_tensor_cores checks); else the FMA kernels.
 int mlstm_chunk_bwd_launch(const void* q, const void* k, const void* v,
                            const float* li, const float* lf, const float* h,
                            const float* dh, void* dq, void* dk, void* dv,
-                           float* dli, float* dlf, float* ws, int bf16, int B,
-                           int H, int S, int Dk, int Dv, int W,
-                           const long long* strides, float scale,
-                           void* stream) {
-  if (!dims_ok(B, H, S, Dk, Dv, W)) return (int)cudaErrorInvalidValue;
-  const Dims dm = make_dims(B, H, S, Dk, Dv, W);
+                           float* dli, float* dlf, float* ws, int bf16,
+                           int tensor_cores, int B, int H, int S, int Dk,
+                           int Dv, int W, const long long* strides,
+                           float scale, void* stream) {
+  if (!dims_ok(B, H, S, Dk, Dv, W, tensor_cores) || (tensor_cores && !bf16))
+    return (int)cudaErrorInvalidValue;
+  const Dims dm = make_dims(B, H, S, Dk, Dv, W, tensor_cores);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (tensor_cores)
+    return (int)tc::launch(q, k, v, li, lf, h, dh, dq, dk, dv, dli, dlf, ws,
+                           dm, strides, scale, st);
   return (int)(bf16 ? launch<__nv_bfloat16>(q, k, v, li, lf, h, dh, dq, dk,
                                             dv, dli, dlf, ws, dm, strides,
                                             scale, st)

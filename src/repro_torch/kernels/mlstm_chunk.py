@@ -53,11 +53,14 @@ enqueues the three FMA kernels or the four tensor-core ones.
 The gradient: ``mlstm_chunk_train`` is ``mlstm_chunk`` as an autograd
 Function that saves q, k, v, li, lf and h (no state: the chunk-start
 states would take B H (S / W) Dk Dv floats, 21 GiB over xlstm's 42
-layers at B 8 x S 2048) and whose backward is ``mlstm_chunk_bwd``: the
-six FMA kernels of ``csrc/mlstm_chunk_bwd.cu`` on the card (they
-recompute the states into scratch and sweep the chunks in reverse,
-carrying dC and dn), ``mlstm_chunk_bwd_plain`` on the CPU. The
-reference has no Pallas backward; it takes jax.grad of its scan.
+layers at B 8 x S 2048) and whose backward is ``mlstm_chunk_bwd``:
+``csrc/mlstm_chunk_bwd.cu`` on the card (it recomputes the states into
+scratch and sweeps the chunks in reverse, carrying dC and dn), on the
+tensor cores where ``uses_tensor_cores`` holds (nine kernels, every f32
+operand split into bf16 hi + lo; ``mlstm_chunk_bwd_tc_emulate`` repeats
+their roundings in plain PyTorch) and on six FMA kernels otherwise;
+``mlstm_chunk_bwd_plain`` on the CPU. The reference has no Pallas
+backward; it takes jax.grad of its scan.
 """
 from __future__ import annotations
 
@@ -158,6 +161,65 @@ def mlstm_chunk_bwd_plain(q: Tensor, k: Tensor, v: Tensor, li: Tensor,
     dF gathers dwlog's row sums less its column sums, de e, -dw w and, at
     the chunk's last row, dg g + sum dw w; dli = dwlog's column sums +
     dw w; dlf is the reversed in-chunk cumulative sum of dF."""
+    return _bwd(q, k, v, li, lf, h, dh, chunk, _exact_prod, _kept)
+
+
+def mlstm_chunk_bwd_tc_emulate(q: Tensor, k: Tensor, v: Tensor, li: Tensor,
+                               lf: Tensor, h: Tensor, dh: Tensor, *,
+                               chunk: int = 256):
+    """``mlstm_chunk_bwd_plain`` with the tensor-core kernels' roundings,
+    in plain PyTorch (for tests and tools; the main path never calls it):
+    each f32 operand of a product split into bf16 hi + lo where the
+    kernels split it (``_prod``), and S, scale dP, C_c and dC kept as
+    hi + lo where the kernels keep them in scratch (``_stored``); q, k
+    and v are bf16 values, exact."""
+    return _bwd(q, k, v, li, lf, h, dh, chunk, _prod, _stored)
+
+
+def _exact_prod(a: Tensor, b: Tensor, split_a: bool, split_b: bool,
+                name: str) -> Tensor:
+    return a @ b
+
+
+def _kept(x: Tensor) -> Tensor:
+    return x
+
+
+def _split(x: Tensor) -> tuple[Tensor, Tensor]:
+    """(hi, lo) = (bf16(x), bf16(x - hi)) in f32, as the kernels'
+    ``split2`` carries an f32 operand: hi + lo is x to about 2^-17."""
+    hi = x.bfloat16().float()
+    return hi, (x - hi).bfloat16().float()
+
+
+def _prod(a: Tensor, b: Tensor, split_a: bool, split_b: bool,
+          name: str) -> Tensor:
+    """a @ b as the tensor-core kernels run it: each split operand as hi +
+    lo, the products hi hi + hi lo + lo hi where both are split (lo lo
+    dropped), hi b + lo b where only a is (b exact in bf16). ``name``
+    says which product: "states" (w v)^T k, "dnum_v" dnum v^T, "sweep"
+    (e scale dnum)^T q, "dnum_c" dnum C_c^T, "dnum_s" dnum^T S."""
+    ah, al = _split(a) if split_a else (a, None)
+    bh, bl = _split(b) if split_b else (b, None)
+    out = ah @ bh
+    if bl is not None:
+        out = out + ah @ bl
+    if al is not None:
+        out = out + al @ bh
+    return out
+
+
+def _stored(x: Tensor) -> Tensor:
+    """x as the kernels keep it in scratch: bf16 hi + lo."""
+    hi, lo = _split(x)
+    return hi + lo
+
+
+def _bwd(q: Tensor, k: Tensor, v: Tensor, li: Tensor, lf: Tensor, h: Tensor,
+         dh: Tensor, chunk: int, prod, stored):
+    """The backward's algorithm, each product of an f32 operand through
+    ``prod`` (a, b, whether a is split, whether b is, its name) and each
+    value the kernels keep in scratch through ``stored``."""
     B, H, S, Dk = q.shape
     Dv = v.shape[-1]
     W = chunk_width(S, chunk)
@@ -186,9 +248,10 @@ def mlstm_chunk_bwd_plain(q: Tensor, k: Tensor, v: Tensor, li: Tensor,
         decay = torch.exp(Ftot[..., 0] + m - m_new)
         fwd.append(dict(F=F, D=torch.exp(wlog - mj[..., None]), mj=mj,
                         inter=torch.exp(F + m[..., None] - mj), wkv=wkv,
-                        decay=decay, C=C, n=n))
-        C = decay[..., None, None] * C + torch.einsum(
-            "bhtd,bhtv->bhdv", wkv[..., None] * kj, vj)
+                        decay=decay, C=stored(C), n=n))
+        # C^T = decay C^T + (w v)^T k
+        C = decay[..., None, None] * C + prod(
+            (wkv[..., None] * vj).mT, kj, True, False, "states").mT
         n = decay[..., None] * n + torch.einsum("bht,bhtd->bhd", wkv, kj)
         m = m_new
     dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
@@ -198,9 +261,9 @@ def mlstm_chunk_bwd_plain(q: Tensor, k: Tensor, v: Tensor, li: Tensor,
     for c in reversed(range(len(fwd))):
         g = fwd[c]
         sl = slice(c * W, (c + 1) * W)
-        qs, kj, vj = q[:, :, sl] * scale, k[:, :, sl], v[:, :, sl]
-        S_ = (qs @ kj.mT) * g["D"]
-        qn = torch.einsum("bhjd,bhd->bhj", qs, g["n"])
+        qj, kj, vj = q[:, :, sl], k[:, :, sl], v[:, :, sl]
+        S_ = torch.where(tri, (qj @ kj.mT) * scale * g["D"], 0.0)
+        qn = scale * torch.einsum("bhjd,bhd->bhj", qj, g["n"])
         den = S_.sum(dim=-1) + g["inter"] * qn
         floor = torch.exp(-g["mj"])
         M = torch.maximum(den.abs(), floor)
@@ -208,16 +271,22 @@ def mlstm_chunk_bwd_plain(q: Tensor, k: Tensor, v: Tensor, li: Tensor,
         dnum = dh[:, :, sl] / M[..., None]
         dden = torch.where(den.abs() >= floor, -torch.sign(den) * delta / M,
                            torch.zeros_like(den))
-        dS = torch.where(tri, dnum @ vj.mT + dden[..., None], 0.0)
-        dP, dwlog = dS * g["D"], dS * S_
-        u = dnum @ g["C"].mT                          # C_c dnum_j
-        r = vj @ dC.mT + dn[:, :, None]               # dC v_t + dn
+        dS = torch.where(tri, prod(dnum, vj.mT, True, False, "dnum_v")
+                         + dden[..., None], 0.0)
+        S_s = stored(S_)
+        dPs = stored(dS * g["D"] * scale)              # scale dP
+        dwlog = dS * S_s
+        dC_s = stored(dC)
+        u = prod(dnum, g["C"].mT, True, True, "dnum_c")     # C_c dnum_j
+        r = vj @ dC_s.mT + dn[:, :, None]              # dC v_t + dn
         e, w = g["inter"], g["wkv"]
-        dq[:, :, sl] = scale * (dP @ kj + e[..., None] * u
-                                + (e * dden)[..., None] * g["n"][:, :, None])
-        dk[:, :, sl] = dP.mT @ qs + w[..., None] * r
-        dv[:, :, sl] = S_.mT @ dnum + w[..., None] * (kj @ dC)
-        dinter = (qs * u).sum(dim=-1) + dden * qn
+        dq[:, :, sl] = dPs @ kj + (scale * e)[..., None] * (
+            u + dden[..., None] * g["n"][:, :, None])
+        dk[:, :, sl] = dPs.mT @ qj + w[..., None] * r
+        dv[:, :, sl] = (w[..., None] * (kj @ dC_s)
+                        + prod(dnum.mT, S_s, True, True, "dnum_s").mT)
+        dinter = ((qj * scale) * (u + dden[..., None]
+                                  * g["n"][:, :, None])).sum(dim=-1)
         dwkv = (kj * r).sum(dim=-1)
         dg = (dC * g["C"]).sum(dim=(-2, -1)) + (dn * g["n"]).sum(dim=-1)
         cols = dwlog.sum(dim=-2)
@@ -226,9 +295,12 @@ def mlstm_chunk_bwd_plain(q: Tensor, k: Tensor, v: Tensor, li: Tensor,
         dli[..., sl] = cols + dwkv * w
         dlf[..., sl] = torch.flip(torch.cumsum(torch.flip(dF, [-1]), -1),
                                   [-1])
-        dC = g["decay"][..., None, None] * dC + (e[..., None] * qs).mT @ dnum
-        dn = g["decay"][..., None] * dn + torch.einsum(
-            "bhj,bhjd->bhd", e * dden, qs)
+        # dC^T = decay dC^T + (e scale dnum)^T q
+        dC = g["decay"][..., None, None] * dC + prod(
+            ((e * scale / M)[..., None] * dh[:, :, sl]).mT, qj, True, False,
+            "sweep").mT
+        dn = g["decay"][..., None] * dn + scale * torch.einsum(
+            "bhj,bhjd->bhd", e * dden, qj)
     return dq.to(dts[0]), dk.to(dts[1]), dv.to(dts[2]), dli, dlf
 
 
@@ -368,12 +440,33 @@ def mlstm_bwd_flops(B: int, H: int, S: int, Dk: int, Dv: int,
                                + 10 * W * Dk * Dv)
 
 
+def mlstm_bwd_tc_flops(B: int, H: int, S: int, Dk: int, Dv: int,
+                       W: int) -> int:
+    """Operations of one backward call on the tensor-core path, as its
+    kernels issue them: each split product counted twice (one operand
+    exact in bf16) or three times (both split), the scores and dv blocks
+    over all 256 keys of their m64n256 tiles, dP k and dP^T q over the
+    causal 64-row blocks, and the states and sweep over every chunk but
+    the last one each walks. The design's own work, about twice
+    ``mlstm_bwd_flops``, the function's, which bounds the call."""
+    nc, R, N = S // W, W // 64, 256
+    chain = 2 * (nc - 1) * 2 * 2 * W * Dk * Dv    # (w v)^T k, (e dnum)^T q
+    per_chunk = (2 * W * N * Dk                   # q k^T
+                 + 2 * 2 * W * N * Dv             # dnum v^T
+                 + 3 * 2 * W * Dk * Dv            # dnum C_c^T
+                 + 2 * 2 * W * Dk * Dv            # v dC^T
+                 + 2 * 2 * 2 * 64 * 64 * Dk * R * (R + 1) // 2  # dP k, dP^T q
+                 + 2 * 2 * Dv * N * Dk            # dC^T k^T
+                 + 3 * 2 * Dv * N * W)            # dnum^T S
+    return B * H * (chain + nc * per_chunk)
+
+
 def _bind_bwd(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.mlstm_chunk_bwd_workspace.argtypes = [i] * 6
+    lib.mlstm_chunk_bwd_workspace.argtypes = [i] * 7
     lib.mlstm_chunk_bwd_workspace.restype = ctypes.c_longlong
     lib.mlstm_chunk_bwd_launch.argtypes = (
-        [p] * 13 + [i] * 7 + [p, ctypes.c_float, p])
+        [p] * 13 + [i] * 8 + [p, ctypes.c_float, p])
     lib.mlstm_chunk_bwd_launch.restype = i
     lib.mlstm_chunk_bwd_error_string.argtypes = [i]
     lib.mlstm_chunk_bwd_error_string.restype = ctypes.c_char_p
@@ -383,17 +476,18 @@ def mlstm_chunk_bwd(q: Tensor, k: Tensor, v: Tensor, li: Tensor, lf: Tensor,
                     h: Tensor, dh: Tensor, *, chunk: int = 256):
     """(dq, dk, dv, dli, dlf) as ``mlstm_chunk_bwd_plain`` returns them,
     each contiguous. CPU tensors take the plain version; CUDA tensors
-    launch the six kernels of ``csrc/mlstm_chunk_bwd.cu``, which read q,
-    k and v (one type, f32 or bf16, unit stride along the last dimension)
-    in place and h and dh as f32.
+    launch the kernels of ``csrc/mlstm_chunk_bwd.cu``, which read q, k
+    and v (one type, f32 or bf16, unit stride along the last dimension)
+    in place and h and dh as f32: the nine tensor-core kernels where
+    ``uses_tensor_cores`` holds, the six FMA kernels otherwise.
 
-    Bound on an H100 SXM: ``mlstm_bwd_flops`` at 67 TFLOP/s (every
-    product on the FMA units), B H (S / W) (W (W + 1) (3 Dk + 2 Dv) +
-    10 W Dk Dv) operations: 50.5 GFLOP, 0.75 ms at xlstm's train shape
-    (B 4, H 4, S 512, Dk 512, Dv 1024, W 256), against 0.04 ms of bytes
-    (bf16 q, k, v read and dq, dk, dv written once, f32 h, dh, li, lf,
-    dli, dlf: 134 MB). ``mlstm_chunk_bwd.launches`` counts the calls that
-    launched."""
+    Bound on an H100 SXM, at xlstm's train shape (B 4, H 4, S 512, Dk
+    512, Dv 1024, W 256), against 0.04 ms of bytes (bf16 q, k, v read and
+    dq, dk, dv written once, f32 h, dh, li, lf, dli, dlf: 134 MB): on the
+    tensor cores ``mlstm_bwd_tc_flops`` at 989 TFLOP/s, 106.3 GFLOP, 0.11
+    ms; on the FMA units ``mlstm_bwd_flops`` at 67 TFLOP/s, B H (S / W)
+    (W (W + 1) (3 Dk + 2 Dv) + 10 W Dk Dv) operations, 50.5 GFLOP, 0.75
+    ms. ``mlstm_chunk_bwd.launches`` counts the calls that launched."""
     W = _check(q, k, v, li, lf, chunk)
     for name, t in (("h", h), ("dh", dh)):
         if tuple(t.shape) != tuple(v.shape) or t.device != q.device:
@@ -412,11 +506,24 @@ def mlstm_chunk_bwd(q: Tensor, k: Tensor, v: Tensor, li: Tensor, lf: Tensor,
         if t.stride(-1) != 1:
             raise ValueError(f"{name} must have stride 1 along its last "
                              f"dimension, got strides {t.stride()}")
+    out = _bwd_kernels(q, k, v, li, lf, h, dh, W)
+    mlstm_chunk_bwd.launches += 1
+    return out
+
+
+mlstm_chunk_bwd.launches = 0
+
+
+def _bwd_kernels(q: Tensor, k: Tensor, v: Tensor, li: Tensor, lf: Tensor,
+                 h: Tensor, dh: Tensor, W: int):
+    """The launch behind ``mlstm_chunk_bwd``, on checked inputs: the path
+    is ``uses_tensor_cores``'s."""
     li, lf, h, dh = (t.float().contiguous() for t in (li, lf, h, dh))
     B, H, S, Dk = q.shape
     Dv = v.shape[-1]
+    tc = uses_tensor_cores(q, k, v, W)
     lib = _build.load("mlstm_chunk_bwd", _bind_bwd)
-    n_ws = lib.mlstm_chunk_bwd_workspace(B, H, S, Dk, Dv, W)
+    n_ws = lib.mlstm_chunk_bwd_workspace(B, H, S, Dk, Dv, W, int(tc))
     if n_ws < 0:
         raise ValueError(f"the mlstm_chunk_bwd kernels refuse B {B}, H {H}, "
                          f"S {S}, Dk {Dk}, Dv {Dv}, W {W}")
@@ -433,18 +540,14 @@ def mlstm_chunk_bwd(q: Tensor, k: Tensor, v: Tensor, li: Tensor, lf: Tensor,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), li.data_ptr(),
             lf.data_ptr(), h.data_ptr(), dh.data_ptr(), dq.data_ptr(),
             dk.data_ptr(), dv.data_ptr(), dli.data_ptr(), dlf.data_ptr(),
-            ws.data_ptr(), int(q.dtype == torch.bfloat16), B, H, S, Dk, Dv,
-            W, (ctypes.c_longlong * 9)(*strides), Dk ** -0.5,
+            ws.data_ptr(), int(q.dtype == torch.bfloat16), int(tc), B, H, S,
+            Dk, Dv, W, (ctypes.c_longlong * 9)(*strides), Dk ** -0.5,
             torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(
             f"mlstm_chunk_bwd kernel launch failed: "
             f"{lib.mlstm_chunk_bwd_error_string(err).decode()} ({err})")
-    mlstm_chunk_bwd.launches += 1
     return dq, dk, dv, dli, dlf
-
-
-mlstm_chunk_bwd.launches = 0
 
 
 class _MLSTMChunk(torch.autograd.Function):

@@ -9,7 +9,11 @@ N(0, 1)), b_h = linspace(3, 6) over the heads as models/ssm.py sets the
 forget biases, a decay of e^-0.6 to e^-12.5 over a 256-token chunk, so
 the dC carried into an earlier chunk is large. The small cases draw
 logsigmoid(N(0, 1) + 2), e^-33 over 256 tokens, which their short chunks
-still carry across.
+still carry across. bf16 inputs at Dk 512 with Dv and the chunk
+multiples of 64 take the tensor-core kernels (``uses_tensor_cores``):
+the full-width bf16 cases, a narrow one (Dv 128, four 64-token chunks)
+with and without the exp(-m) branch, and three 128-token chunks at Dv
+192; the rest take the FMA kernels.
 
 Needs a CUDA device and nvcc: each test skips without one. This file
 imports neither JAX nor the JAX package, so it runs where only the port
@@ -41,6 +45,9 @@ CASES = [  # (B, H, S, Dk, Dv, chunk, dtype, li shift, forget gates)
     (4, 4, 512, 512, 1024, 256, torch.float32, 0.0, "model"),  # train
     (4, 4, 512, 512, 1024, 256, torch.bfloat16, 0.0, "model"),
     (1, 4, 2048, 512, 1024, 256, torch.bfloat16, 0.0, "model"),
+    (1, 2, 256, 512, 128, 64, torch.bfloat16, 0.0, "steep"),   # narrow tc
+    (1, 2, 256, 512, 128, 64, torch.bfloat16, -8.0, "steep"),  # its exp(-m)
+    (2, 3, 384, 512, 192, 128, torch.bfloat16, 0.0, "model"),  # W 128
 ]
 
 
@@ -81,6 +88,16 @@ def test_cuda_kernel_matches_plain_version(B, H, S, Dk, Dv, chunk, dtype,
             for name, g, w in zip(("dq", "dk", "dv", "dli", "dlf"), got,
                                   want)}
     assert max(gaps.values()) <= 1, gaps
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("B,H,S,Dk,Dv,chunk,dtype,shift,gates", [
+    c for c in CASES if c[3] == 512 and c[6] == torch.bfloat16])
+def test_bf16_at_xlstm_widths_takes_the_tensor_cores(B, H, S, Dk, Dv, chunk,
+                                                     dtype, shift, gates):
+    q, k, v, *_ = _inputs(0, B, H, S, Dk, Dv, dtype, shift, chunk, gates)
+    assert MC.uses_tensor_cores(q, k, v, chunk)
+    assert not MC.uses_tensor_cores(q.float(), k.float(), v.float(), chunk)
 
 
 @pytest.mark.requires_cuda
