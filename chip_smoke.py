@@ -35,6 +35,8 @@ nvcc and nvidia-smi. Phases, each of which raises on failure:
    inf and -inf in its rows, beside ``fake_quantize_per_channel_affine``
    with the scale precomputed (the dhat half of the function); the flash
    attention forward (o, lse) and backward (dq, dk, dv) at FLASH_CASES
+   (head_dim 16 to 256; at 256 recurrentgemma-2b's prefill, train step,
+   window crossing and a ragged window)
    beside ``scaled_dot_product_attention`` and its gradient, each row
    with its TFLOP/s and its share of the bound (f32, and lse in both
    types, within rtol 1e-4, atol 1e-4 * max|plain|; bf16 o, dq, dk and
@@ -75,10 +77,14 @@ nvcc and nvidia-smi. Phases, each of which raises on failure:
    layers: 5 local with a 1024-token window, 1 global): 2 prompts of
    2048 tokens, 16 new tokens, a refill of 1100 tokens, max_context 2304,
    so the local layers' caches are rings and their attention skips tiles.
-   The same on xlstm-1.3b at full width cut to two pattern periods (16
-   layers: 14 mLSTM, 2 sLSTM; XLSTM_SERVE_LAYERS): 8 prompts of 2048
+   The same on xlstm-1.3b at full width cut to one pattern period (8
+   layers: 7 mLSTM, 1 sLSTM; XLSTM_SERVE_LAYERS): 8 prompts of 2048
    tokens (eight chunks), 32 new tokens, a 512-token refill, max_context
-   2304, and the sLSTM loop's share of one more prefill;
+   2304, and the sLSTM loop's share of one more prefill. The same on
+   recurrentgemma-2b at full width and all 26 layers (RGEMMA_SERVE): 8
+   prompts of 2048 tokens, 32 new tokens (the local layers' 2048-slot
+   rings wrap), a 1,100-token refill, max_context 2304, and the RG-LRU
+   scans' share of one more prefill;
 4. the serving engine on reduced tinyllama in f32 on the card and on the
    CPU, from the same weights and monitor state: equal tokens, and logits
    and sketches within rtol 1e-4, atol 1e-4; then reduced xlstm with
@@ -170,10 +176,23 @@ nvcc and nvidia-smi. Phases, each of which raises on failure:
    16 in one chunk, within TOL * max|CPU|; S 64 over four 16-token
    chunks, within 5e-3: the gradient's conditioning there): loss,
    gradients and tree;
-14. print ``{"kernels": [...]}``, the nvidia-smi line, and last
+14. recurrentgemma-2b training (``phase_rgemma_train``): full width and
+   all 26 layers (RGEMMA_TRAIN: f32 parameters, bf16 compute, AdamW as
+   launch/train.py builds it, clip at 1, sketched FFN backprop and the
+   rglru_h carry node at k_max 17), B 4 x S 512 for 10 steps with
+   Gaussian projections on one repeated batch (profiled: the flash
+   kernels' device share, the idle share; the RG-LRU scan's device ms a
+   layer forward and backward; learning: the mean of the last 3 losses
+   RGEMMA_LEARN_DROP below the first 3's) and 3 psparse steps on fresh
+   batches, then 2 steps at B 1 x S 4096 (past the 2048-token window):
+   losses finite, no skip, peak under 80 GB, every sketch entry holding
+   mass; then reduced recurrentgemma cut to 5 layers, one f32 step at B
+   2 x S 64 on the card and on the CPU (loss, gradients, tree within
+   TOL * max|CPU|);
+15. print ``{"kernels": [...]}``, the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 
-Every run of a path (3, 4, 5, 6's LM step, 7–13) sets the kernels'
+Every run of a path (3, 4, 5, 6's LM step, 7–14) sets the kernels'
 launch counts to 0 just before it and checks them just after: each
 monitored token step or train step launches one update kernel per sketched node,
 the projection kind's; each compressed LM step one insert and one top-k,
@@ -182,7 +201,9 @@ one flash forward an attention layer and each prefill and refill one
 mlstm_chunk an mLSTM layer, each train step one flash backward a layer,
 each xlstm train step one mlstm_chunk and one mlstm_chunk_bwd an mLSTM
 layer and one update a "res" layer and two (mlstm_c, mlstm_n) an mLSTM
-layer, a decode step none, a corange step none, a conv step one a stage. A DP
+layer, each recurrentgemma train step one flash forward and one
+backward a local layer and one update a node entry (ffn_in and ffn_h
+every layer, rglru_h an RG-LRU layer), a decode step none, a corange step none, a conv step one a stage. A DP
 step counts these per worker (the overlap layout's increment sweep adds
 a forward), one top-k, and one ring merge (fused) or two (overlap: the
 sketch, then the gradient wire).
@@ -306,7 +327,11 @@ CS_CASES = [
 # f32 head_dim 16 at a ragged S and past a 32-token window and their bf16
 # twins at head_dim 64 (the tensor-core kernels take no head_dim 16), a
 # bf16 head_dim 128 window over several tiles, and head_dim 64, 128 and
-# 160 in f32 over several tiles, held at 1e-4
+# 160 in f32 over several tiles, held at 1e-4; recurrentgemma-2b's local
+# layers at head_dim 256 (10 query heads on one KV head, window 2048):
+# its serving prefill (B 8 x S 2048, every pair inside the window), its
+# train step (B 4 x S 512), a sequence past the window (B 1 x S 4096) and
+# a ragged window (S 300, window 100)
 FLASH_CASES = [
     ("train_s128", 8, 32, 4, 128, 64, None, "bfloat16"),
     ("dp_w4_s128", 2, 32, 4, 128, 64, None, "bfloat16"),
@@ -324,6 +349,10 @@ FLASH_CASES = [
     ("f32_d64", 2, 8, 2, 300, 64, None, "float32"),
     ("f32_d128_window", 1, 8, 2, 300, 128, 100, "float32"),
     ("f32_d160", 1, 4, 2, 200, 160, None, "float32"),
+    ("rgemma_prefill", 8, 10, 1, 2048, 256, 2048, "bfloat16"),
+    ("rgemma_train", 4, 10, 1, 512, 256, 2048, "bfloat16"),
+    ("rgemma_window", 1, 10, 1, 4096, 256, 2048, "bfloat16"),
+    ("rgemma_ragged_window", 1, 10, 1, 300, 256, 100, "bfloat16"),
 ]
 
 # mlstm_chunk: (label, B, H, S, Dk, Dv, chunk), each with f32 inputs and
@@ -399,17 +428,38 @@ XLSTM_GRAD_CLIP = 0.0
 XLSTM_DVC_STEPS = [(16, 256, TOL), (64, 16, 5e-3)]
 # xlstm-1.3b served at full width: 2048-token prompts (eight chunks), 32
 # new tokens, a 512-token refill (two chunks, one request); cut in depth
-# to two 7:1 pattern periods (16 layers) to keep the script inside its
-# time limit (phase 13 trains all 48)
+# to one 7:1 pattern period (8 layers; 16 before recurrentgemma-2b's
+# phases came) to keep the script inside its time limit (phase 13
+# trains all 48)
 XLSTM_SERVE = dict(batch=8, prompt_len=2048, new_tokens=32, refill_len=512,
                    max_context=2304)
-XLSTM_SERVE_LAYERS = 16
+XLSTM_SERVE_LAYERS = 8
 # reduced models amplify rounding over long prompts: at 512 tokens the JAX
 # reference's own logits move by 7.3e-4 of their max when only its mLSTM
 # chunk changes, the port's CPU prefill reads 7.2e-4 against it, and one
 # with q and k rounded to bf16 reads 0.75 (tools/xlstm_chunk_spread.py),
 # so the card is held to the CPU there at 1e-3 of max
 XLSTM_DVC_TOL = 1e-3
+
+# recurrentgemma-2b served at full width and all 26 layers: 8 prompts of
+# 2048 tokens (the local layers' window: their 2048-slot rings fill at
+# prefill and wrap while decoding), 32 new tokens, a 1,100-token refill
+RGEMMA_SERVE = dict(batch=8, prompt_len=2048, new_tokens=32,
+                    refill_len=1100, max_context=2304)
+# and trained at full width and all 26 layers (f32 parameters, bf16
+# compute, AdamW as launch/train.py builds it: lr 3e-4, the global-norm
+# clip at 1; sketched FFN backprop and the rglru_h carry node at the LM
+# runs' k_max 17): B 4 x S 512, STEPS Gaussian steps on one repeated
+# batch, which must end with the last-3 mean loss LEARN_DROP below the
+# first 3's, and PSPARSE_STEPS psparse ones on fresh batches; CTX_STEPS
+# at B 1 x S 4096, where the local layers' window of 2048 cuts the
+# attention
+RGEMMA_TRAIN = dict(batch=4, seq=512, steps=10, psparse_steps=3,
+                    ctx_batch=1, ctx_seq=4096, ctx_steps=2, k_max=17)
+RGEMMA_LEARN_DROP = 0.02
+# reduced recurrentgemma-2b cut to one period and the tail (5 layers),
+# one f32 train step at B 2 x S 64 on the card and on the CPU
+RGEMMA_DVC = dict(layers=5, batch=2, seq=64, k_max=9)
 
 # the LM trainer: tinyllama-1.1b at full width, as launch/train.py runs it
 LM_BATCH, LM_SEQ, LM_STEPS, LM_PSPARSE_STEPS = 8, 128, 20, 3
@@ -1467,7 +1517,7 @@ def phase_serve(dev, cfg, batch: int, prompt_len: int, new_tokens: int,
     import torch
     from repro_torch.kernels.psparse_update import psparse_update
     from repro_torch.kernels.sketch_update import sketch_update
-    from repro_torch.models import ssm
+    from repro_torch.models import rglru, ssm
     from repro_torch.models.transformer import (
         ATTN_KINDS, cast_params, init_params,
     )
@@ -1567,13 +1617,17 @@ def phase_serve(dev, cfg, batch: int, prompt_len: int, new_tokens: int,
             if rep:
                 prefill[on].append((e.spans["prefill"] - before) * 1e3)
 
-    # the sLSTM loop's share of one more prefill of the unmonitored
-    # engine, each sLSTM layer timed between two synchronisations
-    slstm = None
-    if "slstm" in kinds:
-        inner, spent = ssm.slstm_apply, []
+    # the recurrences' share of one more prefill of the unmonitored
+    # engine: each sLSTM layer's loop, or each RG-LRU layer's scan, timed
+    # between two synchronisations
+    shares = {}
+    for kind, module, fn in (("slstm", ssm, "slstm_apply"),
+                             ("rglru", rglru, "rglru_scan")):
+        if kind not in kinds:
+            continue
+        inner, spent = getattr(module, fn), []
 
-        def timed(*a, **kw):
+        def timed(*a, inner=inner, spent=spent, **kw):
             torch.cuda.synchronize()
             t = time.perf_counter()
             res = inner(*a, **kw)
@@ -1581,16 +1635,17 @@ def phase_serve(dev, cfg, batch: int, prompt_len: int, new_tokens: int,
             spent.append(time.perf_counter() - t)
             return res
 
-        ssm.slstm_apply = timed
+        setattr(module, fn, timed)
         try:
             torch.cuda.synchronize()
             before = off.spans["prefill"]
             off.start(prompts)
             total = off.spans["prefill"] - before
         finally:
-            ssm.slstm_apply = inner
-        slstm = dict(layers=len(spent), slstm_ms=sum(spent) * 1e3,
-                     prefill_ms=total * 1e3, share=sum(spent) / total)
+            setattr(module, fn, inner)
+        shares[kind] = dict(layers=len(spent), ms=sum(spent) * 1e3,
+                            ms_a_layer=sum(spent) * 1e3 / len(spent),
+                            prefill_ms=total * 1e3, share=sum(spent) / total)
 
     decode_steps = new_tokens - 1
     out = dict(
@@ -1608,7 +1663,8 @@ def phase_serve(dev, cfg, batch: int, prompt_len: int, new_tokens: int,
         launches=launches, kernel_launches=kernel_launches,
         psparse_launches=ps_launches,
         psparse_kernel_launches=ps_kernel_launches, flags=recs[-1].flags,
-        psparse_flags=ps_flags, slstm_prefill=slstm,
+        psparse_flags=ps_flags, slstm_prefill=shares.get("slstm"),
+        rglru_scan_prefill=shares.get("rglru"),
         phase_s=time.perf_counter() - t_phase)
     log(f"serve {cfg.name}: " + json.dumps(out))
     del eng, off, ps_eng, params
@@ -3313,6 +3369,7 @@ def _carry_mass(tree, batch: int) -> dict:
     failed."""
     import torch
     from repro_torch.kernels.psparse_update import psparse_rows
+    from repro_torch.models.transformer import CARRY_NODE_KINDS
     from repro_torch.sketches import is_psparse
     proj = tree.proj
     dead = []
@@ -3322,7 +3379,7 @@ def _carry_mass(tree, batch: int) -> dict:
                              < batch).any())]
     out = {}
     for name, node in tree.nodes.items():
-        carry = name.startswith("mlstm_")
+        carry = name in CARRY_NODE_KINDS
         for a in "xyz":
             mass = getattr(node, a).abs().sum(dim=(-2, -1))
             empty = int((mass == 0).sum())
@@ -3362,28 +3419,34 @@ def _slstm_ms(state, cfg, batch: int, seq: int) -> float:
     return total * 1e3
 
 
-def xlstm_run(dev, cfg, proj_kind: str, steps: int, batch: int,
-              seq: int, profile: bool = False,
-              repeat_batch: bool = False) -> dict:
-    """One counted, timed run of ``steps`` xlstm train steps of (batch,
-    seq) from a fresh state (each step on the pipeline's next batch, or
-    with ``repeat_batch`` on its first): losses finite and no skip, launches (each
-    step: one mlstm_chunk and one mlstm_chunk_bwd an mLSTM layer, one
-    update kernel per node entry, "res" on every layer and the two carry
-    nodes on each mLSTM layer), peak memory under 80 GB, every sketch's
-    mass (``_carry_mass``); with ``profile`` one more step under
-    torch.profiler (the backward kernels' and the forward's device ms and
-    shares) and the sLSTM blocks' share of the median step."""
+def recurrent_run(dev, cfg, run, *, repeat_batch: bool = False,
+                  profile_groups=None, profile_extra=None) -> dict:
+    """One counted, timed run of ``run.total_steps`` train steps of
+    (``run.global_batch``, ``run.seq_len``) from a fresh state (each step
+    on the pipeline's next batch, or with ``repeat_batch`` on its first):
+    losses finite and no skip, launches (each step: one flash forward and
+    one flash backward an attention layer, one mlstm_chunk and one
+    mlstm_chunk_bwd an mLSTM layer, one update kernel per node entry:
+    "res" or "ffn_in" and "ffn_h" on every layer, the carry nodes on the
+    layers of their kind), peak memory under 80 GB, every sketch's mass
+    (``_carry_mass``); with ``profile_groups`` one more step under
+    torch.profiler (device ms and shares of the kernels each regex
+    names, and the idle share), and ``profile_extra(state)``'s entries
+    beside it."""
     import gc
     import torch
     from repro_torch.data.pipeline import PipelineConfig, host_batch
+    from repro_torch.models.transformer import (
+        ATTN_KINDS, node_layer_count, sketch_groups,
+    )
     from repro_torch.train.state import init_train_state
     from repro_torch.train.step import make_train_step
 
     gc.collect()
     torch.cuda.empty_cache()
     left_mib = torch.cuda.memory_allocated() / 2**20
-    run = _xlstm_run_config(proj_kind, steps, batch, seq)
+    steps, batch, seq = run.total_steps, run.global_batch, run.seq_len
+    proj_kind = run.sketch.proj_kind
     pipe = PipelineConfig(seed=0, global_batch=batch, seq_len=seq,
                           vocab=cfg.vocab_size)
     state = init_train_state(0, cfg, run, device=dev)
@@ -3401,11 +3464,15 @@ def xlstm_run(dev, cfg, proj_kind: str, steps: int, batch: int,
         stamps.append(time.perf_counter())
     launches = read_counts()
     peak = torch.cuda.max_memory_allocated() / 2**20
-    what = f"xlstm {proj_kind} B={batch} S={seq}"
-    n_m = cfg.layer_types.count("mlstm")
+    what = f"{cfg.name} {proj_kind} B={batch} S={seq}"
+    kinds = cfg.layer_types
+    n_m, n_a = kinds.count("mlstm"), sum(k in ATTN_KINDS for k in kinds)
     kernel = "psparse_update" if proj_kind == "psparse" else "sketch_update"
+    entries = sum(node_layer_count(cfg, n) for n in sketch_groups(cfg))
     check_counts(what, launches,
-                 {kernel: (cfg.num_layers + 2 * n_m) * steps,
+                 {kernel: entries * steps,
+                  "flash_attention": n_a * steps,
+                  "flash_attention_bwd": n_a * steps,
                   "mlstm_chunk": n_m * steps, "mlstm_chunk_bwd": n_m * steps})
     if not all(math.isfinite(v) for v in losses) or skipped[-1]:
         raise AssertionError(f"{what}: losses {losses}, skipped {skipped[-1]}")
@@ -3414,27 +3481,46 @@ def xlstm_run(dev, cfg, proj_kind: str, steps: int, batch: int,
     step_ms = [(b - a) * 1e3 for a, b in zip(stamps[:-1], stamps[1:])]
     out = dict(batch=batch, seq=seq, steps=steps, proj_kind=proj_kind,
                k_max=run.sketch.k_max, repeat_batch=repeat_batch,
+               grad_clip=run.optimizer.grad_clip,
                step_ms=statistics.median(step_ms[1:] or step_ms),
                step_ms_samples=step_ms, peak_mem_mib=peak,
                allocated_before_mib=left_mib, launches=launches,
                losses=losses, skipped=skipped[-1],
                mass=_carry_mass(state.sketch, batch))
-    if profile:
+    if profile_groups is not None:
         tokens, labels = host_batch(pipe, steps, device=dev)
         state, out["profile"] = _profile_step(
             state, step, {"tokens": tokens, "labels": labels},
-            groups={"mlstm_chunk_bwd": MLSTM_BWD_KERNELS,
-                    "mlstm_chunk": r"mlstm_(gates|scores|state|n)_(kernel|tc)"})
+            groups=profile_groups)
         out["profile"]["idle_share"] = max(
             0.0, 1 - out["profile"]["device_ms"] / out["step_ms"])
-        out["slstm_ms"] = _slstm_ms(state, cfg, batch, seq)
-        out["slstm_share_of_step"] = out["slstm_ms"] / out["step_ms"]
+        if profile_extra is not None:
+            out.update(profile_extra(state, out))
     log(f"{what}: " + json.dumps({k: v for k, v in out.items()
                                   if k not in ("step_ms_samples",)}))
     del state, step
     gc.collect()
     torch.cuda.empty_cache()
     return out
+
+
+def xlstm_run(dev, cfg, proj_kind: str, steps: int, batch: int,
+              seq: int, profile: bool = False,
+              repeat_batch: bool = False) -> dict:
+    """``recurrent_run`` of xlstm (``_xlstm_run_config``); with
+    ``profile`` the backward kernels' and the forward's device ms and
+    shares of a traced step, and the sLSTM blocks' share of the median
+    step."""
+    def slstm(state, out):
+        ms = _slstm_ms(state, cfg, batch, seq)
+        return dict(slstm_ms=ms, slstm_share_of_step=ms / out["step_ms"])
+
+    groups = {"mlstm_chunk_bwd": MLSTM_BWD_KERNELS,
+              "mlstm_chunk": r"mlstm_(gates|scores|state|n)_(kernel|tc)"}
+    return recurrent_run(
+        dev, cfg, _xlstm_run_config(proj_kind, steps, batch, seq),
+        repeat_batch=repeat_batch, profile_groups=groups if profile else None,
+        profile_extra=slstm)
 
 
 def _xlstm_step_vs_cpu(dev, S: int, chunk: int, tol: float) -> dict:
@@ -3527,6 +3613,145 @@ def phase_xlstm_train(dev) -> dict:
     return out
 
 
+def _rgemma_run_config(proj_kind: str, steps: int, batch: int, seq: int,
+                       k_max: int = RGEMMA_TRAIN["k_max"]):
+    from repro_torch.models.transformer import SketchSettings
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.state import RunConfig
+    # as launch/train.py builds it: lr 3e-4, the global-norm clip at 1,
+    # warmup min(20, steps // 5 + 1)
+    return RunConfig(
+        seq_len=seq, global_batch=batch, optimizer=AdamWConfig(lr=3e-4),
+        warmup_steps=min(20, steps // 5 + 1), total_steps=steps,
+        sketch=SketchSettings(enabled=True, k_max=k_max,
+                              proj_kind=proj_kind))
+
+
+def _rglru_scan_ms(dev, cfg, batch: int, seq: int) -> dict:
+    """Device ms of one RG-LRU scan at (batch, seq, lru) in f32, forward
+    and backward (``time_ms``), on log a in (-0.1, 0] (the model's decays
+    lie in [0.9, 1) at init) and N(0, 1) inputs: the scan's cost a
+    layer, which a traced step cannot name (its kernels are PyTorch's
+    elementwise ones)."""
+    import torch
+    from repro_torch.models.rglru import lru_dim, rglru_scan
+    gen = torch.Generator(device=dev).manual_seed(5)
+    shape = (batch, seq, lru_dim(cfg))
+    la = torch.rand(shape, generator=gen, device=dev) * -0.1
+    b = torch.randn(shape, generator=gen, device=dev)
+    dh = torch.randn(shape, generator=gen, device=dev)
+    fwd_ms, fwd_call_ms = time_ms(lambda: rglru_scan(la, b), 20, 3)
+    fwd_from = time_ms.source
+    leaves = [la.requires_grad_(True), b.requires_grad_(True)]
+    h = rglru_scan(*leaves)
+    bwd_ms, bwd_call_ms = time_ms(lambda: torch.autograd.grad(
+        h, leaves, dh, retain_graph=True), 20, 3)
+    out = dict(shape=list(shape), fwd_ms=fwd_ms, fwd_call_ms=fwd_call_ms,
+               bwd_ms=bwd_ms, bwd_call_ms=bwd_call_ms,
+               ms_from=[fwd_from, time_ms.source])
+    del la, b, dh, h, leaves
+    torch.cuda.empty_cache()
+    return out
+
+
+def _rgemma_step_vs_cpu(dev) -> dict:
+    """Reduced recurrentgemma-2b cut to one period and the tail (5
+    layers) in f32, B 2 x S 64, sketched FFN backprop and the rglru_h
+    carry node (Gaussian, k_max 9): one train step's loss, gradients and
+    new tree on the card and on the CPU from one state, within TOL *
+    max|CPU| each; the card's step counted."""
+    import torch
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.data.pipeline import PipelineConfig, host_batch
+    from repro_torch.optim.flat import tree_leaves
+    from repro_torch.sketches import tree_to
+    from repro_torch.train.state import init_train_state
+    from repro_torch.train.step import make_train_step
+
+    c = RGEMMA_DVC
+    cfg = dataclasses.replace(reduced(get_arch("recurrentgemma-2b")),
+                              num_layers=c["layers"])
+    run = _rgemma_run_config("gaussian", 1, c["batch"], c["seq"],
+                             k_max=c["k_max"])
+    pipe = PipelineConfig(seed=3, global_batch=c["batch"], seq_len=c["seq"],
+                          vocab=cfg.vocab_size)
+    tokens, labels = host_batch(pipe, 0)
+    cpu = init_train_state(0, cfg, run, device="cpu")
+
+    def one_step(where):
+        state = init_train_state(0, cfg, run, device=where,
+                                 params=cpu.params,
+                                 sketch=tree_to(cpu.sketch, where))
+        reset_counts()
+        loss, _, _, grads, tree = make_train_step(cfg, run).loss_and_grads(
+            state, {"tokens": tokens.to(where), "labels": labels.to(where)})
+        if where != "cpu":
+            torch.cuda.synchronize()
+        leaves = [t for n in sorted(tree.nodes) for t in
+                  (tree.nodes[n].x, tree.nodes[n].y, tree.nodes[n].z)]
+        return ([loss.cpu()] + [g.cpu() for g in tree_leaves(grads)]
+                + [t.cpu() for t in leaves]), read_counts()
+
+    got, launches = one_step(dev)
+    want, _ = one_step("cpu")
+    what = f"recurrentgemma step {cfg.name} S={c['seq']}"
+    n_r = cfg.layer_types.count("rglru")
+    check_counts(what, launches,
+                 {"sketch_update": 2 * cfg.num_layers + n_r,
+                  "flash_attention": cfg.num_layers - n_r,
+                  "flash_attention_bwd": cfg.num_layers - n_r})
+    err = 0.0
+    for g, w in zip(got, want):
+        scale = float(w.abs().max())
+        torch.testing.assert_close(g, w, rtol=TOL, atol=TOL * scale,
+                                   msg=lambda m: f"{what}: {m}")
+        err = max(err, float((g - w).abs().max()) / max(scale, 1e-30))
+    out = dict(c, tol=TOL, loss=float(want[0]), max_rel_err=err,
+               launches=launches)
+    log(f"recurrentgemma step device vs cpu: {json.dumps(out)}")
+    return out
+
+
+def phase_rgemma_train(dev) -> dict:
+    """recurrentgemma-2b training at full width and all 26 layers
+    (RGEMMA_TRAIN): (a) B 4 x S 512, Gaussian projections on one repeated
+    batch, profiled (the flash kernels' device share; the RG-LRU scan's
+    device ms a layer, ``_rglru_scan_ms``) and required to learn (the
+    mean of its last 3 losses RGEMMA_LEARN_DROP below its first 3's);
+    (b) psparse projections on fresh batches; (c) B 1 x S 4096; (d) the
+    reduced step on the card against the CPU."""
+    from repro_torch.configs import get_arch
+    cfg = get_arch("recurrentgemma-2b")
+    x = RGEMMA_TRAIN
+    n_r = cfg.layer_types.count("rglru")
+
+    def scan(state, out):
+        sc = _rglru_scan_ms(dev, cfg, x["batch"], x["seq"])
+        sc["share_of_device_ms"] = n_r * (sc["fwd_ms"] + sc["bwd_ms"]) / \
+            out["profile"]["device_ms"]
+        return dict(rglru_scan=sc)
+
+    out = {"gaussian": recurrent_run(
+        dev, cfg, _rgemma_run_config("gaussian", x["steps"], x["batch"],
+                                     x["seq"]),
+        repeat_batch=True, profile_extra=scan,
+        profile_groups={"flash_fwd": r"flash_fwd", "flash_bwd":
+                        r"flash_bwd_(delta|dq|dkdv|sum)"})}
+    first, last = (statistics.mean(out["gaussian"]["losses"][:3]),
+                   statistics.mean(out["gaussian"]["losses"][-3:]))
+    if not last < (1 - RGEMMA_LEARN_DROP) * first:
+        raise AssertionError(f"recurrentgemma did not learn its repeated "
+                             f"batch: mean loss {first:.4f} -> {last:.4f}")
+    out["psparse"] = recurrent_run(
+        dev, cfg, _rgemma_run_config("psparse", x["psparse_steps"],
+                                     x["batch"], x["seq"]))
+    out["ctx"] = recurrent_run(
+        dev, cfg, _rgemma_run_config("gaussian", x["ctx_steps"],
+                                     x["ctx_batch"], x["ctx_seq"]))
+    out["vs_cpu"] = _rgemma_step_vs_cpu(dev)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3581,11 +3806,14 @@ def main() -> int:
     serve_gemma = timed("serve_gemma3", phase_serve, dev, gemma, batch=2,
                         prompt_len=2048, new_tokens=16, refill_len=1100,
                         max_context=2304)
-    # xlstm-1.3b at full width, two pattern periods, random bf16 weights
+    # xlstm-1.3b at full width, one pattern period, random bf16 weights
     serve_xlstm = timed("serve_xlstm", phase_serve, dev,
                         dataclasses.replace(get_arch("xlstm-1.3b"),
                                             num_layers=XLSTM_SERVE_LAYERS),
                         **XLSTM_SERVE)
+    # recurrentgemma-2b at full width and depth, random bf16 weights
+    serve_rgemma = timed("serve_recurrentgemma", phase_serve, dev,
+                         get_arch("recurrentgemma-2b"), **RGEMMA_SERVE)
     dvc = timed("device_vs_cpu", phase_device_vs_cpu, dev)
     # reduced xlstm, two 256-token chunks a prompt
     dvc_xlstm = timed("device_vs_cpu_xlstm", phase_device_vs_cpu, dev,
@@ -3604,6 +3832,7 @@ def main() -> int:
     paper = timed("paper_experiments", phase_paper_experiments, dev)
     xlstm = timed("xlstm_train", phase_xlstm_train, dev)
     kernel_rows["mlstm_chunk_bwd"] = xlstm.pop("kernel_rows")
+    rgemma = timed("recurrentgemma_train", phase_rgemma_train, dev)
     dp_phases_s = sum(phase_s[k] for k in
                       ("dp_train", "dp_device_vs_cpu", "dp_launcher"))
     log(f"data-parallel phases: {dp_phases_s:.1f} s")
@@ -3615,6 +3844,9 @@ def main() -> int:
                "serve_gemma3/psparse": serve_gemma["psparse_launches"],
                "serve_xlstm/gaussian": serve_xlstm["launches"],
                "serve_xlstm/psparse": serve_xlstm["psparse_launches"],
+               "serve_recurrentgemma/gaussian": serve_rgemma["launches"],
+               "serve_recurrentgemma/psparse":
+                   serve_rgemma["psparse_launches"],
                "serve_vs_cpu/tinyllama": dvc["launches"],
                "serve_vs_cpu/xlstm": dvc_xlstm["launches"],
                **{f"mnist_mlp/{k}": v["launches"] for k, v in mnist.items()},
@@ -3629,7 +3861,9 @@ def main() -> int:
                **{f"paper/{k}": v["launches"] for k, v in paper.items()
                   if isinstance(v, dict) and "launches" in v},
                **{f"xlstm_train/{k}": v["launches"]
-                  for k, v in xlstm.items()}}
+                  for k, v in xlstm.items()},
+               **{f"recurrentgemma_train/{k}": v["launches"]
+                  for k, v in rgemma.items()}}
     sources = {"sketch_update": ("src/repro_torch/csrc/sketch_update.cu",
                                  "src/repro/kernels/sketch_update.py:60",
                                  "prefill"),
@@ -3685,13 +3919,14 @@ def main() -> int:
         card=card, build_s=build_s, torch=torch.__version__,
         cuda=torch.version.cuda, kernels=kernels,
         flash_saved_bytes=saved_bytes, serve=serve, serve_gemma3=serve_gemma,
-        serve_xlstm=serve_xlstm, device_vs_cpu=dvc,
+        serve_xlstm=serve_xlstm, serve_recurrentgemma=serve_rgemma,
+        device_vs_cpu=dvc,
         device_vs_cpu_xlstm=dvc_xlstm, mnist_mlp=mnist, monitor_pair=pair,
         train_device_vs_cpu=train_dvc, lm_step_device_vs_cpu=lm_step_dvc,
         lm_train=lm, lm_launcher=launcher, dp_train=dp,
         dp_device_vs_cpu=dp_dvc, dp_launcher=dp_launcher,
         dp_phases_s=dp_phases_s, paper_experiments=paper,
-        xlstm_train=xlstm, phase_s=phase_s),
+        xlstm_train=xlstm, recurrentgemma_train=rgemma, phase_s=phase_s),
         indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -1,8 +1,8 @@
 """Config registry: ``get_arch(name)`` / ``ARCHS``.
 
 Only the architectures whose block kinds the port runs are registered:
-the dense-attention ones and xlstm-1.3b (mLSTM and sLSTM blocks). The
-others exist in the JAX package and raise here until their block kinds
+the dense-attention ones, xlstm-1.3b (mLSTM and sLSTM blocks) and
+recurrentgemma-2b (RG-LRU and local attention blocks). The others exist in the JAX package and raise here until their block kinds
 are ported.
 """
 from __future__ import annotations
@@ -17,6 +17,7 @@ _ARCH_MODULES = {
     "granite-34b": "repro_torch.configs.granite_34b",
     "gemma3-27b": "repro_torch.configs.gemma3_27b",
     "xlstm-1.3b": "repro_torch.configs.xlstm_1_3b",
+    "recurrentgemma-2b": "repro_torch.configs.recurrentgemma_2b",
 }
 
 # Architectures of the JAX package that need block kinds or frontends
@@ -24,7 +25,6 @@ _ARCH_MODULES = {
 _NOT_PORTED = {
     "mixtral-8x22b": "ROADMAP A13 (MoE per-expert nodes)",
     "qwen3-moe-30b-a3b": "ROADMAP A13 (MoE per-expert nodes)",
-    "recurrentgemma-2b": "ROADMAP A13 (RG-LRU blocks)",
     "musicgen-large": "ROADMAP A13 (models/frontends.py)",
     "internvl2-76b": "ROADMAP A13 (models/frontends.py)",
 }

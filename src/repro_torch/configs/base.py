@@ -37,6 +37,7 @@ class ArchConfig:
     tie_embeddings: bool = False
     # recurrent blocks
     conv_width: int = 4              # temporal conv width in recurrent blocks
+    lru_width: int = 0               # RG-LRU state width; 0 -> d_model
     # paper technique in training: sketched backprop on the dense FFN
     # ("backprop"), monitoring-only residual nodes ("monitor"), or none
     sketch_mode: str = "backprop"
@@ -86,6 +87,7 @@ def reduced(arch: ArchConfig, *, layers_per_pattern: int = 1) -> ArchConfig:
         d_ff=0 if arch.d_ff == 0 else 128,
         vocab_size=256,
         window_size=min(arch.window_size, 32),
+        lru_width=0,
         dtype=torch.float32,
         param_dtype=torch.float32,
     )

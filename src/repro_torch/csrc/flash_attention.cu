@@ -11,10 +11,10 @@
 // input type, lse = m + log(max(l, 1e-30)) and delta = rowsum(do * o) in
 // f32. Two paths, chosen by the input type alone:
 //
-// bf16 (namespace tc; head_dim 64, 128 and 160): the tensor cores.
+// bf16 (namespace tc; head_dim 64, 128, 160 and 256): the tensor cores.
 //   Every product is a wgmma (m64nNk16, f32 accumulators) on tiles that
-//   TMA brings into shared memory, swizzled: 128-byte rows at D 64 and
-//   128, 64-byte rows at D 160 (a 320-byte row is no whole number of
+//   TMA brings into shared memory, swizzled: 128-byte rows at D 64, 128
+//   and 256, 64-byte rows at D 160 (a 320-byte row is no whole number of
 //   128-byte atoms). q, k, v, do are read through 4-D tensor maps
 //   (D, H, S, B) built per call from the strides, so the model's
 //   (B, S, H, D) storage needs no copy; rows past S arrive as zeros and
@@ -43,10 +43,22 @@
 //              heads), f32 partials are summed in slice order by a
 //              third kernel.
 //   Tiles (rows x keys or keys x queries): forward 128 x 128 at D 64
-//   and 128, 128 x 64 at D 160; the dq pass streams 128 keys at D 64,
-//   64 otherwise; the dk/dv pass streams 128 queries at D 64, 64 at
-//   D 128, 32 at D 160: as wide as two f32 accumulators of that width
-//   fit beside the (64, D) ones in 240 registers. The grid's slowest
+//   and 128, 128 x 64 at D 160 and 256; the dq pass streams 128 keys at
+//   D 64, 32 at D 256, 64 otherwise; the dk/dv pass streams 128 queries
+//   at D 64, 64 at D 128, 32 at D 160: as wide as two f32 accumulators
+//   of that width fit beside the (64, D) ones in 240 registers.
+//   At D 256 (recurrentgemma's local layers) a (64, D) f32 accumulator
+//   is 128 registers a thread: the forward's O and a 64-key S tile
+//   (176) fit, and Q (64 KB) with two stages of 64-key K and V (128 KB)
+//   fit shared memory; the dq pass takes 32-key K and V tiles so that
+//   its resident Q and dO (128 KB) and two stages (64 KB) fit; the dk/dv
+//   pass cannot hold dK and dV for one warpgroup's keys (256 registers),
+//   so `flash_bwd_dkdv_split_kernel` gives a block 64 keys and splits
+//   its two consumer warpgroups by output, one dV and one dK, P^T handed
+//   from the first to the second through shared memory: each issues two
+//   of a tile's four products and nothing is computed twice. (One
+//   head_dim half of both a warpgroup would need S^T and dP^T swapped
+//   both ways between them.) The grid's slowest
 //   index is the tile, so the longest rows (forward, dq) and the
 //   earliest keys (dk/dv) start first.
 //   Bound on an H100 SXM: 4 D flops a live (q, k) pair forward, 10 D
@@ -561,9 +573,16 @@ struct Cfg {
   static constexpr int NB = D / AW;                   // column blocks
   static constexpr int FWD_BK = D <= 128 ? 128 : 64;  // forward key tile
   // dq pass key tile, dk/dv pass query tile: as large as two f32
-  // accumulators of that width beside the (64, D) ones fit registers
-  static constexpr int DQ_BK = D == 64 ? 128 : 64;
-  static constexpr int KV_BQ = D == 64 ? 128 : D == 128 ? 64 : 32;
+  // accumulators of that width beside the (64, D) ones fit registers;
+  // at D 256 the dq pass's as small as Q, dO and two stages of K and V
+  // fit 227 KB of shared memory (128 + 2 x 32 KB), and the dk/dv pass
+  // (`flash_bwd_dkdv_split_kernel`) holds one (64, D) accumulator a
+  // warpgroup beside one f32 tile of 64 queries
+  static constexpr int DQ_BK = D == 64 ? 128 : D == 256 ? 32 : 64;
+  static constexpr int KV_BQ = D == 64 ? 128 : D == 160 ? 32 : 64;
+  // keys a dk/dv block: two warpgroups of 64, or at D 256 one 64-key
+  // tile shared by the dV and the dK warpgroup
+  static constexpr int KV_BK = D == 256 ? 64 : 128;
 };
 
 // one (rows, AW) box at element coordinates (d0, h, s0, b) of a 4-D map
@@ -834,7 +853,66 @@ template <> struct MMA<160> {
   }
 };
 
-
+template <> struct MMA<256> {
+  // A in registers, B MN-major in shared memory (transposed)
+  static __device__ __forceinline__ void rs(float (&d)[128],
+                                            const uint32_t (&a)[4],
+                                            uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, "
+        "%56, %57, %58, %59, %60, %61, %62, %63, "
+        "%64, %65, %66, %67, %68, %69, %70, %71, "
+        "%72, %73, %74, %75, %76, %77, %78, %79, "
+        "%80, %81, %82, %83, %84, %85, %86, %87, "
+        "%88, %89, %90, %91, %92, %93, %94, %95, "
+        "%96, %97, %98, %99, %100, %101, %102, %103, "
+        "%104, %105, %106, %107, %108, %109, %110, %111, "
+        "%112, %113, %114, %115, %116, %117, %118, %119, "
+        "%120, %121, %122, %123, %124, %125, %126, %127"
+        "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+          "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+          "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+          "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+          "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+          "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+          "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+          "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+          "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+          "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+          "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+          "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+          "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+          "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+          "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+          "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
+          "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
 
 constexpr int STAGES = 2;                 // the ring of streamed tiles
 
@@ -1318,6 +1396,194 @@ flash_bwd_dkdv_tc_kernel(const __grid_constant__ CUtensorMap mk,
   }
 }
 
+// named barrier `id` over `count` threads (a multiple of 32): arrive and
+// go on, or arrive and wait for the rest
+__device__ __forceinline__ void bar_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(count) : "memory");
+}
+__device__ __forceinline__ void bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(count) : "memory");
+}
+
+// dk/dv pass at head_dim 256, where one warpgroup cannot hold both
+// (64, D) f32 accumulators (2 x 128 registers a thread): a block owns 64
+// keys of one (batch, KV head) and a slice of its G query heads, and its
+// two consumer warpgroups split the work by output. The first ("V")
+// computes S^T = K Q^T and P^T from lse, hands P^T to the second through
+// shared memory (f32, in its accumulator fragment's order, so each
+// thread reads back what the same thread of the other warpgroup wrote)
+// and accumulates dV += P^T dO; the second ("K") computes dP^T = V dO^T,
+// waits for P^T on a named barrier, forms dS^T = P^T (dP^T - delta) and
+// accumulates dK += dS^T Q. Each issues two of a tile's four products.
+// P^T has a buffer a ring stage: the producer refills stage s only after
+// both warpgroups released it, so "V" never overwrites a P^T that "K"
+// has not read. One slice writes dk and dv; several write f32 partials
+// part[2][splits][B][Hkv][S][D].
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_bwd_dkdv_split_kernel(const __grid_constant__ CUtensorMap mk,
+            const __grid_constant__ CUtensorMap mv,
+            const __grid_constant__ CUtensorMap mq,
+            const __grid_constant__ CUtensorMap mdo,
+            const float* __restrict__ lse, const float* __restrict__ delta,
+            bf16* __restrict__ dk, bf16* __restrict__ dv, Strides sdk,
+            Strides sdv, int H, int G, int S, int window, float scale,
+            int splits, float* __restrict__ part) {
+  constexpr int BKV = Cfg<D>::KV_BK, BQ = Cfg<D>::KV_BQ;
+  static_assert(BKV == 64, "one 64-row tile of keys a block");
+  constexpr uint32_t KVB = BKV * D * 2, QB = BQ * D * 2;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* Ks = align_1024(smem_raw);
+  uint8_t* Vs = Ks + KVB;
+  uint8_t* Qs = Vs + KVB;
+  uint8_t* dOs = Qs + STAGES * QB;
+  float* Ps = reinterpret_cast<float*>(dOs + STAGES * QB);  // [STAGES][BQ / 2][128]
+  float* lse_s = Ps + STAGES * BQ / 2 * 128;
+  float* del_s = lse_s + STAGES * BQ;
+  uint64_t* full = reinterpret_cast<uint64_t*>(del_s + STAGES * BQ);
+  uint64_t* empty = full + STAGES;
+  uint64_t* kvbar = empty + STAGES;
+  const int k0 = blockIdx.z * BKV;              // early keys have most rows
+  const int hk = blockIdx.x / splits, slice = blockIdx.x % splits;
+  const int b = blockIdx.y;
+  // the query tiles that hold a live query of keys [k0, k0 + 64)
+  const int q_last = window > 0 ? min(S, k0 + BKV - 1 + window) : S;
+  const int tq0 = k0 / BQ, ntq = (q_last + BQ - 1) / BQ - tq0;
+  const int g0 = slice * G / splits, n = ((slice + 1) * G / splits - g0) * ntq;
+  init_barriers(full, STAGES, 32);
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
+  if (wg == 0) {
+    reg_dealloc<24>();
+    if (tid < 32) {
+      if (tid == 0) {
+        mbar_expect_tx(kvbar, 2 * KVB);
+        tma_tile<D>(Ks, &mk, kvbar, BKV, hk, k0, b);
+        tma_tile<D>(Vs, &mv, kvbar, BKV, hk, k0, b);
+      }
+      for (int i = 0; i < n; ++i) {
+        const int h = hk * G + g0 + i / ntq, q0 = (tq0 + i % ntq) * BQ;
+        const int s = i % STAGES;
+        if (i >= STAGES) mbar_wait(&empty[s], (i / STAGES - 1) & 1);
+        const long long at = ((long long)b * H + h) * S;
+        for (int j = tid; j < BQ; j += 32) {
+          const int row = q0 + j;
+          lse_s[s * BQ + j] = row < S ? lse[at + row] * LOG2E : 0.f;
+          del_s[s * BQ + j] = row < S ? delta[at + row] : 0.f;
+        }
+        if (tid == 0) {
+          mbar_expect_tx(&full[s], 2 * QB);
+          tma_tile<D>(Qs + s * QB, &mq, &full[s], BQ, h, q0, b);
+          tma_tile<D>(dOs + s * QB, &mdo, &full[s], BQ, h, q0, b);
+        } else {
+          mbar_arrive(&full[s]);
+        }
+      }
+    }
+    return;
+  }
+  reg_alloc<240>();
+  const bool v_half = wg == 1;                   // else the dK warpgroup
+  const int warp = tid / 32, lane = tid % 32;
+  const int ka = k0 + 16 * warp + lane / 4;      // this thread's: ka, ka + 8
+  const float sl2 = scale * LOG2E;
+  float acc[D / 2];                              // dV or dK
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  mbar_wait(kvbar, 0);
+  for (int i = 0; i < n; ++i) {
+    const int q0 = (tq0 + i % ntq) * BQ, s = i % STAGES;
+    mbar_wait(&full[s], (i / STAGES) & 1);
+    const bool no_pair = k0 >= S || q0 + BQ - 1 < k0 ||
+                         (window > 0 && q0 - (k0 + 63) >= window);
+    if (!no_pair) {
+      const uint8_t* Qt = Qs + s * QB;
+      const uint8_t* dOt = dOs + s * QB;
+      const float* ls = lse_s + s * BQ;
+      const float* ds = del_s + s * BQ;
+      float* Pt = Ps + s * BQ / 2 * 128;
+      float st[BQ / 2];                          // S^T, or dP^T
+#pragma unroll
+      for (int j = 0; j < BQ / 2; ++j) st[j] = 0.f;
+      fence_regs(st);
+      wgmma_fence();
+      const uint8_t* lhs = v_half ? Ks : Vs;
+      const uint8_t* rhs = v_half ? Qt : dOt;
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        MMA<BQ>::ss(st, kdesc<D>(lhs, BKV, 0, kk), kdesc<D>(rhs, BQ, 0, kk),
+                    1);
+      wgmma_commit();
+      wgmma_wait();
+      fence_regs(st);
+      if (v_half) {
+        const bool edge = k0 + 63 > q0 || q0 + BQ > S ||
+                          (window > 0 && q0 + BQ - 1 - k0 >= window);
+#pragma unroll
+        for (int j = 0; j < BQ / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int key = ka + 8 * (e >> 1);
+            const int col = 8 * j + 2 * (lane % 4) + (e & 1), qpos = q0 + col;
+            const bool live = !edge || (qpos < S && key <= qpos &&
+                                        (window <= 0 || qpos - key < window));
+            const float p = live ? exp2f(st[4 * j + e] * sl2 - ls[col]) : 0.f;
+            st[4 * j + e] = p;
+            Pt[(4 * j + e) * 128 + tid] = p;
+          }
+        bar_arrive(1, 256);                      // P^T is in shared memory
+      } else {
+        bar_sync(1, 256);
+#pragma unroll
+        for (int j = 0; j < BQ / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int col = 8 * j + 2 * (lane % 4) + (e & 1);
+            st[4 * j + e] = Pt[(4 * j + e) * 128 + tid] *
+                            (st[4 * j + e] - ds[col]);   // dS^T
+          }
+      }
+      uint32_t pa[BQ / 16][4];
+      to_a<BQ>(st, pa);
+      fence_regs(acc);
+      fence_regs(pa);
+      wgmma_fence();
+      const uint8_t* rows = v_half ? dOt : Qt;
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk)
+        MMA<D>::rs(acc, pa[kk], mndesc<D>(rows, BQ, kk));
+      wgmma_commit();
+      wgmma_wait();
+      fence_regs(acc);
+      fence_regs(pa);
+    }
+    mbar_arrive(&empty[s]);
+  }
+  const long long nel = (long long)gridDim.y * (H / G) * S * D;
+  const float mul = v_half ? 1.f : scale;
+  bf16* out = v_half ? dv : dk;
+  const Strides so = v_half ? sdv : sdk;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = ka + 8 * r;
+    if (key >= S) continue;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const int col = 8 * j + 2 * (lane % 4);
+      const float lo = acc[4 * j + 2 * r] * mul;
+      const float hi = acc[4 * j + 2 * r + 1] * mul;
+      if (part == nullptr) {
+        *reinterpret_cast<__nv_bfloat162*>(
+            out + b * so.b + hk * so.h + (long long)key * so.s + col) =
+            __floats2bfloat162_rn(lo, hi);
+      } else {
+        float* row = part + (v_half ? splits * nel : 0) + slice * nel +
+                     (((long long)b * (H / G) + hk) * S + key) * D + col;
+        *reinterpret_cast<float2*>(row) = make_float2(lo, hi);
+      }
+    }
+  }
+}
+
 // ---- host side: tensor maps and launches ----
 
 constexpr int ERR_ENCODE = 10000;   // + the CUresult of a refused map
@@ -1388,7 +1654,7 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* o,
   using C = Cfg<D>;
   // strides: q, k, v, o, do, dq, dk, dv. The dq pass takes Q and dO in
   // boxes of 128 rows and K and V in DQ_BK, the dk/dv pass K and V in
-  // 128 and Q and dO in KV_BQ: where the two agree (at head_dim 64)
+  // KV_BK and Q and dO in KV_BQ: where the two agree (at head_dim 64)
   // both passes take the same maps
   CUtensorMap mq, mdo, mk, mv, mk2, mv2, mq2, mdo2;
   int e;
@@ -1397,11 +1663,11 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* o,
       (e = make_map<D>(&mk, k, B, Hkv, S, st + 3, C::DQ_BK)) ||
       (e = make_map<D>(&mv, v, B, Hkv, S, st + 6, C::DQ_BK)))
     return e;
-  if constexpr (C::DQ_BK == 128) {
+  if constexpr (C::DQ_BK == C::KV_BK) {
     mk2 = mk;
     mv2 = mv;
-  } else if ((e = make_map<D>(&mk2, k, B, Hkv, S, st + 3, 128)) ||
-             (e = make_map<D>(&mv2, v, B, Hkv, S, st + 6, 128))) {
+  } else if ((e = make_map<D>(&mk2, k, B, Hkv, S, st + 3, C::KV_BK)) ||
+             (e = make_map<D>(&mv2, v, B, Hkv, S, st + 6, C::KV_BK))) {
     return e;
   }
   if constexpr (C::KV_BQ == 128) {
@@ -1414,12 +1680,20 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* o,
   const size_t smem_dq = 1024 +
                          (size_t)(2 * 128 + 2 * STAGES * C::DQ_BK) * D * 2 +
                          BARRIER_BYTES;
+  // the split kernel (D 256) adds a P^T buffer a stage, 64 x KV_BQ f32
+  constexpr bool split = C::KV_BK == 64;
   const size_t smem_kv = 1024 +
-                         (size_t)(2 * 128 + 2 * STAGES * C::KV_BQ) * D * 2 +
-                         2 * STAGES * C::KV_BQ * 4 + BARRIER_BYTES;
+                         (size_t)(2 * C::KV_BK + 2 * STAGES * C::KV_BQ) * D * 2 +
+                         2 * STAGES * C::KV_BQ * 4 +
+                         (split ? STAGES * 64 * C::KV_BQ * 4 : 0) +
+                         BARRIER_BYTES;
+  decltype(&flash_bwd_dkdv_tc_kernel<D>) dkdv_kernel;
+  if constexpr (split)
+    dkdv_kernel = flash_bwd_dkdv_split_kernel<D>;
+  else
+    dkdv_kernel = flash_bwd_dkdv_tc_kernel<D>;
   cudaError_t err = set_smem(flash_bwd_dq_tc_kernel<D>, smem_dq);
-  if (err == cudaSuccess)
-    err = set_smem(flash_bwd_dkdv_tc_kernel<D>, smem_kv);
+  if (err == cudaSuccess) err = set_smem(dkdv_kernel, smem_kv);
   if (err != cudaSuccess) return err;
   const long long rows = (long long)B * Hq * S;
   flash_bwd_delta_kernel<D><<<(unsigned)((rows + 7) / 8), 256, 0, stream>>>(
@@ -1434,8 +1708,8 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* o,
       window, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  flash_bwd_dkdv_tc_kernel<D>
-      <<<dim3(Hkv * splits, B, (S + 127) / 128), THREADS, smem_kv, stream>>>(
+  dkdv_kernel<<<dim3(Hkv * splits, B, (S + C::KV_BK - 1) / C::KV_BK), THREADS,
+                smem_kv, stream>>>(
       mk2, mv2, mq2, mdo2, lse, delta, (bf16*)dk, (bf16*)dv, strides_at(st, 6),
       strides_at(st, 7), Hq, G, S, window, scale, splits,
       splits > 1 ? part : nullptr);
@@ -1454,14 +1728,15 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* o,
 
 }  // namespace
 
-// bf16 at head_dim 64, 128 and 160 takes the tensor-core kernels; f32
-// at head_dim 16, 64, 128 and 160 the FMA kernels; anything else is
+// bf16 at head_dim 64, 128, 160 and 256 takes the tensor-core kernels;
+// f32 at head_dim 16, 64, 128 and 160 the FMA kernels; anything else is
 // refused (cudaErrorInvalidValue)
 #define FA_DISPATCH(TC_CALL, F32_CALL)                                 \
   if (is_bf16) {                                                       \
     if (D == 64) return TC_CALL(64);                                   \
     if (D == 128) return TC_CALL(128);                                 \
     if (D == 160) return TC_CALL(160);                                 \
+    if (D == 256) return TC_CALL(256);                                 \
   } else {                                                             \
     if (D == 16) return (int)F32_CALL(16);                             \
     if (D == 64) return (int)F32_CALL(64);                             \
@@ -1527,6 +1802,7 @@ extern "C" double flash_attention_encode_us(const void* ptr, int B, int H,
     const int e = D == 64    ? tc::make_map<64>(&map, ptr, B, H, S, st, 128)
                   : D == 128 ? tc::make_map<128>(&map, ptr, B, H, S, st, 128)
                   : D == 160 ? tc::make_map<160>(&map, ptr, B, H, S, st, 128)
+                  : D == 256 ? tc::make_map<256>(&map, ptr, B, H, S, st, 128)
                              : -1;
     if (e) return -1.0;
   }

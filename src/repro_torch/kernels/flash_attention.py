@@ -17,7 +17,7 @@ S >= 1. The plain versions compute the function in f32 throughout.
 
 The kernels take two paths, by the input type alone:
 
-- bf16 (head_dim 64, 128, 160): the tensor cores. Every product is a
+- bf16 (head_dim 64, 128, 160, 256): the tensor cores. Every product is a
   ``wgmma`` with f32 accumulators on tiles that TMA brings into shared
   memory through 4-D tensor maps of the tensors' own strides (so the
   (b, h, s) strides and the base address must be multiples of 16 bytes);
@@ -26,10 +26,15 @@ The kernels take two paths, by the input type alone:
   are rounded to bf16 before their products, as the JAX model's chunked
   scan rounds P, so the bf16 results differ from the f32 plain version
   by that rounding as well as by the final rounding to bf16
-  (``BF16_TOL``, per row). bf16 at head_dim 16 is refused: only
-  the reduced configs have it, and they run in f32.
+  (``BF16_TOL``, per row). At head_dim 256 (recurrentgemma-2b) the
+  dk/dv pass gives each block 64 keys and its two consumer warpgroups
+  one output each, dV and dK. bf16 at head_dim 16 is refused: only the
+  reduced configs have it, and they run in f32.
 - f32 (head_dim 16, 64, 128, 160): the f32 FMA kernels of the first
   version, exact to the plain version but for the order of the sums.
+  f32 at head_dim 256 is refused: its dq pass's tiles would not fit
+  shared memory, and no path runs it (the reduced configs are head_dim
+  16).
 
 Bound on an H100 SXM: forward 4 D operations a live (q, k) pair, backward
 10 D (S (S + 1) / 2 live pairs a head, sum_i min(i + 1, w) with a
@@ -63,8 +68,9 @@ from repro_torch.kernels import _build
 Tensor = torch.Tensor
 
 NEG_INF = -1e30
-HEAD_DIMS = (16, 64, 128, 160)     # the ported configs' head_dim (csrc)
-BF16_HEAD_DIMS = (64, 128, 160)    # those of the tensor-core kernels
+HEAD_DIMS = (16, 64, 128, 160, 256)  # the ported configs' head_dim (csrc)
+BF16_HEAD_DIMS = (64, 128, 160, 256)  # those of the tensor-core kernels
+F32_HEAD_DIMS = (16, 64, 128, 160)    # those of the FMA kernels
 PLAIN_CHUNK = 1024                 # keys a step of the plain versions
 # bf16 o, dq, dk, dv of the kernels against the f32 plain versions. The
 # tensor-core kernels round P and dS to bf16 before their products and
@@ -199,12 +205,13 @@ def _check(q: Tensor, k: Tensor, v: Tensor, window: int | None,
 
 
 def _check_cuda(D: int, **tensors: Tensor) -> None:
-    """What the kernels take beyond ``_check``: a compiled head_dim, unit
-    stride along D, lse contiguous; in bf16 (the tensor maps of the
-    tensor-core kernels) a head_dim of ``BF16_HEAD_DIMS`` and base
-    addresses and (b, h, s) strides of whole 16-byte units."""
+    """What the kernels take beyond ``_check``: a compiled head_dim
+    (``BF16_HEAD_DIMS`` in bf16, ``F32_HEAD_DIMS`` in f32), unit stride
+    along D, lse contiguous; in bf16 (the tensor maps of the tensor-core
+    kernels) base addresses and (b, h, s) strides of whole 16-byte
+    units."""
     bf16 = tensors["q"].dtype == torch.bfloat16
-    dims = BF16_HEAD_DIMS if bf16 else HEAD_DIMS
+    dims = BF16_HEAD_DIMS if bf16 else F32_HEAD_DIMS
     if D not in dims:
         raise ValueError(f"head_dim {D} has no {tensors['q'].dtype} "
                          f"flash_attention kernel; the kernels take {dims}")
@@ -280,12 +287,18 @@ def flash_attention_fwd(q: Tensor, k: Tensor, v: Tensor, *,
     return o, lse
 
 
+def dkdv_keys(D: int, dtype: torch.dtype) -> int:
+    """Keys a block of the dk/dv pass owns: 64 in the f32 kernels, 128 in
+    the bf16 ones, 64 in bf16 at head_dim 256 (the split kernel)."""
+    return 128 if dtype == torch.bfloat16 and D != 256 else 64
+
+
 def dkdv_splits(B: int, hkv: int, S: int, G: int, sms: int,
                 keys: int = 64) -> int:
     """Slices of each KV head's G query heads that the dk/dv pass gives
     blocks of their own: enough for two blocks an SM (MQA's one KV head
     leaves most SMs idle otherwise), at most G. A block owns ``keys``
-    keys: 64 in the f32 kernels, 128 in the bf16 ones."""
+    keys (``dkdv_keys``)."""
     blocks = -(-S // keys) * hkv * B
     return max(1, min(G, -(-2 * sms // blocks)))
 
@@ -308,8 +321,7 @@ def flash_attention_bwd(q: Tensor, k: Tensor, v: Tensor, o: Tensor,
     delta = torch.empty_like(lse)
     _check_cuda(D, q=q, k=k, v=v, o=o, do=do, lse=lse, dq=dq, dk=dk, dv=dv)
     sms = _build.num_sms(q.device)
-    splits = dkdv_splits(B, hkv, S, Hq // hkv, sms,
-                         128 if q.dtype == torch.bfloat16 else 64)
+    splits = dkdv_splits(B, hkv, S, Hq // hkv, sms, dkdv_keys(D, q.dtype))
     part = (torch.empty((2, splits, B, hkv, S, D), dtype=torch.float32,
                         device=q.device) if splits > 1 else None)
     lib = _build.load("flash_attention", _bind)

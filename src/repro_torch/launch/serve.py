@@ -4,6 +4,8 @@
         --arch tinyllama-1.1b --monitor [--device cpu] [--reduced]
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch xlstm-1.3b --reduced --device cpu --prompt-len 16
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch recurrentgemma-2b --reduced --device cpu --prompt-len 40
 
 An arch with mLSTM blocks (xlstm-1.3b) takes prompts of at most 256
 tokens or a multiple of 256.

@@ -1,6 +1,6 @@
-"""Decoder stack for the dense-attention architectures and xlstm's
-mLSTM/sLSTM blocks (counterpart of that subset of
-``repro.models.transformer``).
+"""Decoder stack for the dense-attention architectures, xlstm's
+mLSTM/sLSTM blocks and recurrentgemma's RG-LRU blocks (counterpart of
+that subset of ``repro.models.transformer``).
 
 Parameters are ``{"embed", "final_norm", "layers": [block, ...]}`` with
 one dict per layer, in layer order; the reference's scanned layout
@@ -22,14 +22,16 @@ Monitoring (paper §4.6 in the serving path): with
 feeds that layer's "res" EMA triple in prefill and decode. The nodes
 have no consumer, so the generated tokens do not depend on them.
 
-Recurrent blocks (``models/ssm.py``) run in every mode; a block with
-``mlp_type="none"`` has no FFN. In train mode an arch with mLSTM blocks
-also sketches each mLSTM layer's end-of-sequence matrix memory: the
-carry nodes "mlstm_c" (C, H*dk*dv wide) and "mlstm_n" (n, H*dk), stacked
-over the mLSTM layers only, in layer order (the reference's group-major
-stack). Their B rows are contracted against the projections' first B
-token rows (``sketches.update.limit_rows``), which is the reference's
-zero-padded update without the pad.
+Recurrent blocks (``models/ssm.py``, ``models/rglru.py``) run in every
+mode; a block with ``mlp_type="none"`` has no FFN. In train mode an arch
+with mLSTM blocks also sketches each mLSTM layer's end-of-sequence
+matrix memory: the carry nodes "mlstm_c" (C, H*dk*dv wide) and "mlstm_n"
+(n, H*dk), stacked over the mLSTM layers only, in layer order (the
+reference's group-major stack); one with RG-LRU blocks each RG-LRU
+layer's end-of-sequence state, "rglru_h" (lru wide). Their B rows are
+contracted against the projections' first B token rows
+(``sketches.update.limit_rows``), which is the reference's zero-padded
+update without the pad.
 
 The updated tree is written into one new (L, w, k) buffer per node and
 leaf as the layers go; the old tree stays whole, since the NaN guard
@@ -45,6 +47,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.sketch import validate_proj_kind
 from repro_torch.models import attention as attn
+from repro_torch.models import rglru
 from repro_torch.models import ssm
 from repro_torch.models.layers import (
     embed_apply, embed_init, mlp_apply, mlp_init, rmsnorm_apply,
@@ -60,14 +63,16 @@ from repro_torch.sketches.linear import sketched_matmul
 
 Tensor = torch.Tensor
 ATTN_KINDS = ("full", "swa", "local", "global")
-RECURRENT_KINDS = ("mlstm", "slstm")
+RECURRENT_KINDS = ("mlstm", "slstm", "rglru")
 # the leaves the reference casts to f32, not to the compute type, at use
-F32_LEAVES = ("b_gates", "b_s", "r_s")
+F32_LEAVES = ("b_gates", "b_s", "r_s", "a_param", "w_input_gate",
+              "w_rec_gate")
 #: carry node -> the block kind whose layers update it; every other node
 #: updates at every layer
 CARRY_NODE_KINDS = {
     "mlstm_c": "mlstm",       # matrix memory C, flattened H*dk*dv
     "mlstm_n": "mlstm",       # normaliser n, flattened H*dk
+    "rglru_h": "rglru",       # RG-LRU state h, lru wide
 }
 
 
@@ -117,8 +122,9 @@ class SketchSettings:
 
 def sketch_groups(cfg: ArchConfig) -> dict[str, int]:
     """{node name: width} of the sketched activation nodes: "res" in
-    monitor mode, else "ffn_in" and "ffn_h"; with mLSTM blocks, in
-    either mode, the carry nodes "mlstm_c" and "mlstm_n"."""
+    monitor mode, else "ffn_in" and "ffn_h"; in either mode, with mLSTM
+    blocks the carry nodes "mlstm_c" and "mlstm_n", with RG-LRU blocks
+    "rglru_h"."""
     if cfg.sketch_mode == "none":
         return {}
     if cfg.sketch_mode == "monitor":
@@ -131,6 +137,8 @@ def sketch_groups(cfg: ArchConfig) -> dict[str, int]:
         _, H, dk, dv = ssm.mlstm_dims(cfg)
         groups["mlstm_c"] = H * dk * dv
         groups["mlstm_n"] = H * dk
+    if "rglru" in cfg.pattern:
+        groups["rglru_h"] = rglru.lru_dim(cfg)
     return groups
 
 
@@ -179,8 +187,9 @@ def _check_ported(cfg: ArchConfig) -> None:
     kinds = set(cfg.pattern)
     if not kinds <= set(ATTN_KINDS + RECURRENT_KINDS):
         raise NotImplementedError(
-            f"{cfg.name}: only attention, mLSTM and sLSTM blocks are "
-            f"ported (pattern {cfg.pattern}); the others are ROADMAP A13")
+            f"{cfg.name}: only attention, mLSTM, sLSTM and RG-LRU blocks "
+            f"are ported (pattern {cfg.pattern}); the others are ROADMAP "
+            f"A13")
 
 
 def _block_init(gen, cfg: ArchConfig, kind: str, dtype) -> dict:
@@ -190,6 +199,8 @@ def _block_init(gen, cfg: ArchConfig, kind: str, dtype) -> dict:
         p["attn"] = attn.attn_init(gen, cfg, dtype)
     elif kind == "mlstm":
         p["mix"] = ssm.mlstm_init(gen, cfg, dtype)
+    elif kind == "rglru":
+        p["mix"] = rglru.rglru_init(gen, cfg, dtype)
     else:
         p["mix"] = ssm.slstm_init(gen, cfg, dtype)
     if cfg.mlp_type != "none":
@@ -217,9 +228,11 @@ def num_params(cfg: ArchConfig) -> int:
     _check_ported(cfg)
     d, hd, H = cfg.d_model, cfg.resolved_head_dim, cfg.num_heads
     inner, _, dk, _ = ssm.mlstm_dims(cfg)
+    lru = rglru.lru_dim(cfg)
     mix = {"mlstm": 3 * d * inner + 2 * inner * H * dk + 2 * inner * H
            + 2 * H + cfg.conv_width * inner,
-           "slstm": 5 * d * d + 4 * d * (d // H) + 4 * d}
+           "slstm": 5 * d * d + 4 * d * (d // H) + 4 * d,
+           "rglru": 3 * d * lru + 2 * lru * lru + (cfg.conv_width + 2) * lru}
     attn_w = 2 * d * H * hd + 2 * d * cfg.num_kv_heads * hd
     mlp_w = 0 if cfg.mlp_type == "none" else \
         (3 if cfg.mlp_type == "swiglu" else 2) * d * cfg.d_ff + d
@@ -237,7 +250,7 @@ def num_reference_leaves(cfg: ArchConfig) -> int:
     _check_ported(cfg)
     P, G = len(cfg.pattern), cfg.num_groups
     mlp = {"none": 0, "swiglu": 4, "gelu": 3}[cfg.mlp_type]
-    mix = {"mlstm": 8, "slstm": 4}
+    mix = {"mlstm": 8, "slstm": 4, "rglru": 8}
     kinds = cfg.layer_types[:P] if G else ()
     kinds = [*kinds, *cfg.layer_types[G * P:]]
     return (1 if cfg.tie_embeddings else 2) + 1 + sum(
@@ -289,14 +302,16 @@ def _block_cache(cfg: ArchConfig, kind: str, batch: int, seq_len_ctx: int,
                                     device)
     if kind == "mlstm":
         return ssm.init_mlstm_cache(cfg, batch, cfg.dtype, device)
+    if kind == "rglru":
+        return rglru.init_rglru_cache(cfg, batch, cfg.dtype, device)
     return ssm.init_slstm_cache(cfg, batch, cfg.dtype, device)
 
 
 def init_cache(cfg: ArchConfig, batch: int, seq_len_ctx: int,
                device) -> list[dict]:
     """One cache per layer, by block kind: {"k", "v"} sized for
-    ``seq_len_ctx``, mLSTM's {"C", "m_n", "m_m", "conv"} or sLSTM's
-    {"s_c", "s_n", "s_m", "s_h"}."""
+    ``seq_len_ctx``, mLSTM's {"C", "m_n", "m_m", "conv"}, sLSTM's
+    {"s_c", "s_n", "s_m", "s_h"} or RG-LRU's {"r_h", "conv"}."""
     return [_block_cache(cfg, kind, batch, seq_len_ctx, device)
             for kind in cfg.layer_types]
 
@@ -365,8 +380,8 @@ def _apply_block(kind, p, x, *, cfg, positions, mode, cache, seq_len_ctx,
                  sk=None, carry=None, proj=None, omega=None, k_active=None,
                  st: SketchSettings = SketchSettings()):
     """One decoder block. ``sk`` holds this layer's nodes of the
-    sketched FFN in train mode, ``carry`` an mLSTM layer's carry nodes.
-    Returns (x, new_cache, new nodes)."""
+    sketched FFN in train mode, ``carry`` an mLSTM or RG-LRU layer's
+    carry nodes. Returns (x, new_cache, new nodes)."""
     h = rmsnorm_apply(p["norm1"], x, cfg.norm_eps)
     new_sk = {}
     if kind in ATTN_KINDS:
@@ -383,6 +398,14 @@ def _apply_block(kind, p, x, *, cfg, positions, mode, cache, seq_len_ctx,
     elif kind == "mlstm":
         mix, new_cache = ssm.mlstm_apply(p["mix"], h, cfg=cfg, mode=mode,
                                          cache=cache)
+    elif kind == "rglru" and carry:
+        mix, new_cache, h_end = rglru.rglru_apply(
+            p["mix"], h, cfg=cfg, mode=mode, cache=cache, return_carry=True)
+        new_sk = {"rglru_h": _update_carry_triple(carry["rglru_h"], h_end,
+                                                  proj, k_active, st)}
+    elif kind == "rglru":
+        mix, new_cache = rglru.rglru_apply(p["mix"], h, cfg=cfg, mode=mode,
+                                           cache=cache)
     else:
         mix, new_cache = ssm.slstm_apply(p["mix"], h, cfg=cfg, mode=mode,
                                          cache=cache)
@@ -416,7 +439,7 @@ def forward(
     must pass it; train, eval and prefill default to S). In train mode
     the "ffn_in"/"ffn_h" nodes of a backprop tree update and feed the
     sketched FFN, and each mLSTM layer updates its "mlstm_c"/"mlstm_n"
-    entries; under an active monitor, layer l's output (B*S, d) updates
+    entries and each RG-LRU layer its "rglru_h" entry; under an active monitor, layer l's output (B*S, d) updates
     "res" entry l. Whenever nodes update, the returned tree has its step
     advanced; otherwise it comes back as given. ``aux`` (the MoE balance
     loss of the reference) is 0 for these archs.
@@ -440,7 +463,8 @@ def forward(
     nodes = sketch_state.nodes if sketch_state is not None else {}
     sketched = mode == "train" and "ffn_in" in nodes
     monitor = "res" in nodes and _monitor_active(mode, settings)
-    carried = mode == "train" and "mlstm_c" in nodes
+    carried = mode == "train" and any(name in nodes
+                                      for name in CARRY_NODE_KINDS)
     live = [name for name in nodes
             if (name in CARRY_NODE_KINDS and carried)
             or (name == "res" and monitor)

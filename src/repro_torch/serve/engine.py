@@ -14,8 +14,10 @@ JAX package.
 
 The engine runs on CUDA unless ``device`` says otherwise; without CUDA
 it raises rather than fall back to the CPU. Attention caches are updated
-in place; recurrent ones (xlstm's mLSTM and sLSTM state) are replaced
-each step, and a refill writes every cache entry of its slot. Archs with
+in place (recurrentgemma's local layers: rings of window-size slots);
+recurrent ones (xlstm's mLSTM and sLSTM state, recurrentgemma's RG-LRU
+state: "r_h" in f32 and the conv tail "conv" in the compute type) are
+replaced each step, and a refill writes every cache entry of its slot. Archs with
 mLSTM blocks prefill prompts of at most one 256-token chunk or a whole
 number of chunks; other lengths raise ``ValueError`` before any work.
 ``max_context`` bounds every arch's sequence, xlstm's too, though its

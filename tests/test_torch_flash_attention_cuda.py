@@ -1,10 +1,11 @@
 """The flash attention kernels on a CUDA device against their plain
 versions, at every compiled head_dim: f32 (the FMA kernels, head_dim
 16, 64, 128, 160) and bf16 (the tensor-core kernels, head_dim 64, 128,
-160), in the model's layout ((B, S, H, D) storage read as (B, H, S, D)),
-at lengths that span several tiles, end ragged, or pass a window, MQA,
+160, 256), in the model's layout ((B, S, H, D) storage read as (B, H, S,
+D)), at lengths that span several tiles, end ragged, or pass a window,
+MQA (recurrentgemma's 10 query heads on one KV head at head_dim 256),
 with the dk/dv pass split over query-head slices and not; two backward
-calls bit for bit equal.
+calls bit for bit equal; f32 at head_dim 256 and bf16 at 16 refused.
 
 Needs a CUDA device and nvcc: each test skips without one. This file
 imports neither JAX nor the JAX package, so it runs where only the port
@@ -43,6 +44,11 @@ CASES = [  # (B, Hq, Hkv, S, D, window, dtype)
     # each group (the cases above split it and sum partials)
     (2, 4, 4, 2100, 16, 300, torch.float32),
     (4, 4, 4, 1100, 64, None, torch.bfloat16),
+    # head_dim 256: the dk/dv pass's split kernel (64 keys a block, a
+    # dV and a dK warpgroup), split over query heads and not
+    (2, 10, 1, 130, 256, None, torch.bfloat16),
+    (1, 10, 1, 300, 256, 100, torch.bfloat16),
+    (4, 4, 4, 1100, 256, None, torch.bfloat16),
 ]
 
 
@@ -74,8 +80,7 @@ def test_cuda_kernels_match_plain_versions(B, Hq, Hkv, S, D, window, dtype):
     q, k, v, do = _cuda_inputs(S + D, B, Hq, Hkv, S, D, dtype)
     before = (FA.flash_attention_fwd.launches, FA.flash_attention_bwd.launches)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    splits = FA.dkdv_splits(B, Hkv, S, Hq // Hkv, sms,
-                            128 if dtype == torch.bfloat16 else 64)
+    splits = FA.dkdv_splits(B, Hkv, S, Hq // Hkv, sms, FA.dkdv_keys(D, dtype))
     assert (splits == 1) == (S > 1000)
     o, lse = FA.flash_attention_fwd(q, k, v, window=window)
     want_o, want_lse = FA.flash_attention_plain(q, k, v, window=window)
@@ -108,11 +113,23 @@ def test_cuda_bf16_refuses_what_the_tensor_maps_cannot_take():
 
 
 @pytest.mark.requires_cuda
+def test_cuda_f32_refuses_head_dim_256():
+    """No path runs f32 at head_dim 256 (the reduced configs are head_dim
+    16), and its dq pass's tiles would not fit shared memory."""
+    q, k, v, do = _cuda_inputs(3, 1, 4, 1, 64, 256, torch.float32)
+    with pytest.raises(ValueError, match="head_dim 256 has no"):
+        FA.flash_attention_fwd(q, k, v)
+    lse = torch.zeros((1, 4, 64), device="cuda")
+    with pytest.raises(ValueError, match="head_dim 256 has no"):
+        FA.flash_attention_bwd(q, k, v, q, lse, do)
+
+
+@pytest.mark.requires_cuda
 def test_cuda_f32_takes_the_fma_kernels():
     """f32 launches the FMA kernels: head_dim 16, which the tensor-core
-    kernels do not take, runs, and every head_dim holds 1e-4, which P in
-    bf16 would not."""
-    for D in FA.HEAD_DIMS:
+    kernels do not take, runs, and every head_dim of the FMA kernels
+    holds 1e-4, which P in bf16 would not."""
+    for D in FA.F32_HEAD_DIMS:
         q, k, v, do = _cuda_inputs(D, 1, 4, 2, 150, D, torch.float32)
         o, lse = FA.flash_attention_fwd(q, k, v)
         got = FA.flash_attention_bwd(q, k, v, o, lse, do)

@@ -136,7 +136,7 @@ def test_configs_match_reference(name):
 
 
 @pytest.mark.parametrize("name", ["mixtral-8x22b", "qwen3-moe-30b-a3b",
-                                  "recurrentgemma-2b"])
+                                  "musicgen-large", "internvl2-76b"])
 def test_unported_archs_name_their_roadmap_item(name):
     jax_get_arch(name)                  # exists in the reference
     with pytest.raises(NotImplementedError, match="ROADMAP A13"):

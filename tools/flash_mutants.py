@@ -6,7 +6,9 @@ tensor-core kernels.
 
 Each mutant is ``csrc/flash_attention.cu`` with one edit (a mask off by
 one row or one key, a live tile dropped, an interior tile dropped only
-for the rows or keys past 1024 of a long sequence), built by nvcc with
+for the rows or keys past 1024 of a long sequence; in the head_dim 256
+dk/dv kernel, its dK or its dV warpgroup's output dropped, or its window
+bound a query tile short), built by nvcc with
 the headers it includes into a temporary directory (``tools/_mutate.py``;
 the checkout is not touched) and loaded in place
 of the library. The unedited source runs first as the control. Each
@@ -16,8 +18,9 @@ case): for o, dq, dk and dv (the backward given the plain forward's o
 and lse) the gap over each row's scale and the largest share of the
 allowance used (``flash_attention.bf16_gaps``), that share against an
 allowance scaled by the tensor's largest value instead of the row's,
-and whether the ``BF16_TOL`` check fails (a NaN fails it). Exits 1 if the control fails
-or a mutant passes every case. Needs a CUDA device and nvcc.
+and whether the ``BF16_TOL`` check fails (a NaN fails it). Exits 1 if the control fails,
+a mutant passes every case, or a mutant of the head_dim 256 dk/dv
+kernel passes every head_dim 256 case. Needs a CUDA device and nvcc.
 """
 from __future__ import annotations
 
@@ -58,6 +61,18 @@ MUTANTS = [
     ("dkdv_late_keys_drop_an_interior_tile",
      "const bool dead = kc >= S ||",
      "const bool dead = (k0 >= 1024 && i % nt == 1) || kc >= S ||", 0),
+    # head_dim 256's split dk/dv kernel: one warpgroup's half of the
+    # outputs, and the last query tile of a window
+    ("split_dkdv_drops_the_dk_products",
+     "MMA<D>::rs(acc, pa[kk], mndesc<D>(rows, BQ, kk));",
+     "if (v_half) MMA<D>::rs(acc, pa[kk], mndesc<D>(rows, BQ, kk));", 0),
+    ("split_dkdv_drops_the_dv_half",
+     "const float mul = v_half ? 1.f : scale;",
+     "const float mul = v_half ? 0.f : scale;", 0),
+    ("split_dkdv_window_a_tile_short",
+     "const int q_last = window > 0 ? min(S, k0 + BKV - 1 + window) : S;",
+     "const int q_last = window > 0 ? min(S, k0 + BKV - 1 + window - BQ) "
+     ": S;", 0),
 ]
 
 
@@ -69,7 +84,7 @@ def main() -> int:
     from repro_torch.kernels import flash_attention as FA
 
     cases = [c for c in chip_smoke.FLASH_CASES if c[7] == "bfloat16"]
-    caught = {}
+    caught, caught_256 = {}, {}
     with tempfile.TemporaryDirectory() as tmp:
         with concurrent.futures.ThreadPoolExecutor(len(MUTANTS)) as pool:
             libs = dict(zip([m[0] for m in MUTANTS], pool.map(
@@ -78,7 +93,7 @@ def main() -> int:
                 MUTANTS)))
         for name, lib_file in libs.items():
             with loaded("flash_attention", lib_file, FA._bind):
-                caught[name] = False
+                caught[name] = caught_256[name] = False
                 gen = torch.Generator(device="cuda").manual_seed(3)
                 for label, B, Hq, Hkv, S, D, window, _ in cases:
                     q, k, v, do = (torch.randn(
@@ -105,6 +120,7 @@ def main() -> int:
                             FA.BF16_TOL * (w.abs().max() + w.abs()))).max())
                     fails = not all(u <= 1 for u in used.values())
                     caught[name] |= fails
+                    caught_256[name] |= fails and D == 256
                     print(json.dumps(dict(mutant=name, case=label, gaps=gaps,
                                           used=used, used_of_max=used_of_max,
                                           check_fails=fails)), flush=True)
@@ -112,7 +128,10 @@ def main() -> int:
                     torch.cuda.empty_cache()
     ok = not caught["control"] and all(
         v for k, v in caught.items() if k != "control")
-    print(json.dumps(dict(caught=caught, ok=ok)), flush=True)
+    # the split kernel's mutants must fail at head_dim 256 itself
+    ok &= all(caught_256[k] for k in caught_256 if k.startswith("split_"))
+    print(json.dumps(dict(caught=caught, caught_at_256=caught_256, ok=ok)),
+          flush=True)
     return 0 if ok else 1
 
 
