@@ -18,6 +18,11 @@ nvcc and nvidia-smi. Phases, each of which raises on failure:
    run in another order; the tensor-core sketch_update carries each
    projection as bf16 hi and lo parts) and two calls equal bit for bit,
    beside one torch.matmul of A^T against the (T, 3k) projections; the
+   stacked launch of both (one launch over E experts' triples, the
+   "expert_in" stacks) at STACKED_CASES (qwen3-moe's train step: E 128
+   x 160 rows x d 2048, bf16, k 17; the reduced MoE step's f32 shape),
+   the same check, beside one batched torch.bmm and beside E launches of
+   the unstacked kernel; the
    count-sketch kernels at the LM train step's geometry
    (r 5, c 2^23, the flat dimension of tinyllama-1.1b, k 256 and 512), a
    small ragged case and an even r: ``csvec_insert`` within the same
@@ -84,7 +89,11 @@ nvcc and nvidia-smi. Phases, each of which raises on failure:
    recurrentgemma-2b at full width and all 26 layers (RGEMMA_SERVE): 8
    prompts of 2048 tokens, 32 new tokens (the local layers' 2048-slot
    rings wrap), a 1,100-token refill, max_context 2304, and the RG-LRU
-   scans' share of one more prefill;
+   scans' share of one more prefill. The same on qwen3-moe-30b-a3b at
+   full width and all 48 layers (QWEN_SERVE; 30.5 B parameters drawn in
+   bf16, 61.1 GB): 8 prompts of 2048 tokens, 32 new tokens, a
+   1,100-token refill, max_context 2304, and the share of routed choices
+   that capacity dropped in one prefill and one decode step;
 4. the serving engine on reduced tinyllama in f32 on the card and on the
    CPU, from the same weights and monitor state: equal tokens, and logits
    and sketches within rtol 1e-4, atol 1e-4; then reduced xlstm with
@@ -189,7 +198,19 @@ nvcc and nvidia-smi. Phases, each of which raises on failure:
    mass; then reduced recurrentgemma cut to 5 layers, one f32 step at B
    2 x S 64 on the card and on the CPU (loss, gradients, tree within
    TOL * max|CPU|);
-15. print ``{"kernels": [...]}``, the nvidia-smi line, and last
+15. qwen3-moe-30b-a3b training (``phase_qwen3_moe_train``): full width
+   cut to 3 layers (QWEN_TRAIN: f32 parameters, bf16 compute, AdamW as
+   launch/train.py builds it, "attn_o" sketched backprop on the
+   attention out-projection and the "expert_in" stacks at k_max 17),
+   B 4 x S 512 for 10 steps with Gaussian projections on one repeated
+   batch (profiled: flash's device share, the idle share; one layer's
+   expert FFN and one stacked update timed apart; learning: the mean of
+   the last 3 losses QWEN_LEARN_DROP below the first 3's) and 3 psparse
+   steps on fresh batches: losses finite, no skip, peak under 80 GB;
+   then reduced qwen3-moe, one f32 step at B 2 x S 64 on the card and on
+   the CPU (loss, gradients, tree within TOL * max|CPU|, each layer's
+   routing selections equal);
+16. print ``{"kernels": [...]}``, the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 
 Every run of a path (3, 4, 5, 6's LM step, 7–14) sets the kernels'
@@ -203,7 +224,9 @@ each xlstm train step one mlstm_chunk and one mlstm_chunk_bwd an mLSTM
 layer and one update a "res" layer and two (mlstm_c, mlstm_n) an mLSTM
 layer, each recurrentgemma train step one flash forward and one
 backward a local layer and one update a node entry (ffn_in and ffn_h
-every layer, rglru_h an RG-LRU layer), a decode step none, a corange step none, a conv step one a stage. A DP
+every layer, rglru_h an RG-LRU layer), each MoE train step one flash
+forward and backward and two updates a layer ("attn_o", and one stacked
+launch for the layer's "expert_in" stack), a decode step none, a corange step none, a conv step one a stage. A DP
 step counts these per worker (the overlap layout's increment sweep adds
 a forward), one top-k, and one ring merge (fused) or two (overlap: the
 sketch, then the gradient wire).
@@ -304,6 +327,17 @@ PSPARSE_CASES = [
 # coefficients drawn until every matrix has a support row below 4
 PSPARSE_BINDING = {"xlstm_mlstm_c": 2048, "xlstm_mlstm_n": 2048}
 DENSITY = 0.1
+# the stacked launch (one launch for an "expert_in" stack of E triples):
+# (label, E, rows, d, k, A dtype, binding T). qwen3-moe-30b-a3b's train
+# step at B 4 x S 512 (capacity 160 slots an expert of 128, d 2048, k
+# 17: the tensor-core kernel for sketch_update; psparse's FMA kernel over
+# the live slots of the 2048-row binding) and the reduced MoE step that
+# phase_moe_step_vs_cpu runs (E 4, capacity 80 at 128 tokens, d 64, k 9,
+# f32: the FMA kernels)
+STACKED_CASES = [
+    ("moe_expert_in", 128, 160, 2048, 17, "bfloat16", 2048),
+    ("moe_reduced_f32", 4, 80, 64, 9, "float32", 128),
+]
 # the CUDA sources, one nvcc each
 KERNELS = ("sketch_update", "psparse_update", "csvec_insert", "csvec_topk",
            "csvec_quant", "flash_attention", "mlstm_chunk", "mlstm_chunk_bwd",
@@ -391,12 +425,15 @@ MLSTM_BWD_TC = ("train_bf16", "ctx_bf16", "narrow_tc", "narrow_tc_floor")
 # bf16 compute, AdamW with warmup-cosine, monitor sketches with the
 # mlstm_c/mlstm_n carry nodes): B 4 x S 512 (two mLSTM chunks), STEPS
 # with Gaussian projections and PSPARSE_STEPS with psparse ones, then
-# CTX_STEPS at B 1 x S 2048, the model's context (eight chunks). k_max 9
+# CTX_STEPS at B 1 x S 2048, the model's context (eight chunks), cut to
+# CTX_LAYERS (two 7:1 periods; 25.4 s a step at 48) to keep the script
+# inside its time limit with qwen3-moe's phases. k_max 9
 # is the reference's own xlstm tests' (tests/test_node_families.py): one
 # copy of the 42 mlstm_c triples takes 3 x 42 x 2,097,152 x k_max x 4 B,
 # 9.5 GB at 9 and 34.9 GB at the default 33, and the step holds two
 XLSTM_TRAIN = dict(batch=4, seq=512, steps=10, psparse_steps=3,
-                   ctx_batch=1, ctx_seq=2048, ctx_steps=2, k_max=9)
+                   ctx_batch=1, ctx_seq=2048, ctx_steps=2, ctx_layers=16,
+                   k_max=9)
 # the Gaussian xlstm run trains on its first batch again and again and
 # must end with its last-3 mean loss this fraction below its first-3
 # mean. On fresh batches ten steps cannot show learning: at reduced size
@@ -460,6 +497,29 @@ RGEMMA_LEARN_DROP = 0.02
 # reduced recurrentgemma-2b cut to one period and the tail (5 layers),
 # one f32 train step at B 2 x S 64 on the card and on the CPU
 RGEMMA_DVC = dict(layers=5, batch=2, seq=64, k_max=9)
+
+# qwen3-moe-30b-a3b served at full width and all 48 layers (30.5 B
+# parameters, 61.1 GB drawn in bf16): 8 prompts of 2048 tokens
+# (capacity 1,280 slots an expert), 32 new tokens (capacity 4 at B 8),
+# a 1,100-token refill (capacity 88), both monitors
+QWEN_SERVE = dict(batch=8, prompt_len=2048, new_tokens=32,
+                  refill_len=1100, max_context=2304)
+# and trained at full width cut to 3 layers (2.49 B parameters: 39.9 GB
+# of f32 parameters, gradients and AdamW moments; AdamW's functional
+# update holds the old and the new parameters and moments at its end, so
+# 4 layers (3.11 B) reached 72.4 GiB allocated beside 5.1 GiB of free
+# fragments and ran out of memory on an H100; 48 layers would need 489
+# GB), bf16 compute, AdamW as launch/train.py builds it (lr 3e-4, clip
+# 1), "attn_o" sketched backprop and the "expert_in" stacks at k_max 17:
+# B 4 x S 512 (capacity 160), STEPS Gaussian steps on one repeated
+# batch, which must end with the last-3 mean loss LEARN_DROP below the
+# first 3's, and PSPARSE_STEPS psparse ones on fresh batches
+QWEN_TRAIN = dict(layers=3, batch=4, seq=512, steps=10, psparse_steps=3,
+                  k_max=17)
+QWEN_LEARN_DROP = 0.02
+# reduced qwen3-moe (2 layers, E 4 top-2), one f32 train step at B 2 x S
+# 64 on the card and on the CPU
+QWEN_DVC = dict(batch=2, seq=64, k_max=9)
 
 # the LM trainer: tinyllama-1.1b at full width, as launch/train.py runs it
 LM_BATCH, LM_SEQ, LM_STEPS, LM_PSPARSE_STEPS = 8, 128, 20, 3
@@ -779,7 +839,83 @@ def phase_kernels(dev) -> dict[str, list[dict]]:
             # FMA a live slot, column and output
             bound(read * d * a.element_size() + k * 4 + 48 + 6 * d * k * 4,
                   2 * live * d * k, d, k, a.element_size())))
+    for name, row in _stacked_rows(dev, gen).items():
+        rows[name] += row
     return rows
+
+
+def _stacked_rows(dev, gen) -> dict[str, list[dict]]:
+    """The stacked launch at STACKED_CASES: each kernel's one launch over
+    E triples against its plain version, timed beside one batched
+    torch.bmm of A^T against [Upsilon|Omega|Phi] (psparse: against the
+    implicit matrices' first rows, dense) and beside E launches of the
+    unstacked kernel, one an expert (``e_launches_ms``)."""
+    import torch
+    from repro_torch.kernels.psparse_update import (
+        psparse_dense, psparse_dim, psparse_hash_params, psparse_rows,
+        psparse_update, psparse_update_ref,
+    )
+    from repro_torch.kernels.sketch_update import (
+        sketch_update, sketch_update_ref,
+    )
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    out = {"sketch_update": [], "psparse_update": []}
+    for label, E, R, d, k, a_dtype, n_tok in STACKED_CASES:
+        dtype = getattr(torch, a_dtype)
+        a = rand(E, R, d).to(dtype)
+        x, y, z, psi = rand(E, d, k), rand(E, d, k), rand(E, d, k), \
+            rand(E, k)
+        ups, omg, phi = rand(R, k), rand(R, k), rand(R, k)
+        args = (a, x, y, z, ups, omg, phi)
+        pcat = torch.cat([ups, omg, phi], dim=1).to(dtype).expand(E, -1, -1)
+        case = dict(case=label, experts=E, T=R, d=d, k=k, a_dtype=a_dtype)
+        row = measure(
+            "sketch_update (stacked)", case,
+            lambda: sketch_update(*args, psi, beta=0.9),
+            lambda: sketch_update_ref(*args, psi, 0.9),
+            lambda: torch.bmm(a.transpose(1, 2), pcat),
+            bound(E * R * d * a.element_size() + 3 * R * k * 4 + E * k * 4
+                  + 6 * E * d * k * 4, 6 * E * R * d * k, d, k,
+                  a.element_size()))
+        row["e_launches_ms"], row["e_launches_call_ms"] = time_ms(
+            lambda: [sketch_update(a[e], x[e], y[e], z[e], ups, omg, phi,
+                                   psi[e], beta=0.9) for e in range(E)], 20, 2)
+        out["sketch_update"].append(row)
+
+        m = psparse_dim(n_tok, k, DENSITY)
+        coeffs = psparse_hash_params(gen)
+        while not all(bool((psparse_rows(c, m, n_tok) < R).any())
+                      for c in coeffs):
+            coeffs = psparse_hash_params(gen)
+        support = [psparse_rows(c, m, n_tok) for c in coeffs]
+        read = len(set().union(*(r[r < R].tolist() for r in support)))
+        live = sum(int((r < R).sum()) for r in support)
+        dense = psparse_dense(coeffs, n_tok, k, m, dev)
+        pdense = torch.cat([dense[n][:R] for n in ("upsilon", "omega",
+                                                    "phi")],
+                           dim=1).to(dtype).expand(E, -1, -1)
+        kw = dict(beta=0.9, m=m, num_tokens=n_tok)
+        row = measure(
+            "psparse_update (stacked)",
+            dict(case, m=m, num_tokens=n_tok, rows_read=read,
+                 live_slots=live),
+            lambda: psparse_update(a, x, y, z, coeffs, psi, **kw),
+            lambda: psparse_update_ref(a, x, y, z, coeffs, psi, **kw),
+            lambda: torch.bmm(a.transpose(1, 2), pdense),
+            bound(E * read * d * a.element_size() + E * k * 4 + 48
+                  + 6 * E * d * k * 4, 2 * E * live * d * k, d, k,
+                  a.element_size()))
+        row["e_launches_ms"], row["e_launches_call_ms"] = time_ms(
+            lambda: [psparse_update(a[e], x[e], y[e], z[e], coeffs, psi[e],
+                                    **kw) for e in range(E)], 20, 2)
+        out["psparse_update"].append(row)
+        log(f"stacked {label}: E launches {row['e_launches_ms'] * 1e3:.2f} "
+            f"us (psparse); sketch_update "
+            f"{out['sketch_update'][-1]['e_launches_ms'] * 1e3:.2f} us")
+    return out
 
 
 def _cs_rows_only(params, j: int):
@@ -1508,11 +1644,15 @@ def _finite_tree(tree) -> bool:
 
 
 def phase_serve(dev, cfg, batch: int, prompt_len: int, new_tokens: int,
-                refill_len: int, max_context: int) -> dict:
+                refill_len: int, max_context: int,
+                draw_in_dtype: bool = False) -> dict:
     """The serving path: monitored serving, counted, against monitor off;
     then the same with psparse monitor projections, counted too. The
     weights are cast to the compute type once, so every engine shares
-    them."""
+    them; with ``draw_in_dtype`` they are drawn in it (qwen3-moe's 30.5 B
+    parameters would take 122 GB in f32). An MoE arch also reports the
+    share of its routed choices that capacity dropped in one prefill and
+    one decode step (``moe_drops``)."""
     import gc
     import torch
     from repro_torch.kernels.psparse_update import psparse_update
@@ -1528,7 +1668,9 @@ def phase_serve(dev, cfg, batch: int, prompt_len: int, new_tokens: int,
     torch.cuda.empty_cache()
     t_phase = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(0)
-    params = cast_params(init_params(gen, cfg), cfg.dtype, dev)
+    params = cast_params(init_params(gen, dataclasses.replace(
+        cfg, param_dtype=cfg.dtype) if draw_in_dtype else cfg), cfg.dtype,
+        dev)
     prompts = torch.randint(0, cfg.vocab_size, (batch, prompt_len),
                             generator=gen, device=dev)
     refill_prompt = torch.randint(0, cfg.vocab_size, (refill_len,),
@@ -1647,6 +1789,7 @@ def phase_serve(dev, cfg, batch: int, prompt_len: int, new_tokens: int,
                             ms_a_layer=sum(spent) * 1e3 / len(spent),
                             prefill_ms=total * 1e3, share=sum(spent) / total)
 
+    drops = _moe_drops(off, prompts) if cfg.is_moe else None
     decode_steps = new_tokens - 1
     out = dict(
         arch=cfg.name, batch=batch, prompt_len=prompt_len,
@@ -1663,11 +1806,42 @@ def phase_serve(dev, cfg, batch: int, prompt_len: int, new_tokens: int,
         launches=launches, kernel_launches=kernel_launches,
         psparse_launches=ps_launches,
         psparse_kernel_launches=ps_kernel_launches, flags=recs[-1].flags,
-        psparse_flags=ps_flags, slstm_prefill=shares.get("slstm"),
+        psparse_flags=ps_flags, moe_drops=drops,
+        slstm_prefill=shares.get("slstm"),
         rglru_scan_prefill=shares.get("rglru"),
         phase_s=time.perf_counter() - t_phase)
     log(f"serve {cfg.name}: " + json.dumps(out))
     del eng, off, ps_eng, params
+    return out
+
+
+def _moe_drops(eng, prompts) -> dict:
+    """The share of routed (token, choice) assignments that capacity
+    dropped, over the MoE layers of one more prefill and one decode step
+    of ``eng``: each ``dispatch_meta`` call's dropped slots read back."""
+    import torch
+    from repro_torch.models import moe
+    inner, seen = moe.dispatch_meta, []
+
+    def counted(tope, E, C):
+        res = inner(tope, E, C)
+        seen.append((int((res[2] == E * C).sum()), tope.numel(), C))
+        return res
+
+    moe.dispatch_meta = counted
+    out = {}
+    try:
+        for what, fn in (("prefill", lambda: eng.start(prompts)),
+                         ("decode", eng.decode_step)):
+            seen.clear()
+            fn()
+            torch.cuda.synchronize()
+            dropped, total = (sum(v[i] for v in seen) for i in (0, 1))
+            out[what] = dict(dropped=dropped, assignments=total,
+                             share=dropped / total, capacity=seen[0][2],
+                             layers=len(seen))
+    finally:
+        moe.dispatch_meta = inner
     return out
 
 
@@ -3366,7 +3540,9 @@ def _carry_mass(tree, batch: int) -> dict:
     psparse matrix has no support row below the carry's B rows (the
     reference's zero-padded rows reach only those), its sketch of a
     carry node rightly stays zero: such sketches are listed, not
-    failed."""
+    failed. So are an "expert_in" stack's psparse sketches: an expert
+    whose occupied slots never held a matrix's support row keeps that
+    sketch at zero, in the reference too."""
     import torch
     from repro_torch.kernels.psparse_update import psparse_rows
     from repro_torch.models.transformer import CARRY_NODE_KINDS
@@ -3380,11 +3556,13 @@ def _carry_mass(tree, batch: int) -> dict:
     out = {}
     for name, node in tree.nodes.items():
         carry = name in CARRY_NODE_KINDS
+        listed = name == "expert_in" and is_psparse(proj)
         for a in "xyz":
             mass = getattr(node, a).abs().sum(dim=(-2, -1))
             empty = int((mass == 0).sum())
             want = mass.numel() if carry and a in dead else 0
-            if empty != want or not bool(torch.isfinite(mass).all()):
+            if (empty != want and not listed) or \
+                    not bool(torch.isfinite(mass).all()):
                 raise AssertionError(
                     f"{name}.{a}: {empty} of {mass.numel()} entries hold "
                     f"no mass, expected {want}")
@@ -3591,8 +3769,8 @@ def phase_xlstm_train(dev) -> dict:
     512, Gaussian then psparse projections (XLSTM_TRAIN), the Gaussian
     run profiled and, on one repeated batch, required to learn (the mean
     of its last 3 losses XLSTM_LEARN_DROP below its first 3's); (c) B 1
-    x S 2048; (d) reduced xlstm, one step on the card against the CPU at
-    each of XLSTM_DVC_STEPS."""
+    x S 2048 at 16 layers (``ctx_layers``); (d) reduced xlstm, one step
+    on the card against the CPU at each of XLSTM_DVC_STEPS."""
     from repro_torch.configs import get_arch
     cfg = get_arch("xlstm-1.3b")
     x = XLSTM_TRAIN
@@ -3606,8 +3784,9 @@ def phase_xlstm_train(dev) -> dict:
                              f"loss {first:.4f} -> {last:.4f}")
     out["psparse"] = xlstm_run(dev, cfg, "psparse", x["psparse_steps"],
                                x["batch"], x["seq"])
-    out["ctx"] = xlstm_run(dev, cfg, "gaussian", x["ctx_steps"],
-                           x["ctx_batch"], x["ctx_seq"])
+    out["ctx"] = xlstm_run(
+        dev, dataclasses.replace(cfg, num_layers=x["ctx_layers"]),
+        "gaussian", x["ctx_steps"], x["ctx_batch"], x["ctx_seq"])
     for S, chunk, tol in XLSTM_DVC_STEPS:
         out[f"vs_cpu_s{S}_w{chunk}"] = _xlstm_step_vs_cpu(dev, S, chunk, tol)
     return out
@@ -3752,6 +3931,174 @@ def phase_rgemma_train(dev) -> dict:
     return out
 
 
+def _qwen_run_config(proj_kind: str, steps: int, batch: int, seq: int,
+                     k_max: int = QWEN_TRAIN["k_max"]):
+    from repro_torch.models.transformer import SketchSettings
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.state import RunConfig
+    # as launch/train.py builds it: lr 3e-4, the global-norm clip at 1,
+    # warmup min(20, steps // 5 + 1)
+    return RunConfig(
+        seq_len=seq, global_batch=batch, optimizer=AdamWConfig(lr=3e-4),
+        warmup_steps=min(20, steps // 5 + 1), total_steps=steps,
+        sketch=SketchSettings(enabled=True, k_max=k_max,
+                              proj_kind=proj_kind))
+
+
+def _moe_layer_ms(dev, state, cfg, batch: int, seq: int) -> dict:
+    """Device ms, at the train step's shapes on the trained state, of the
+    pieces a traced step cannot name apart: one layer's expert FFN
+    forward and backward on its (E, C, d) slab (cuBLAS's batched
+    products and the swiglu), and one stacked "expert_in" update
+    (``sketch_update`` over the E triples, against the tree's first C
+    projection rows)."""
+    import torch
+    from repro_torch.models import moe
+    from repro_torch.models.transformer import _update_expert_triple
+    E, d = cfg.num_experts, cfg.d_model
+    C = moe.capacity(batch * seq, E, cfg.experts_per_token,
+                     cfg.capacity_factor)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    xg = torch.randn((E, C, d), generator=gen, device=dev).to(cfg.dtype)
+    w = [state.params["layers"][0]["moe"][n].detach().requires_grad_(True)
+         for n in ("we_gate", "we_up", "we_down")]
+    fwd_ms, _ = time_ms(lambda: moe._expert_ffn(xg, *w), 20, 3)
+    fwd_from = time_ms.source
+    out = moe._expert_ffn(xg, *w)
+    dy = torch.randn_like(out)
+    bwd_ms, _ = time_ms(lambda: torch.autograd.grad(
+        out, w, dy, retain_graph=True), 20, 3)
+    bwd_from = time_ms.source
+    tree = state.sketch
+    node = tree.nodes["expert_in"]
+    one = type(node)(x=node.x[0], y=node.y[0], z=node.z[0], psi=node.psi[0])
+    st = _qwen_run_config("gaussian", 1, batch, seq).sketch
+    upd_ms, upd_call_ms = time_ms(lambda: _update_expert_triple(
+        one, xg, tree.proj, tree.k_active, st), 50, 5)
+    res = dict(experts=E, capacity=C, ffn_fwd_ms=fwd_ms, ffn_bwd_ms=bwd_ms,
+               stacked_update_ms=upd_ms, stacked_update_call_ms=upd_call_ms,
+               ms_from=[fwd_from, bwd_from, time_ms.source])
+    del xg, w, out, dy
+    torch.cuda.empty_cache()
+    return res
+
+
+def _moe_step_vs_cpu(dev) -> dict:
+    """Reduced qwen3-moe (2 layers, 4 experts top-2) in f32, B 2 x S 64,
+    "attn_o" sketched backprop and the "expert_in" stacks (Gaussian,
+    k_max 9): one train step's loss, gradients and new tree on the card
+    and on the CPU from one state, within TOL * max|CPU| each, and each
+    layer's routing selections equal; the card's step counted."""
+    import torch
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.data.pipeline import PipelineConfig, host_batch
+    from repro_torch.models import moe
+    from repro_torch.optim.flat import tree_leaves
+    from repro_torch.sketches import tree_to
+    from repro_torch.train.state import init_train_state
+    from repro_torch.train.step import make_train_step
+
+    c = QWEN_DVC
+    cfg = reduced(get_arch("qwen3-moe-30b-a3b"))
+    run = _qwen_run_config("gaussian", 1, c["batch"], c["seq"],
+                           k_max=c["k_max"])
+    pipe = PipelineConfig(seed=3, global_batch=c["batch"], seq_len=c["seq"],
+                          vocab=cfg.vocab_size)
+    tokens, labels = host_batch(pipe, 0)
+    cpu = init_train_state(0, cfg, run, device="cpu")
+    inner = moe.route
+
+    def one_step(where):
+        state = init_train_state(0, cfg, run, device=where,
+                                 params=cpu.params,
+                                 sketch=tree_to(cpu.sketch, where))
+        chosen = []
+
+        def route(*a):
+            res = inner(*a)
+            chosen.append(res[2])
+            return res
+
+        moe.route = route
+        try:
+            reset_counts()
+            loss, _, aux, grads, tree = make_train_step(
+                cfg, run).loss_and_grads(state, {
+                    "tokens": tokens.to(where), "labels": labels.to(where)})
+            if where != "cpu":
+                torch.cuda.synchronize()
+        finally:
+            moe.route = inner
+        leaves = [t for n in sorted(tree.nodes) for t in
+                  (tree.nodes[n].x, tree.nodes[n].y, tree.nodes[n].z)]
+        return ([loss.cpu(), aux.cpu()]
+                + [g.cpu() for g in tree_leaves(grads)]
+                + [t.cpu() for t in leaves]), read_counts(), \
+            [t.cpu() for t in chosen]
+
+    got, launches, got_routes = one_step(dev)
+    want, _, want_routes = one_step("cpu")
+    what = f"MoE step {cfg.name} S={c['seq']}"
+    L = cfg.num_layers
+    check_counts(what, launches, {"sketch_update": 2 * L,
+                                  "flash_attention": L,
+                                  "flash_attention_bwd": L})
+    if len(got_routes) != L or not all(
+            torch.equal(g, w) for g, w in zip(got_routes, want_routes)):
+        raise AssertionError(f"{what}: the card's routing differs")
+    err = 0.0
+    for g, w in zip(got, want):
+        scale = float(w.abs().max())
+        torch.testing.assert_close(g, w, rtol=TOL, atol=TOL * scale,
+                                   msg=lambda m: f"{what}: {m}")
+        err = max(err, float((g - w).abs().max()) / max(scale, 1e-30))
+    out = dict(c, tol=TOL, loss=float(want[0]), aux=float(want[1]),
+               max_rel_err=err, launches=launches,
+               routed=[int(t.numel()) for t in want_routes])
+    log(f"MoE step device vs cpu: {json.dumps(out)}")
+    return out
+
+
+def phase_qwen3_moe_train(dev) -> dict:
+    """qwen3-moe-30b-a3b training at full width cut to 3 layers
+    (QWEN_TRAIN): (a) B 4 x S 512, Gaussian projections on one repeated
+    batch, profiled (flash's device share, the idle share; one layer's
+    expert FFN and one stacked update timed apart, ``_moe_layer_ms``)
+    and required to learn (the mean of its last 3 losses QWEN_LEARN_DROP
+    below its first 3's); (b) psparse projections on fresh batches; (c)
+    the reduced step on the card against the CPU."""
+    from repro_torch.configs import get_arch
+    x = QWEN_TRAIN
+    cfg = dataclasses.replace(get_arch("qwen3-moe-30b-a3b"),
+                              num_layers=x["layers"])
+
+    def layer(state, out):
+        ms = _moe_layer_ms(dev, state, cfg, x["batch"], x["seq"])
+        dev_ms = out["profile"]["device_ms"]
+        ms["ffn_share_of_device_ms"] = cfg.num_layers * (
+            ms["ffn_fwd_ms"] + ms["ffn_bwd_ms"]) / dev_ms
+        ms["stacked_update_share_of_device_ms"] = \
+            cfg.num_layers * ms["stacked_update_ms"] / dev_ms
+        return dict(moe_layer=ms)
+
+    out = {"gaussian": recurrent_run(
+        dev, cfg, _qwen_run_config("gaussian", x["steps"], x["batch"],
+                                   x["seq"]),
+        repeat_batch=True, profile_extra=layer,
+        profile_groups={"flash_fwd": r"flash_fwd", "flash_bwd":
+                        r"flash_bwd_(delta|dq|dkdv|sum)"})}
+    first, last = (statistics.mean(out["gaussian"]["losses"][:3]),
+                   statistics.mean(out["gaussian"]["losses"][-3:]))
+    if not last < (1 - QWEN_LEARN_DROP) * first:
+        raise AssertionError(f"qwen3-moe did not learn its repeated batch: "
+                             f"mean loss {first:.4f} -> {last:.4f}")
+    out["psparse"] = recurrent_run(
+        dev, cfg, _qwen_run_config("psparse", x["psparse_steps"],
+                                   x["batch"], x["seq"]))
+    out["vs_cpu"] = _moe_step_vs_cpu(dev)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3814,6 +4161,11 @@ def main() -> int:
     # recurrentgemma-2b at full width and depth, random bf16 weights
     serve_rgemma = timed("serve_recurrentgemma", phase_serve, dev,
                          get_arch("recurrentgemma-2b"), **RGEMMA_SERVE)
+    # qwen3-moe-30b-a3b at full width and depth, random weights drawn in
+    # bf16
+    serve_qwen = timed("serve_qwen3_moe", phase_serve, dev,
+                       get_arch("qwen3-moe-30b-a3b"), **QWEN_SERVE,
+                       draw_in_dtype=True)
     dvc = timed("device_vs_cpu", phase_device_vs_cpu, dev)
     # reduced xlstm, two 256-token chunks a prompt
     dvc_xlstm = timed("device_vs_cpu_xlstm", phase_device_vs_cpu, dev,
@@ -3833,6 +4185,7 @@ def main() -> int:
     xlstm = timed("xlstm_train", phase_xlstm_train, dev)
     kernel_rows["mlstm_chunk_bwd"] = xlstm.pop("kernel_rows")
     rgemma = timed("recurrentgemma_train", phase_rgemma_train, dev)
+    qwen = timed("qwen3_moe_train", phase_qwen3_moe_train, dev)
     dp_phases_s = sum(phase_s[k] for k in
                       ("dp_train", "dp_device_vs_cpu", "dp_launcher"))
     log(f"data-parallel phases: {dp_phases_s:.1f} s")
@@ -3847,6 +4200,8 @@ def main() -> int:
                "serve_recurrentgemma/gaussian": serve_rgemma["launches"],
                "serve_recurrentgemma/psparse":
                    serve_rgemma["psparse_launches"],
+               "serve_qwen3_moe/gaussian": serve_qwen["launches"],
+               "serve_qwen3_moe/psparse": serve_qwen["psparse_launches"],
                "serve_vs_cpu/tinyllama": dvc["launches"],
                "serve_vs_cpu/xlstm": dvc_xlstm["launches"],
                **{f"mnist_mlp/{k}": v["launches"] for k, v in mnist.items()},
@@ -3863,7 +4218,9 @@ def main() -> int:
                **{f"xlstm_train/{k}": v["launches"]
                   for k, v in xlstm.items()},
                **{f"recurrentgemma_train/{k}": v["launches"]
-                  for k, v in rgemma.items()}}
+                  for k, v in rgemma.items()},
+               **{f"qwen3_moe_train/{k}": v["launches"]
+                  for k, v in qwen.items()}}
     sources = {"sketch_update": ("src/repro_torch/csrc/sketch_update.cu",
                                  "src/repro/kernels/sketch_update.py:60",
                                  "prefill"),
@@ -3911,6 +4268,7 @@ def main() -> int:
             ms=main_row["ms"], plain_ms=main_row["plain_ms"],
             bound_ms=main_row["bound_ms"], bound_by=main_row["bound_by"],
             library_ms=main_row["library_ms"], main_case=main_row,
+            stacked=[r for r in rows if "experts" in r] or None,
             by_shape=rows))
     kernels[0]["kernel_launches"] = serve["kernel_launches"]
     kernels[1]["kernel_launches"] = serve["psparse_kernel_launches"]
@@ -3920,13 +4278,15 @@ def main() -> int:
         cuda=torch.version.cuda, kernels=kernels,
         flash_saved_bytes=saved_bytes, serve=serve, serve_gemma3=serve_gemma,
         serve_xlstm=serve_xlstm, serve_recurrentgemma=serve_rgemma,
+        serve_qwen3_moe=serve_qwen,
         device_vs_cpu=dvc,
         device_vs_cpu_xlstm=dvc_xlstm, mnist_mlp=mnist, monitor_pair=pair,
         train_device_vs_cpu=train_dvc, lm_step_device_vs_cpu=lm_step_dvc,
         lm_train=lm, lm_launcher=launcher, dp_train=dp,
         dp_device_vs_cpu=dp_dvc, dp_launcher=dp_launcher,
         dp_phases_s=dp_phases_s, paper_experiments=paper,
-        xlstm_train=xlstm, recurrentgemma_train=rgemma, phase_s=phase_s),
+        xlstm_train=xlstm, recurrentgemma_train=rgemma,
+        qwen3_moe_train=qwen, phase_s=phase_s),
         indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -1,9 +1,10 @@
 """Config registry: ``get_arch(name)`` / ``ARCHS``.
 
-Only the architectures whose block kinds the port runs are registered:
-the dense-attention ones, xlstm-1.3b (mLSTM and sLSTM blocks) and
-recurrentgemma-2b (RG-LRU and local attention blocks). The others exist in the JAX package and raise here until their block kinds
-are ported.
+Only the architectures whose blocks the port runs are registered: the
+dense-attention ones, xlstm-1.3b (mLSTM and sLSTM blocks),
+recurrentgemma-2b (RG-LRU and local attention blocks) and the MoE ones
+(qwen3-moe-30b-a3b, mixtral-8x22b). The frontend archs exist in the JAX
+package and raise here until their frontends are ported.
 """
 from __future__ import annotations
 
@@ -18,13 +19,13 @@ _ARCH_MODULES = {
     "gemma3-27b": "repro_torch.configs.gemma3_27b",
     "xlstm-1.3b": "repro_torch.configs.xlstm_1_3b",
     "recurrentgemma-2b": "repro_torch.configs.recurrentgemma_2b",
+    "qwen3-moe-30b-a3b": "repro_torch.configs.qwen3_moe_30b_a3b",
+    "mixtral-8x22b": "repro_torch.configs.mixtral_8x22b",
 }
 
-# Architectures of the JAX package that need block kinds or frontends
-# the port does not have yet, with the ROADMAP item that ports them.
+# Architectures of the JAX package that need frontends the port does
+# not have yet, with the ROADMAP item that ports them.
 _NOT_PORTED = {
-    "mixtral-8x22b": "ROADMAP A13 (MoE per-expert nodes)",
-    "qwen3-moe-30b-a3b": "ROADMAP A13 (MoE per-expert nodes)",
     "musicgen-large": "ROADMAP A13 (models/frontends.py)",
     "internvl2-76b": "ROADMAP A13 (models/frontends.py)",
 }

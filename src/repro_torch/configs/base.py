@@ -26,11 +26,15 @@ class ArchConfig:
     d_model: int
     num_heads: int
     num_kv_heads: int
-    d_ff: int
+    d_ff: int                        # dense FFN width (expert width for MoE)
     vocab_size: int
     pattern: tuple[str, ...] = ("full",)
     head_dim: int = 0                # 0 -> d_model // num_heads
     window_size: int = 4096          # for swa/local blocks
+    # MoE: experts, top-k routing, slots an expert per routed token
+    num_experts: int = 0
+    experts_per_token: int = 0
+    capacity_factor: float = 1.25
     mlp_type: str = "swiglu"         # swiglu | gelu | none
     rope_theta: float = 10000.0
     norm_eps: float = 1e-6
@@ -52,6 +56,10 @@ class ArchConfig:
     @property
     def resolved_head_dim(self) -> int:
         return self.head_dim or self.d_model // self.num_heads
+
+    @property
+    def is_moe(self) -> bool:
+        return self.num_experts > 0
 
     @property
     def layer_types(self) -> tuple[str, ...]:
@@ -87,6 +95,8 @@ def reduced(arch: ArchConfig, *, layers_per_pattern: int = 1) -> ArchConfig:
         d_ff=0 if arch.d_ff == 0 else 128,
         vocab_size=256,
         window_size=min(arch.window_size, 32),
+        num_experts=min(arch.num_experts, 4) if arch.is_moe else 0,
+        experts_per_token=min(arch.experts_per_token, 2) if arch.is_moe else 0,
         lru_width=0,
         dtype=torch.float32,
         param_dtype=torch.float32,

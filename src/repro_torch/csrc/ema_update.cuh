@@ -16,6 +16,12 @@
 // split across blocks (gridDim.y > 1) each split writes its partial sums
 // to a (splits, 3, d, k) workspace instead, and `finalize` sums them in
 // split order: deterministic, no atomics.
+//
+// A stacked call updates E experts' triples in one launch, as the TPU
+// kernel runs under the reference's vmap over the experts: gridDim.z is
+// E, and block z reads expert z's A (E, rows, d), sketches (E, d, k) and
+// psi (E, k) and writes its (E, 3, d, k) outputs and (E, splits, 3, d,
+// k) partials, against projections all experts share (`expert_outs`).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -34,6 +40,19 @@ struct Outs {
   int d, k;
   float beta, scale;
 };
+
+// Expert e's part of a stacked call: its sketches, psi, outputs and
+// partials (the split count given, as finalize's grid differs)
+__device__ __forceinline__ Outs expert_outs(Outs o, int e, int splits) {
+  const size_t dk = (size_t)o.d * o.k;
+  o.x += e * dk;
+  o.y += e * dk;
+  o.z += e * dk;
+  o.psi += (size_t)e * o.k;
+  o.out += e * 3 * dk;
+  if (o.ws != nullptr) o.ws += e * splits * 3 * dk;
+  return o;
+}
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
@@ -63,8 +82,10 @@ __device__ __forceinline__ Target target(const Outs& o, bool direct, int n) {
   return t;
 }
 
-// Sums the splits' partials in split order and applies the epilogue.
+// Sums the splits' partials in split order and applies the epilogue;
+// blockIdx.y is the expert.
 __global__ void finalize(Outs o, int splits) {
+  o = expert_outs(o, blockIdx.y, splits);
   const int dk = o.d * o.k;
   for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < 3 * dk;
        i += gridDim.x * blockDim.x) {
@@ -87,11 +108,11 @@ __global__ void finalize(Outs o, int splits) {
   }
 }
 
-inline cudaError_t launch_finalize(const Outs& o, int splits,
+inline cudaError_t launch_finalize(const Outs& o, int splits, int experts,
                                    cudaStream_t stream) {
   const int n = 3 * o.d * o.k;
   const int blocks = (n + 255) / 256 < 1024 ? (n + 255) / 256 : 1024;
-  finalize<<<blocks, 256, 0, stream>>>(o, splits);   // strides the rest
+  finalize<<<dim3(blocks, experts), 256, 0, stream>>>(o, splits);
   return cudaGetLastError();
 }
 
@@ -107,12 +128,15 @@ constexpr int FMA_TILE_D = 32;
 constexpr int FMA_WARPS = 8;
 constexpr int FMA_ROWS = 32;
 
-// Src: row(r), the row of A that row r reads, and val(r, n), P[r, n].
+// Src: row(r), the row of A that row r reads, and val(r, n), P[r, n];
+// an expert's A is a_stride elements after the last one's.
 template <typename TA, int NW4, class Src>
 __global__ void __launch_bounds__(FMA_TILE_D* FMA_WARPS)
-    fma_kernel(const TA* __restrict__ a, Src src, Outs o, int rows_total,
-               int rows_per_split) {
+    fma_kernel(const TA* __restrict__ a, size_t a_stride, Src src, Outs o,
+               int rows_total, int rows_per_split) {
   constexpr int NW = 4 * NW4, NP = FMA_WARPS * NW;
+  a += blockIdx.z * a_stride;
+  o = expert_outs(o, blockIdx.z, gridDim.y);
   __shared__ float As[FMA_ROWS][FMA_TILE_D];
   __shared__ __align__(16) float Ps[FMA_ROWS][NP];
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
@@ -191,16 +215,16 @@ __global__ void __launch_bounds__(FMA_TILE_D* FMA_WARPS)
 
 // NW4 = ceil(3k / 32) in 1..6 (k <= 64): the float4 groups a warp keeps
 template <typename TA, class Src>
-cudaError_t launch_fma(const TA* a, const Src& src, const Outs& o,
-                       int rows_total, int splits, int rows_per_split,
-                       cudaStream_t stream) {
-  const dim3 grid((o.d + FMA_TILE_D - 1) / FMA_TILE_D, splits);
+cudaError_t launch_fma(const TA* a, size_t a_stride, const Src& src,
+                       const Outs& o, int rows_total, int splits,
+                       int rows_per_split, int experts, cudaStream_t stream) {
+  const dim3 grid((o.d + FMA_TILE_D - 1) / FMA_TILE_D, splits, experts);
   const int threads = FMA_TILE_D * FMA_WARPS;
   switch ((3 * o.k + 31) / 32) {
 #define EMA_FMA_CASE(N)                                                    \
   case N:                                                                  \
     fma_kernel<TA, N, Src><<<grid, threads, 0, stream>>>(                  \
-        a, src, o, rows_total, rows_per_split);                            \
+        a, a_stride, src, o, rows_total, rows_per_split);                  \
     break;
     EMA_FMA_CASE(1)
     EMA_FMA_CASE(2)

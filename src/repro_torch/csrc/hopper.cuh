@@ -61,6 +61,17 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
       "r"(y) : "memory");
 }
 
+// one box of a 3-D tensor map at element coordinates (x, y, z) likewise
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int x, int y,
+                                            int z) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(x),
+      "r"(y), "r"(z) : "memory");
+}
+
 // `bytes` (a multiple of 16, both addresses 16-byte aligned) of
 // contiguous memory into shared memory by TMA, completing on `bar`
 __device__ __forceinline__ void bulk_load(void* dst, const void* src,

@@ -19,7 +19,10 @@
 // Duplicate support rows add, as in a CountSketch. A is bf16 or f32 and is
 // summed in f32; everything else is f32. k <= 64 (checked by the Python
 // wrapper, src/repro_torch/kernels/psparse_update.py, which also picks the
-// kernel and the split of the slots).
+// kernel and the split of the slots). A stacked call does this for E
+// experts in one launch (gridDim.z = E): A (E, rows, d), sketches (E, d,
+// k) and psi (E, k) against the hashes all experts share, as the TPU
+// kernel runs under the reference's vmap over an (E, d, k) node stack.
 //
 // Bound on an H100 SXM (3.35 TB/s). The call must read the distinct
 // support rows of A (at most 3 m d |A| bytes) and read and write the
@@ -119,9 +122,11 @@ __device__ __forceinline__ void gather(uint8_t* tile, const bf16* a,
 
 template <int MT>
 __global__ void __launch_bounds__(128 * MT)
-    psparse_update_tc(const bf16* __restrict__ a, Hashed src, Outs o,
-                      int slots_per_split) {
+    psparse_update_tc(const bf16* __restrict__ a, size_t a_stride,
+                      Hashed src, Outs o, int slots_per_split) {
   extern __shared__ uint8_t smem_raw[];
+  a += blockIdx.z * a_stride;
+  o = ema::expert_outs(o, blockIdx.z, gridDim.y);
   uint8_t* tiles = align_1024(smem_raw);
   const int d0 = blockIdx.x * ema::TC_TILE_D;
   const int s_begin = blockIdx.y * slots_per_split;
@@ -197,8 +202,9 @@ __global__ void __launch_bounds__(128 * MT)
 }
 
 template <int MT>
-int launch_tc(const bf16* a, const Hashed& src, const Outs& o, int splits,
-              int slots_per_split, cudaStream_t stream) {
+int launch_tc(const bf16* a, size_t a_stride, const Hashed& src,
+              const Outs& o, int splits, int slots_per_split, int experts,
+              cudaStream_t stream) {
   constexpr size_t smem = 1024 + STAGES * ema::TC_STAGE_BYTES;
   static bool ready[64] = {};   // the attribute is set once a device
   int dev = 0;
@@ -215,9 +221,10 @@ int launch_tc(const bf16* a, const Hashed& src, const Outs& o, int splits,
     if (err != cudaSuccess) return err;
     if (dev < 64) ready[dev] = true;
   }
-  const dim3 grid((o.d + ema::TC_TILE_D - 1) / ema::TC_TILE_D, splits);
-  psparse_update_tc<MT><<<grid, 128 * MT, smem, stream>>>(a, src, o,
-                                                           slots_per_split);
+  const dim3 grid((o.d + ema::TC_TILE_D - 1) / ema::TC_TILE_D, splits,
+                  experts);
+  psparse_update_tc<MT><<<grid, 128 * MT, smem, stream>>>(
+      a, a_stride, src, o, slots_per_split);
   return cudaGetLastError();
 }
 
@@ -226,9 +233,10 @@ int launch_tc(const bf16* a, const Hashed& src, const Outs& o, int splits,
 extern "C" {
 
 // Launches the update on `stream`; returns 0 or a cudaError_t. `out` is
-// (3, d, k); `ws` holds splits*3*d*k floats and is unused when splits ==
-// 1. c{mat}{0..3} are matrix mat's a_row, b_row, a_sign, b_sign. Rows
-// hash into [0, T). n_slots < 0 sums every one of the 3m slots; else A
+// (experts, 3, d, k); `ws` holds experts*splits*3*d*k floats and is unused
+// when splits == 1. A is (experts, a_rows, d), the sketches (experts, d,
+// k) and psi (experts, k). c{mat}{0..3} are matrix mat's a_row, b_row,
+// a_sign, b_sign. Rows hash into [0, T). n_slots < 0 sums every one of the 3m slots; else A
 // holds fewer rows than T and only the n_slots slots listed in `slots`
 // (device int32, slot numbers in [0, 3m)) are summed, on the FMA kernel.
 // tensor_cores selects the tensor-core kernel (bf16 A, d % 8 == 0, A
@@ -241,7 +249,8 @@ int psparse_update_launch(const void* a, int a_is_bf16, const float* psi,
                           uint32_t c03, uint32_t c10, uint32_t c11,
                           uint32_t c12, uint32_t c13, uint32_t c20,
                           uint32_t c21, uint32_t c22, uint32_t c23, int T,
-                          int d, int k, int m, const int* slots, int n_slots,
+                          int d, int k, int m, int experts, int a_rows,
+                          const int* slots, int n_slots,
                           int tensor_cores, int splits, int slots_per_split,
                           float alpha, float beta, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -250,31 +259,37 @@ int psparse_update_launch(const void* a, int a_is_bf16, const float* psi,
                      {c20, c21, c22, c23}}},
                    T, m, k};
   const Outs o{x_in, y_in, z_in, psi, out, ws, d, k, beta, alpha};
+  const size_t a_stride = (size_t)a_rows * d;
   int err;
   if (n_slots >= 0) {
     if (tensor_cores) return cudaErrorInvalidValue;
     const Listed listed{src, slots};
     err = a_is_bf16
-              ? ema::launch_fma(static_cast<const bf16*>(a), listed, o,
-                                n_slots, splits, slots_per_split, s)
-              : ema::launch_fma(static_cast<const float*>(a), listed, o,
-                                n_slots, splits, slots_per_split, s);
+              ? ema::launch_fma(static_cast<const bf16*>(a), a_stride,
+                                listed, o, n_slots, splits, slots_per_split,
+                                experts, s)
+              : ema::launch_fma(static_cast<const float*>(a), a_stride,
+                                listed, o, n_slots, splits, slots_per_split,
+                                experts, s);
   } else if (tensor_cores) {
     if (!a_is_bf16 || d % 8 != 0) return cudaErrorInvalidValue;
     const bf16* ab = static_cast<const bf16*>(a);
     const int mt = (3 * k + 63) / 64;
-    err = mt == 1   ? launch_tc<1>(ab, src, o, splits, slots_per_split, s)
-          : mt == 2 ? launch_tc<2>(ab, src, o, splits, slots_per_split, s)
-                    : launch_tc<3>(ab, src, o, splits, slots_per_split, s);
+    err = mt == 1 ? launch_tc<1>(ab, a_stride, src, o, splits,
+                                 slots_per_split, experts, s)
+          : mt == 2 ? launch_tc<2>(ab, a_stride, src, o, splits,
+                                   slots_per_split, experts, s)
+                    : launch_tc<3>(ab, a_stride, src, o, splits,
+                                   slots_per_split, experts, s);
   } else if (a_is_bf16) {
-    err = ema::launch_fma(static_cast<const bf16*>(a), src, o, 3 * m, splits,
-                          slots_per_split, s);
+    err = ema::launch_fma(static_cast<const bf16*>(a), a_stride, src, o,
+                          3 * m, splits, slots_per_split, experts, s);
   } else {
-    err = ema::launch_fma(static_cast<const float*>(a), src, o, 3 * m,
-                          splits, slots_per_split, s);
+    err = ema::launch_fma(static_cast<const float*>(a), a_stride, src, o,
+                          3 * m, splits, slots_per_split, experts, s);
   }
   if (err != cudaSuccess || splits == 1) return err;
-  return ema::launch_finalize(o, splits, s);
+  return ema::launch_finalize(o, splits, experts, s);
 }
 
 const char* psparse_update_error_string(int code) {

@@ -11,7 +11,10 @@
 // reading A once for all three thin products and every column of k. A is
 // bf16 or f32; everything else is f32; k <= 64 (checked by the Python
 // wrapper, src/repro_torch/kernels/sketch_update.py, which also picks the
-// kernel and the T split).
+// kernel and the T split). A stacked call does this for E experts in one
+// launch (gridDim.z = E): A (E, T, d), sketches (E, d, k) and psi (E, k)
+// against the projections all experts share, as the TPU kernel runs
+// under the reference's vmap over an (E, d, k) node stack.
 //
 // Bound on an H100 SXM (3.35 TB/s; 989 TFLOP/s bf16 on the tensor cores).
 // The call moves T*d*|A| + 3*T*k*4 + 6*d*k*4 bytes and does 6*T*d*k
@@ -30,7 +33,8 @@
 //     m64n128k16 (A's tile, 64 rows by 128 columns as it lies in device
 //     memory, is the MN-major B operand). A producer warp fills a ring of
 //     STAGES slots under mbarriers: lane 0 streams the A tile by TMA
-//     (128-byte swizzle), and all 32 lanes copy the same rows of the three
+//     (128-byte swizzle; a 3-D map (d, T, E), so a tile never reads the
+//     next expert's rows), and all 32 lanes copy the same rows of the three
 //     projections (contiguous in device memory) with coalesced cp.async,
 //     each lane's copies counted on the slot's full barrier. Each consumer
 //     reads its P^T fragments from the slot, splits each value into
@@ -114,7 +118,7 @@ __device__ __forceinline__ void produce(const CUtensorMap* ma,
                                         const Dense& src, uint8_t* tiles,
                                         float* ptiles, uint64_t* full,
                                         uint64_t* empty, int T, int d0,
-                                        int t_begin, int nst) {
+                                        int t_begin, int nst, int e) {
   const int lane = threadIdx.x % 32, k = src.k, per = ema::TC_ROWS * k;
   for (int i = 0; i < nst; ++i) {
     const int s = i % STAGES, t0 = t_begin + i * ema::TC_ROWS;
@@ -126,8 +130,9 @@ __device__ __forceinline__ void produce(const CUtensorMap* ma,
     if (lane == 0) {
       uint8_t* tile = tiles + s * ema::TC_STAGE_BYTES;
       mbar_expect_tx(&full[s], ema::TC_STAGE_BYTES + 3 * whole * 4);
-      tma_load_2d(tile, ma, &full[s], d0, t0);
-      tma_load_2d(tile + ema::TC_STAGE_BYTES / 2, ma, &full[s], d0 + 64, t0);
+      tma_load_3d(tile, ma, &full[s], d0, t0, e);
+      tma_load_3d(tile + ema::TC_STAGE_BYTES / 2, ma, &full[s], d0 + 64, t0,
+                  e);
       if (whole > 0)
 #pragma unroll
         for (int mat = 0; mat < 3; ++mat)
@@ -209,12 +214,14 @@ __global__ void __launch_bounds__(128 * MT + 32)
   }
   __syncthreads();
   if (threadIdx.x >= 128 * MT) {
-    produce(&ma, src, tiles, ptiles, full, empty, T, d0, t_begin, nst);
+    produce(&ma, src, tiles, ptiles, full, empty, T, d0, t_begin, nst,
+            blockIdx.z);
     return;
   }
   float acc[64];
   consume<MT>(acc, tiles, ptiles, full, empty, src.k, T, t_begin, nst);
-  ema::tc_emit(acc, threadIdx.x / 128, o, d0);
+  ema::tc_emit(acc, threadIdx.x / 128, ema::expert_outs(o, blockIdx.z,
+                                                        gridDim.y), d0);
 }
 
 // ---- host side ----
@@ -222,12 +229,12 @@ __global__ void __launch_bounds__(128 * MT + 32)
 constexpr int ERR_ENCODE = 10000;   // + the CUresult of a refused map
 constexpr int ERR_NO_ENCODE = 20000;
 
-// A's 2-D map (d, T), boxes of (64 columns, 64 rows), 128-byte swizzle.
-// A map depends only on (pointer, T, d), so the last few are kept: a
-// caller that reuses its buffers encodes once.
+// A's 3-D map (d, T, E), boxes of (64 columns, 64 rows, one expert),
+// 128-byte swizzle. A map depends only on (pointer, T, d, E), so the last
+// few are kept: a caller that reuses its buffers encodes once.
 struct MapEntry {
   const void* ptr;
-  int T, d;
+  int T, d, E;
   CUtensorMap map;
 };
 constexpr int MAP_CACHE = 16;
@@ -235,33 +242,34 @@ MapEntry map_cache[MAP_CACHE];
 int map_next = 0;
 std::mutex map_mutex;
 
-int a_map(CUtensorMap* map, const void* a, int T, int d) {
+int a_map(CUtensorMap* map, const void* a, int T, int d, int E) {
   std::lock_guard<std::mutex> lock(map_mutex);
   for (const MapEntry& e : map_cache)
-    if (e.ptr == a && e.T == T && e.d == d) {
+    if (e.ptr == a && e.T == T && e.d == d && e.E == E) {
       *map = e.map;
       return 0;
     }
   const EncodeTiled enc = encode_fn();
   if (enc == nullptr) return ERR_NO_ENCODE;
-  const cuuint64_t dims[2] = {(cuuint64_t)d, (cuuint64_t)T};
-  const cuuint64_t strides[1] = {(cuuint64_t)d * 2};
-  const cuuint32_t box[2] = {64, ema::TC_ROWS};
-  const cuuint32_t step[2] = {1, 1};
+  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)T, (cuuint64_t)E};
+  const cuuint64_t strides[2] = {(cuuint64_t)d * 2, (cuuint64_t)T * d * 2};
+  const cuuint32_t box[3] = {64, ema::TC_ROWS, 1};
+  const cuuint32_t step[3] = {1, 1, 1};
   const CUresult r = enc(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(a), dims,
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(a), dims,
       strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
       CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   if (r != CUDA_SUCCESS) return ERR_ENCODE + (int)r;
-  map_cache[map_next] = MapEntry{a, T, d, *map};
+  map_cache[map_next] = MapEntry{a, T, d, E, *map};
   map_next = (map_next + 1) % MAP_CACHE;
   return 0;
 }
 
 template <int MT>
 int launch_tc(const CUtensorMap& map, const Dense& src, const Outs& o, int T,
-              int splits, int rows_per_split, cudaStream_t stream) {
+              int splits, int rows_per_split, int experts,
+              cudaStream_t stream) {
   // the rings at this k; the attribute allows the largest k's
   const auto bytes = [](int k) {
     return 1024 + STAGES * (ema::TC_STAGE_BYTES + p_stage_bytes(k)) +
@@ -284,7 +292,8 @@ int launch_tc(const CUtensorMap& map, const Dense& src, const Outs& o, int T,
     if (err != cudaSuccess) return err;
     if (dev < 64) ready[dev] = true;
   }
-  const dim3 grid((o.d + ema::TC_TILE_D - 1) / ema::TC_TILE_D, splits);
+  const dim3 grid((o.d + ema::TC_TILE_D - 1) / ema::TC_TILE_D, splits,
+                  experts);
   sketch_update_tc<MT><<<grid, 128 * MT + 32, smem, stream>>>(
       map, src, o, T, rows_per_split);
   return cudaGetLastError();
@@ -295,8 +304,10 @@ int launch_tc(const CUtensorMap& map, const Dense& src, const Outs& o, int T,
 extern "C" {
 
 // Launches the update on `stream`; returns 0, a cudaError_t, or an
-// ERR_* code of the tensor map. `out` is (3, d, k); `ws` holds
-// splits*3*d*k floats and is unused when splits == 1. tensor_cores
+// ERR_* code of the tensor map. `out` is (experts, 3, d, k); `ws` holds
+// experts*splits*3*d*k floats and is unused when splits == 1. A is
+// (experts, T, d), the sketches (experts, d, k) and psi (experts, k); the
+// projections (T, k) are shared. tensor_cores
 // selects the tensor-core kernel (bf16 A, d % 8 == 0, A 16-byte aligned)
 // and splits/rows_per_split its plan (rows a whole number of 64-row
 // stages), else the FMA kernel (rows a whole number of 32).
@@ -304,9 +315,9 @@ int sketch_update_launch(const void* a, int a_is_bf16, const float* ups,
                          const float* omg, const float* phi,
                          const float* psi, const float* x_in,
                          const float* y_in, const float* z_in, float* out,
-                         float* ws, int T, int d, int k, int tensor_cores,
-                         int splits, int rows_per_split, float beta,
-                         void* stream) {
+                         float* ws, int T, int d, int k, int experts,
+                         int tensor_cores, int splits, int rows_per_split,
+                         float beta, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Outs o{x_in, y_in, z_in, psi, out, ws, d, k, beta, 1.f};
   const Dense src{ups, omg, phi, k};
@@ -314,20 +325,23 @@ int sketch_update_launch(const void* a, int a_is_bf16, const float* ups,
   if (tensor_cores) {
     if (!a_is_bf16 || d % 8 != 0) return cudaErrorInvalidValue;
     CUtensorMap map;
-    if ((err = a_map(&map, a, T, d))) return err;
+    if ((err = a_map(&map, a, T, d, experts))) return err;
     const int mt = (3 * k + 63) / 64;
-    err = mt == 1   ? launch_tc<1>(map, src, o, T, splits, rows_per_split, s)
-          : mt == 2 ? launch_tc<2>(map, src, o, T, splits, rows_per_split, s)
-                    : launch_tc<3>(map, src, o, T, splits, rows_per_split, s);
+    err = mt == 1 ? launch_tc<1>(map, src, o, T, splits, rows_per_split,
+                                 experts, s)
+          : mt == 2 ? launch_tc<2>(map, src, o, T, splits, rows_per_split,
+                                   experts, s)
+                    : launch_tc<3>(map, src, o, T, splits, rows_per_split,
+                                   experts, s);
   } else if (a_is_bf16) {
-    err = ema::launch_fma(static_cast<const bf16*>(a), src, o, T, splits,
-                          rows_per_split, s);
+    err = ema::launch_fma(static_cast<const bf16*>(a), (size_t)T * d, src, o,
+                          T, splits, rows_per_split, experts, s);
   } else {
-    err = ema::launch_fma(static_cast<const float*>(a), src, o, T, splits,
-                          rows_per_split, s);
+    err = ema::launch_fma(static_cast<const float*>(a), (size_t)T * d, src,
+                          o, T, splits, rows_per_split, experts, s);
   }
   if (err != cudaSuccess || splits == 1) return err;
-  return ema::launch_finalize(o, splits, s);
+  return ema::launch_finalize(o, splits, experts, s);
 }
 
 const char* sketch_update_error_string(int code) {

@@ -41,6 +41,10 @@ splits in a fixed order in a second kernel. An A with fewer rows than
 the binding (a carry's B rows against the tree's token rows) takes the
 FMA kernel over only the few slots whose row it holds (``live_slots``).
 
+A stacked call updates E triples in one launch, as ``sketch_update``'s
+does: A (E, rows, d), sketches (E, d, k) and psi (E, k) against hashes
+all E share (the per-expert "expert_in" nodes), a grid axis over E.
+
 ``psparse_update`` takes the plain version for CPU tensors and only for
 them; for CUDA tensors it launches a kernel or raises.
 ``psparse_update.launches`` counts the calls that launched on the card,
@@ -59,7 +63,8 @@ from repro_torch.kernels import _build
 from repro_torch.kernels._hash import MASK32 as _MASK32
 from repro_torch.kernels._hash import mul32 as _mul32
 from repro_torch.kernels.sketch_update import (
-    check_aligned, check_index_range, launch_plan, uses_tensor_cores,
+    check_aligned, check_index_range, check_stack, launch_plan,
+    uses_tensor_cores,
 )
 
 Tensor = torch.Tensor
@@ -135,19 +140,22 @@ def psparse_triple_increment(a: Tensor, params, psi: Tensor, beta: float,
     never materialises a projection. The rows hash into [0, num_tokens)
     (default: A's rows); an A with fewer rows (a carry's B) is the
     binding's first rows, the rest zero, so its support rows past A's
-    are skipped."""
-    T, k = num_tokens or a.shape[0], psi.shape[-1]
+    are skipped. A stacked a (E, rows, d) with psi (E, k) gives (E, d,
+    k) increments."""
+    rows_a = a.shape[-2]
+    T, k = num_tokens or rows_a, psi.shape[-1]
     a = a.detach().float()
     scale = (1.0 - beta) * psparse_scale(T, m)
     outs = []
     for p in params:
         rows = psparse_rows(p, m, T, a.device)
         sgn = psparse_signs(p, m, k, a.device)
-        if T > a.shape[0]:
-            live = rows < a.shape[0]
+        if T > rows_a:
+            live = rows < rows_a
             rows, sgn = rows[live], sgn[live]
-        outs.append(scale * (a.index_select(0, rows).T @ sgn))
-    return outs[0], outs[1], outs[2] * psi.float()[None, :]
+        outs.append(scale * (a.index_select(-2, rows).transpose(-1, -2)
+                             @ sgn))
+    return outs[0], outs[1], outs[2] * psi.float()[..., None, :]
 
 
 # -- the update: plain version and kernel wrapper -----------------------------
@@ -160,31 +168,22 @@ def psparse_update_ref(a, x_s, y_s, z_s, params, psi, *, beta: float,
     return tuple(beta * s + i for s, i in zip((x_s, y_s, z_s), inc))
 
 
-def _check(a, x_s, y_s, z_s, params, psi, m,
-           num_tokens) -> tuple[int, int, int]:
-    if a.ndim != 2:
-        raise ValueError(f"a must be (T, d), got shape {tuple(a.shape)}")
-    if a.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"a must be float32 or bfloat16, got {a.dtype}")
-    rows, d = a.shape
+def _check(a, x_s, y_s, z_s, params, psi, m, num_tokens):
+    lead, rows, d, k = check_stack(a, x_s)
     T = num_tokens or rows
     if not 1 <= rows <= T:
         raise ValueError(f"a has {rows} rows, past the binding's "
                          f"num_tokens={T}")
-    if x_s.ndim != 2 or x_s.shape[0] != d:
-        raise ValueError(f"sketches must be (d={d}, k), got {tuple(x_s.shape)}")
-    k = x_s.shape[1]
-    if not 1 <= k <= MAX_K:
-        raise ValueError(f"k={k} outside the kernel's range 1..{MAX_K}")
-    if T < 1 or d < 1 or max(T, d) >= 2**31:
-        raise ValueError(f"unsupported activation shape {(T, d)}")
+    if T >= 2**31:
+        raise ValueError(f"unsupported binding num_tokens={T}")
     if not 1 <= m <= T:
         raise ValueError(f"support size m={m} outside 1..T={T}")
     if len(params) != 3 or any(
             len(p) != 4 or any(not 0 <= int(c) < 2**32 for c in p)
             for p in params):
         raise ValueError("params must be 3 rows of 4 uint32 coefficients")
-    want = {"x_s": (d, k), "y_s": (d, k), "z_s": (d, k), "psi": (k,)}
+    dk = lead + (d, k)
+    want = {"x_s": dk, "y_s": dk, "z_s": dk, "psi": lead + (k,)}
     got = {"x_s": x_s, "y_s": y_s, "z_s": z_s, "psi": psi}
     dev = a.device
     # one pass over the common case; the loops below name what is wrong
@@ -192,7 +191,7 @@ def _check(a, x_s, y_s, z_s, params, psi, m,
             and all(t.dtype == torch.float32 and t.device == dev
                     and t.is_contiguous() for t in got.values())
             and a.is_contiguous()):
-        return T, d, k
+        return lead, T, d, k
     for name, t in got.items():
         if tuple(t.shape) != want[name]:
             raise ValueError(f"{name} must have shape {want[name]}, got "
@@ -204,13 +203,13 @@ def _check(a, x_s, y_s, z_s, params, psi, m,
             raise ValueError(f"{name} is on {t.device}, a on {a.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    return T, d, k
+    return lead, T, d, k
 
 
 def _bind(lib: ctypes.CDLL) -> None:
     p, i, u, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
     lib.psparse_update_launch.argtypes = (
-        [p, i] + [p] * 6 + [u] * 12 + [i] * 4 + [p] + [i] * 4 + [f, f, p])
+        [p, i] + [p] * 6 + [u] * 12 + [i] * 6 + [p] + [i] * 4 + [f, f, p])
     lib.psparse_update_launch.restype = i
     lib.psparse_update_error_string.argtypes = [i]
     lib.psparse_update_error_string.restype = ctypes.c_char_p
@@ -232,10 +231,12 @@ def live_slots(params: tuple, m: int, num_tokens: int, rows: int,
 def psparse_update(a, x_s, y_s, z_s, params, psi, *, beta: float, m: int,
                    num_tokens: int | None = None):
     """Fused psparse EMA update; returns new f32 (x, y, z), each (d, k),
-    views of one (3, d, k) buffer.
+    views of one (3, d, k) buffer; stacked, each (E, d, k), views of one
+    (E, 3, d, k) buffer, in one launch.
 
     a (rows, d) f32 or bf16; x/y/z (d, k) and psi (k,) f32, psi
-    pre-masked; ``params`` 3 rows of 4 uint32 host integers; all tensors
+    pre-masked; or a (E, rows, d), x/y/z (E, d, k) and psi (E, k);
+    ``params`` 3 rows of 4 uint32 host integers; all tensors
     contiguous on one device; k <= 64. The support rows hash into [0,
     num_tokens) (default: a's rows); an ``a`` with fewer rows is the
     binding's first rows, and the support rows past them add nothing
@@ -245,26 +246,28 @@ def psparse_update(a, x_s, y_s, z_s, params, psi, *, beta: float, m: int,
     ``uses_tensor_cores(T, d, a.dtype)`` and a holds every row, else the
     FMA kernel, which for fewer rows sums only the ``live_slots``.
     """
-    T, d, k = _check(a, x_s, y_s, z_s, params, psi, m, num_tokens)
+    lead, T, d, k = _check(a, x_s, y_s, z_s, params, psi, m, num_tokens)
     if a.device.type == "cpu":
         return psparse_update_ref(a, x_s, y_s, z_s, params, psi, beta=beta,
                                   m=m, num_tokens=T)
     if a.device.type != "cuda":
         raise ValueError(f"psparse_update runs on cpu or cuda, not {a.device}")
+    E, rows_a = (lead[0] if lead else 1), a.shape[-2]
     slots = None
-    if a.shape[0] < T:
+    if rows_a < T:
         slots = live_slots(tuple(tuple(int(c) for c in p) for p in params),
-                           m, T, a.shape[0], a.device)
+                           m, T, rows_a, a.device)
     tc = slots is None and uses_tensor_cores(T, d, a.dtype)
     if tc:
         check_aligned(a=a)
     n_slots = 3 * m if slots is None else slots.numel()
     splits, per = launch_plan(max(n_slots, 1), d, _build.num_sms(a.device),
-                              tc)
+                              tc, E)
     check_index_range(d, k, splits)
     lib = _build.load("psparse_update", _bind)
-    out = torch.empty((3, d, k), dtype=torch.float32, device=a.device)
-    ws = (torch.empty((splits, 3, d, k), dtype=torch.float32,
+    out = torch.empty(lead + (3, d, k), dtype=torch.float32,
+                      device=a.device)
+    ws = (torch.empty(lead + (splits, 3, d, k), dtype=torch.float32,
                       device=a.device) if splits > 1 else None)
     coeffs = [int(c) for row in params for c in row]
     with torch.cuda.device(a.device):
@@ -273,7 +276,7 @@ def psparse_update(a, x_s, y_s, z_s, params, psi, *, beta: float, m: int,
             a.data_ptr(), int(a.dtype == torch.bfloat16), psi.data_ptr(),
             x_s.data_ptr(), y_s.data_ptr(), z_s.data_ptr(), out.data_ptr(),
             ws.data_ptr() if ws is not None else None, *coeffs, T, d, k, m,
-            slots.data_ptr() if slots is not None else None,
+            E, rows_a, slots.data_ptr() if slots is not None else None,
             -1 if slots is None else n_slots, int(tc), splits, per,
             psparse_scale(T, m), float(beta), stream)
     if err:
@@ -282,7 +285,7 @@ def psparse_update(a, x_s, y_s, z_s, params, psi, *, beta: float, m: int,
             f"{lib.psparse_update_error_string(err).decode()} ({err})")
     psparse_update.launches += 1
     psparse_update.kernel_launches += 1 if splits == 1 else 2
-    return out.unbind(0)
+    return out.unbind(len(lead))
 
 
 psparse_update.launches = 0

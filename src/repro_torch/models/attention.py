@@ -78,7 +78,15 @@ def decode_attention(
     return out.to(q.dtype)
 
 
-def attn_apply(
+def attn_apply(p: dict, x: Tensor, **kw) -> tuple[Tensor, dict | None]:
+    """Attention with its out-projection: (y (B, S, d), new cache); the
+    keywords are ``attn_heads``'."""
+    out, new_cache = attn_heads(p, x, **kw)
+    y = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype))
+    return y, new_cache
+
+
+def attn_heads(
     p: dict,
     x: Tensor,                      # (B, S, d)
     *,
@@ -89,6 +97,8 @@ def attn_apply(
     cache: dict | None = None,
     seq_len_ctx: int,               # context length the cache is sized for
 ) -> tuple[Tensor, dict | None]:
+    """Attention before its out-projection: (the heads' outputs (B, S,
+    Hq, D), new cache)."""
     B, S, d = x.shape
     KV, Hq, D = cfg.num_kv_heads, cfg.num_heads, cfg.resolved_head_dim
     G = Hq // KV
@@ -139,9 +149,7 @@ def attn_apply(
     else:
         raise ValueError(f"unknown attention mode {mode!r}")
 
-    out = out.reshape(B, S, Hq, D)
-    y = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(dt))
-    return y, new_cache
+    return out.reshape(B, S, Hq, D), new_cache
 
 
 def init_attn_cache(cfg, layer_type: str, batch: int, seq_len_ctx: int,

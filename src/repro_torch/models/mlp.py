@@ -16,6 +16,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.paper import MLPConfig
 from repro_torch.sketches.linear import sketched_matmul
+from repro_torch.sketches.registry import register_node_specs
 from repro_torch.sketches.tree import NodeSpec
 from repro_torch.sketches.update import pad_activation_rows, proj_num_tokens
 
@@ -35,6 +36,10 @@ def conv_node_specs(cfg) -> dict[str, NodeSpec]:
     its ``sketched_matmul`` consumes."""
     return {"conv1": NodeSpec(width=3 * 3 * cfg.channels),
             "conv2": NodeSpec(width=3 * 3 * 8)}
+
+
+register_node_specs("mlp", mlp_node_specs)
+register_node_specs("conv", conv_node_specs)
 
 
 def _act(name: str):

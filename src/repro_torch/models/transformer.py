@@ -1,6 +1,7 @@
 """Decoder stack for the dense-attention architectures, xlstm's
-mLSTM/sLSTM blocks and recurrentgemma's RG-LRU blocks (counterpart of
-that subset of ``repro.models.transformer``).
+mLSTM/sLSTM blocks, recurrentgemma's RG-LRU blocks and the MoE FFNs of
+qwen3-moe and mixtral (counterpart of that subset of
+``repro.models.transformer``).
 
 Parameters are ``{"embed", "final_norm", "layers": [block, ...]}`` with
 one dict per layer, in layer order; the reference's scanned layout
@@ -16,6 +17,17 @@ its activation (``ffn_in`` on the FFN input, ``ffn_h`` on the hidden
 activation) just before it is consumed, so no FFN input is stored for
 the backward. Sketch mode "monitor" updates monitoring-only "res"
 nodes on every layer's output instead.
+
+MoE archs (``models/moe.py``) in backprop mode sketch the attention
+out-projection instead ("attn_o", Hq*D wide: the heads' outputs after
+the flash kernels feed ``sketched_matmul``), since the experts' routed
+sub-batches break the fixed batch projection the sketched backward
+needs; each layer's dispatched expert inputs (E, C, d) feed the
+monitoring-only "expert_in" node, an (E, d, k) stack a layer, updated
+in one stacked kernel launch against the projections' first C rows
+(slabs longer than the binding T are cut to T: an expert's occupied
+slots are its first ones). ``forward`` returns the layers' summed
+load-balance losses as ``aux``.
 
 Monitoring (paper §4.6 in the serving path): with
 ``SketchSettings.serve_monitor``, every layer's residual-stream output
@@ -47,6 +59,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.sketch import validate_proj_kind
 from repro_torch.models import attention as attn
+from repro_torch.models import moe
 from repro_torch.models import rglru
 from repro_torch.models import ssm
 from repro_torch.models.layers import (
@@ -58,12 +71,14 @@ from repro_torch.sketches import (
     NodeSpec, NodeTree, SketchNode, init_node_tree, proj_triple_increment,
     proj_triple_update,
 )
-from repro_torch.sketches.update import limit_rows
+from repro_torch.sketches.update import limit_rows, proj_num_tokens
 from repro_torch.sketches.linear import sketched_matmul
+from repro_torch.sketches.registry import (
+    RECURRENT_KINDS, node_specs_for, register_node_specs,
+)
 
 Tensor = torch.Tensor
 ATTN_KINDS = ("full", "swa", "local", "global")
-RECURRENT_KINDS = ("mlstm", "slstm", "rglru")
 # the leaves the reference casts to f32, not to the compute type, at use
 F32_LEAVES = ("b_gates", "b_s", "r_s", "a_param", "w_input_gate",
               "w_rec_gate")
@@ -74,6 +89,8 @@ CARRY_NODE_KINDS = {
     "mlstm_n": "mlstm",       # normaliser n, flattened H*dk
     "rglru_h": "rglru",       # RG-LRU state h, lru wide
 }
+#: the nodes that sketched backprop consumes in train mode
+CONSUMED_NODES = ("ffn_in", "ffn_h", "attn_o")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -122,13 +139,16 @@ class SketchSettings:
 
 def sketch_groups(cfg: ArchConfig) -> dict[str, int]:
     """{node name: width} of the sketched activation nodes: "res" in
-    monitor mode, else "ffn_in" and "ffn_h"; in either mode, with mLSTM
-    blocks the carry nodes "mlstm_c" and "mlstm_n", with RG-LRU blocks
-    "rglru_h"."""
+    monitor mode, else "ffn_in" and "ffn_h", or for MoE "attn_o" and
+    "expert_in"; in either mode, with mLSTM blocks the carry nodes
+    "mlstm_c" and "mlstm_n", with RG-LRU blocks "rglru_h"."""
     if cfg.sketch_mode == "none":
         return {}
     if cfg.sketch_mode == "monitor":
         groups = {"res": cfg.d_model}
+    elif cfg.is_moe:
+        groups = {"attn_o": cfg.num_heads * cfg.resolved_head_dim,
+                  "expert_in": cfg.d_model}
     else:
         groups = {"ffn_in": cfg.d_model}
         if cfg.mlp_type in ("swiglu", "gelu"):
@@ -157,9 +177,19 @@ def node_layer_count(cfg: ArchConfig, name: str) -> int:
 
 def transformer_node_specs(cfg: ArchConfig) -> dict[str, NodeSpec]:
     """One NodeSpec per node group, stacked over the layers that update
-    it."""
-    return {g: NodeSpec(width=w, layers=node_layer_count(cfg, g))
-            for g, w in sketch_groups(cfg).items()}
+    it; "expert_in" stacks (layers, experts)."""
+    specs = {}
+    for g, w in sketch_groups(cfg).items():
+        n = node_layer_count(cfg, g)
+        specs[g] = NodeSpec(width=w, layers=(n, cfg.num_experts)
+                            if g == "expert_in" else n)
+    return specs
+
+
+# one spec function serves the three transformer-stack families
+register_node_specs("lm", transformer_node_specs)
+register_node_specs("moe", transformer_node_specs)
+register_node_specs("recurrent", transformer_node_specs)
 
 
 def init_lm_sketch_state(gen: torch.Generator, cfg: ArchConfig,
@@ -170,7 +200,7 @@ def init_lm_sketch_state(gen: torch.Generator, cfg: ArchConfig,
     off. Drawn on the generator's device."""
     if not st.enabled:
         return None
-    return init_node_tree(gen, transformer_node_specs(cfg), num_tokens,
+    return init_node_tree(gen, node_specs_for(cfg), num_tokens,
                           st.k_max, dtype=torch.float32,
                           proj_kind=st.proj_kind,
                           proj_density=st.proj_density)
@@ -203,7 +233,10 @@ def _block_init(gen, cfg: ArchConfig, kind: str, dtype) -> dict:
         p["mix"] = rglru.rglru_init(gen, cfg, dtype)
     else:
         p["mix"] = ssm.slstm_init(gen, cfg, dtype)
-    if cfg.mlp_type != "none":
+    if cfg.is_moe:
+        p["norm2"] = rmsnorm_init(cfg.d_model, dtype, dev)
+        p["moe"] = moe.moe_init(gen, cfg, dtype)
+    elif cfg.mlp_type != "none":
         p["norm2"] = rmsnorm_init(cfg.d_model, dtype, dev)
         p["mlp"] = mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.mlp_type, dtype)
     return p
@@ -236,6 +269,9 @@ def num_params(cfg: ArchConfig) -> int:
     attn_w = 2 * d * H * hd + 2 * d * cfg.num_kv_heads * hd
     mlp_w = 0 if cfg.mlp_type == "none" else \
         (3 if cfg.mlp_type == "swiglu" else 2) * d * cfg.d_ff + d
+    if cfg.is_moe:          # router, three expert stacks, norm2
+        E = cfg.num_experts
+        mlp_w = d * E + 3 * E * d * cfg.d_ff + d
     embed = (1 if cfg.tie_embeddings else 2) * cfg.vocab_size * d
     return embed + d + sum(mix.get(kind, attn_w) + mlp_w + d
                            for kind in cfg.layer_types)
@@ -245,11 +281,13 @@ def num_reference_leaves(cfg: ArchConfig) -> int:
     """``len(reference_leaves(init_params(gen, cfg), cfg))``, counted from
     the config without allocating the parameters: the embedding's leaves
     (and the untied head's), the final norm's, then each block's norm1,
-    mixer and, with an MLP, norm2 and its weights, once a pattern
-    position (stacked over the groups) and once a tail layer."""
+    mixer and, with an MLP, norm2 and its weights (an MoE FFN's router
+    and three expert stacks), once a pattern position (stacked over the
+    groups) and once a tail layer."""
     _check_ported(cfg)
     P, G = len(cfg.pattern), cfg.num_groups
-    mlp = {"none": 0, "swiglu": 4, "gelu": 3}[cfg.mlp_type]
+    mlp = 5 if cfg.is_moe else \
+        {"none": 0, "swiglu": 4, "gelu": 3}[cfg.mlp_type]
     mix = {"mlstm": 8, "slstm": 4, "rglru": 8}
     kinds = cfg.layer_types[:P] if G else ()
     kinds = [*kinds, *cfg.layer_types[G * P:]]
@@ -376,15 +414,57 @@ def _apply_sketched_mlp(p, x, cfg, sk, proj, omega, k_active,
                                                       "ffn_h": n_h}
 
 
+def _update_expert_triple(node: SketchNode, xg: Tensor, proj, k_active,
+                          st: SketchSettings) -> SketchNode:
+    """The "expert_in" stack's update on the dispatched slab xg (E,
+    rows, d): one stacked kernel launch, each expert's triple against
+    the projections' first rows. The reference zero-pads each expert's
+    rows to the binding T and vmaps the update over E; the pad adds
+    nothing. Past T it cuts the slab to T: slot positions count up from
+    0 in each expert and a token's K experts differ, so an expert's
+    occupied slots are its first, at most T, and the rest are zero.
+    Returns the emitted node; the expert nodes have no consumer."""
+    T = proj_num_tokens(proj)
+    if xg.shape[1] > T:
+        xg = xg[:, :T]
+    return _update_triple(node, xg, limit_rows(proj, xg.shape[1]), k_active,
+                          st)[1]
+
+
+def _attn_with_sketch(p, h, *, cfg, layer_type, positions, seq_len_ctx,
+                      node, proj, omega, k_active, st: SketchSettings):
+    """Train-mode attention whose out-projection runs sketched backprop
+    on the "attn_o" node (MoE archs): the heads' outputs (B*S, Hq*D)
+    from the flash kernels update the node and feed ``sketched_matmul``.
+    Returns (y, the emitted node)."""
+    B, S, d = h.shape
+    out, _ = attn.attn_heads(p, h, cfg=cfg, layer_type=layer_type,
+                             positions=positions, mode="train",
+                             seq_len_ctx=seq_len_ctx)
+    flat = out.reshape(B * S, -1)
+    c_node, n_node = _update_triple(node, flat, proj, k_active, st)
+    wo = p["wo"].to(h.dtype).reshape(flat.shape[1], d)
+    y = sketched_matmul(flat, wo, c_node.x, c_node.y, c_node.z, omega,
+                        k_active, st.recon_mode, st.ridge, st.factored)
+    return y.reshape(B, S, d), n_node
+
+
 def _apply_block(kind, p, x, *, cfg, positions, mode, cache, seq_len_ctx,
                  sk=None, carry=None, proj=None, omega=None, k_active=None,
                  st: SketchSettings = SketchSettings()):
-    """One decoder block. ``sk`` holds this layer's nodes of the
-    sketched FFN in train mode, ``carry`` an mLSTM or RG-LRU layer's
-    carry nodes. Returns (x, new_cache, new nodes)."""
+    """One decoder block. ``sk`` holds this layer's sketched-backprop
+    and expert nodes in train mode, ``carry`` an mLSTM or RG-LRU layer's
+    carry nodes. Returns (x, new_cache, new nodes, the MoE load-balance
+    loss or None)."""
     h = rmsnorm_apply(p["norm1"], x, cfg.norm_eps)
     new_sk = {}
-    if kind in ATTN_KINDS:
+    if kind in ATTN_KINDS and sk and "attn_o" in sk:
+        mix, new_sk["attn_o"] = _attn_with_sketch(
+            p["attn"], h, cfg=cfg, layer_type=kind, positions=positions,
+            seq_len_ctx=seq_len_ctx, node=sk["attn_o"], proj=proj,
+            omega=omega, k_active=k_active, st=st)
+        new_cache = None
+    elif kind in ATTN_KINDS:
         mix, new_cache = attn.attn_apply(
             p["attn"], h, cfg=cfg, layer_type=kind, positions=positions,
             mode=mode, cache=cache, seq_len_ctx=seq_len_ctx)
@@ -410,14 +490,25 @@ def _apply_block(kind, p, x, *, cfg, positions, mode, cache, seq_len_ctx,
         mix, new_cache = ssm.slstm_apply(p["mix"], h, cfg=cfg, mode=mode,
                                          cache=cache)
     x = x + mix
+    if cfg.is_moe:
+        h2 = rmsnorm_apply(p["norm2"], x, cfg.norm_eps)
+        if sk and "expert_in" in sk:
+            y, aux, xg = moe.moe_apply(p["moe"], h2, cfg,
+                                       return_dispatch=True)
+            new_sk["expert_in"] = _update_expert_triple(
+                sk["expert_in"], xg, proj, k_active, st)
+        else:
+            y, aux = moe.moe_apply(p["moe"], h2, cfg)
+        return x + y, new_cache, new_sk, aux
     if cfg.mlp_type == "none":
-        return x, new_cache, new_sk
+        return x, new_cache, new_sk, None
     h2 = rmsnorm_apply(p["norm2"], x, cfg.norm_eps)
-    if sk is None:
-        return x + mlp_apply(p["mlp"], h2, cfg.mlp_type), new_cache, new_sk
+    if not sk or "ffn_in" not in sk:
+        return (x + mlp_apply(p["mlp"], h2, cfg.mlp_type), new_cache,
+                new_sk, None)
     y, mlp_sk = _apply_sketched_mlp(p["mlp"], h2, cfg, sk, proj, omega,
                                     k_active, st)
-    return x + y, new_cache, {**new_sk, **mlp_sk}
+    return x + y, new_cache, {**new_sk, **mlp_sk}, None
 
 
 def forward(
@@ -438,11 +529,14 @@ def forward(
     ``seq_len_ctx`` is the context length caches are sized for (decode
     must pass it; train, eval and prefill default to S). In train mode
     the "ffn_in"/"ffn_h" nodes of a backprop tree update and feed the
-    sketched FFN, and each mLSTM layer updates its "mlstm_c"/"mlstm_n"
-    entries and each RG-LRU layer its "rglru_h" entry; under an active monitor, layer l's output (B*S, d) updates
-    "res" entry l. Whenever nodes update, the returned tree has its step
-    advanced; otherwise it comes back as given. ``aux`` (the MoE balance
-    loss of the reference) is 0 for these archs.
+    sketched FFN (an MoE arch's "attn_o" the sketched out-projection, and
+    its "expert_in" stacks update on the dispatched slabs), and each
+    mLSTM layer updates its "mlstm_c"/"mlstm_n" entries and each RG-LRU
+    layer its "rglru_h" entry; under an active monitor, layer l's output
+    (B*S, d) updates "res" entry l. Whenever nodes update, the returned
+    tree has its step advanced; otherwise it comes back as given.
+    ``aux`` is the sum of the MoE layers' load-balance losses (0 without
+    MoE).
     """
     _check_ported(cfg)
     if settings.dp_axis is not None:
@@ -461,14 +555,16 @@ def forward(
     if seq_len_ctx is None:
         seq_len_ctx = S
     nodes = sketch_state.nodes if sketch_state is not None else {}
-    sketched = mode == "train" and "ffn_in" in nodes
+    layer_nodes = CONSUMED_NODES + ("expert_in",)
+    sketched = mode == "train" and any(n in nodes for n in CONSUMED_NODES)
     monitor = "res" in nodes and _monitor_active(mode, settings)
     carried = mode == "train" and any(name in nodes
                                       for name in CARRY_NODE_KINDS)
+    per_layer = mode == "train" and any(n in nodes for n in layer_nodes)
     live = [name for name in nodes
             if (name in CARRY_NODE_KINDS and carried)
             or (name == "res" and monitor)
-            or (name in ("ffn_in", "ffn_h") and sketched)]
+            or (name in layer_nodes and per_layer)]
     proj = k_active = omega = None
     if live:
         proj, k_active = sketch_state.proj, sketch_state.k_active
@@ -486,16 +582,19 @@ def forward(
         return SketchNode(x=n.x[i], y=n.y[i], z=n.z[i], psi=n.psi[i])
 
     new_cache = [] if mode in ("prefill", "decode") else None
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for l, kind in enumerate(cfg.layer_types):
-        sk = ({name: node_at(name, l) for name in ("ffn_in", "ffn_h")
-               if name in nodes} if sketched else None)
+        sk = ({name: node_at(name, l) for name in layer_nodes
+               if name in nodes} if per_layer else None)
         carry = ({name: node_at(name, l) for name in CARRY_NODE_KINDS
                   if l in entry.get(name, ())} if carried else None)
-        x, nc, new_sk = _apply_block(
+        x, nc, new_sk, layer_aux = _apply_block(
             kind, params["layers"][l], x, cfg=cfg, positions=positions,
             mode=mode, cache=cache[l] if cache is not None else None,
             seq_len_ctx=seq_len_ctx, sk=sk, carry=carry, proj=proj,
             omega=omega, k_active=k_active, st=settings)
+        if layer_aux is not None:
+            aux = aux + layer_aux
         if new_cache is not None:
             new_cache.append(nc)
         if monitor:
@@ -519,6 +618,5 @@ def forward(
                                          psi=nodes[name].psi)
         new_sketch = dataclasses.replace(sketch_state, nodes=new_nodes,
                                          step=sketch_state.step + 1)
-    return {"logits": logits, "cache": new_cache,
-            "aux": torch.zeros((), dtype=torch.float32, device=x.device),
+    return {"logits": logits, "cache": new_cache, "aux": aux,
             "sketch_state": new_sketch}

@@ -47,10 +47,17 @@ class SketchNode:
 
 
 def init_paper_node(gen: torch.Generator, width: int, k_max: int,
-                    layers: int | None = None,
+                    layers: int | tuple[int, ...] | None = None,
                     dtype=torch.float32) -> SketchNode:
-    """Zero triple + fresh N(0, 1) psi on the generator's device."""
-    lead = () if layers is None else (int(layers),)
+    """Zero triple + fresh N(0, 1) psi on the generator's device.
+    ``layers`` may be a tuple: (L, E) gives (L, E, d, k) triples and
+    (L, E, k) psi (the per-expert nodes)."""
+    if layers is None:
+        lead = ()
+    elif isinstance(layers, tuple):
+        lead = tuple(int(s) for s in layers)
+    else:
+        lead = (int(layers),)
     shape = lead + (width, k_max)
     dev = gen.device
     return SketchNode(

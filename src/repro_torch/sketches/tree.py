@@ -14,6 +14,7 @@ reference folds its key with the epoch; the bits differ from
 from __future__ import annotations
 
 import dataclasses
+import itertools
 from typing import Any
 
 import torch
@@ -34,7 +35,10 @@ class NodeSpec:
     """Registration entry: one sketched activation node (per layer)."""
 
     width: int                  # feature dim d of the node
-    layers: int | None = None   # None = single node, int = per-layer stack
+    # None = single node, int = per-layer stack, tuple = a stack of more
+    # dims: (num_layers, num_experts) gives (L, E, d, k) triples and
+    # (L, E, k) psi
+    layers: int | tuple[int, ...] | None = None
 
 
 @dataclasses.dataclass
@@ -165,13 +169,16 @@ def tree_to(tree: NodeTree, device) -> NodeTree:
 def node_paths(tree: NodeTree) -> list[str]:
     """Flat per-layer paths ("res/5", "block3/ffn_in", ...) in the order
     ``core.monitor.tree_metrics`` emits rows: sorted by node name,
-    layer-major within a node."""
+    layer-major within a node; a stack of more dims appends its other
+    indices ("block3/expert_in/7")."""
     out = []
     for name in sorted(tree.nodes):
         stack = tree.nodes[name].x.shape[:-2]
         if not stack:
             out.append(name)
             continue
-        for i in range(stack[0]):
-            out.append(f"res/{i}" if name == "res" else f"block{i}/{name}")
+        for idx in itertools.product(*(range(s) for s in stack)):
+            base = f"res/{idx[0]}" if name == "res" else \
+                f"block{idx[0]}/{name}"
+            out.append("/".join([base, *map(str, idx[1:])]))
     return out

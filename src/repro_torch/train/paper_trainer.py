@@ -40,7 +40,7 @@ from repro_torch.core.monitor import (
 from repro_torch.core.sketch import SketchConfig
 from repro_torch.device import resolve_device
 from repro_torch.models.mlp import (
-    _act, conv_im2col_sketched, conv_node_specs, conv_same, conv_stem_apply,
+    _act, conv_im2col_sketched, conv_same, conv_stem_apply,
     im2col, mlp_forward, mlp_init, pinn_loss, poisson_exact, pool2,
 )
 from repro_torch.optim.adamw import (
@@ -53,6 +53,7 @@ from repro_torch.sketches.node import SketchNode
 from repro_torch.sketches.psparse import (
     init_psparse_projections, make_psparse_corange_projections,
 )
+from repro_torch.sketches.registry import node_specs_for
 from repro_torch.sketches.tree import (
     NodeTree, gaussian_projections, init_node_tree, refresh_tree, tree_to,
 )
@@ -112,7 +113,8 @@ def init_mlp_sketch(gen: torch.Generator, cfg: MLPConfig,
     k_max), z (L, s_max, s_max)) and no psi; its core weights are the
     projections'."""
     _check_variant(variant)
-    n_nodes, d, k_max = cfg.num_hidden_layers, cfg.d_hidden, scfg.k_max
+    spec = node_specs_for(cfg)["hidden"]
+    n_nodes, d, k_max = spec.layers, spec.width, scfg.k_max
     nb, dev = cfg.batch_size, gen.device
     psparse = scfg.proj_kind == "psparse"
     if variant == "corange":
@@ -508,11 +510,12 @@ def conv_init(gen: torch.Generator, cfg: ConvConfig) -> dict:
 
 def init_conv_sketch(gen: torch.Generator, cfg: ConvConfig,
                      scfg: SketchConfig) -> NodeTree:
-    """The conv stem's tree (``init_node_tree`` over ``conv_node_specs``)
+    """The conv stem's tree (``init_node_tree`` over its registered
+    specs, ``models.mlp.conv_node_specs``)
     bound to ``cfg.num_tokens`` = B * hw^2 rows, stage 1's im2col rows;
     stage 2 zero-pads its B * (hw/2)^2 rows up to it. At rank
     ``scfg.rank``."""
-    tree = init_node_tree(gen, conv_node_specs(cfg), cfg.num_tokens,
+    tree = init_node_tree(gen, node_specs_for(cfg), cfg.num_tokens,
                           scfg.k_max, proj_kind=scfg.proj_kind,
                           proj_density=scfg.proj_density)
     return dataclasses.replace(tree, rank=torch.tensor(

@@ -32,6 +32,7 @@ become each worker's ``sketch_err``.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Callable, NamedTuple
 
 import torch
@@ -51,6 +52,7 @@ from repro_torch.optim.sketched_sgd import (
 from repro_torch.parallel.collectives import (
     _record, fold, psum_csvec, psum_flat_segments, traced_psum,
 )
+from repro_torch.sketches.registry import node_specs_for
 from repro_torch.sketches.wire import (
     fake_quantize_tree, partition_segments, tree_increment_leaves,
 )
@@ -399,13 +401,18 @@ def _split_batch(batch: dict, workers: int) -> list[dict]:
 
 
 RECURRENT_DP = ("data-parallel training of archs with recurrent blocks "
-                "is not ported yet: ROADMAP A15, xlstm data-parallel "
-                "training")
+                "is not ported yet: ROADMAP A15, xlstm and recurrentgemma "
+                "data-parallel training")
+MOE_DP = ("data-parallel training of MoE archs is not ported yet: ROADMAP "
+          "A17, MoE data-parallel training (the expert_in stacks' "
+          "increments on the wire)")
 
 
 def _make_dp_step(cfg: ArchConfig, run: RunConfig, cs_params) -> Callable:
     if set(cfg.pattern) & set(transformer.RECURRENT_KINDS):
         raise NotImplementedError(f"{cfg.name}: {RECURRENT_DP}")
+    if cfg.is_moe:
+        raise NotImplementedError(f"{cfg.name}: {MOE_DP}")
     W, comp = run.dp_workers, run.compression
     groups = transformer.sketch_groups(cfg) if run.sketch.enabled else {}
     consumed = bool(groups) and "res" not in groups
@@ -664,13 +671,14 @@ def collective_plan(cfg: ArchConfig, run: RunConfig,
     if num_params is None:
         num_params = transformer.num_params(cfg)
         num_leaves = transformer.num_reference_leaves(cfg)
-    specs = (transformer.transformer_node_specs(cfg) if run.sketch.enabled
-             else {})
-    n_entries = sum(s.layers for s in specs.values())
+    specs = node_specs_for(cfg) if run.sketch.enabled else {}
+    entries = {n: math.prod(s.layers) if isinstance(s.layers, tuple)
+               else s.layers for n, s in specs.items()}
+    n_entries = sum(entries.values())
     per_elem = run.sketch.k_max * 1 + 4 if run.sketch_wire_dtype == "int8" \
         else run.sketch.k_max * 4
-    sketch_bytes = sum(3 * s.layers * s.width * per_elem
-                       for s in specs.values())
+    sketch_bytes = sum(3 * entries[n] * s.width * per_elem
+                       for n, s in specs.items())
     grad_bytes = compressed_bytes(num_params, run.compression) if cs \
         else num_params * 4
     if fused:

@@ -1,21 +1,26 @@
 #!/usr/bin/env python3
 """Check that chip_smoke.py's 1e-4 tolerance tells a fault in the
-tensor-core sketch_update kernel from rounding.
+tensor-core sketch_update kernel, or in its stacked launch, from
+rounding.
 
     PYTHONPATH=src python3 tools/sketch_mutants.py
 
 Each mutant is ``csrc/sketch_update.cu`` and the headers it includes
 with one edit: the lo part of each projection dropped from the products
-(so P is carried as bf16(P) alone), or the last T split dropped from the
-ordered sum of the splits. Each is built by nvcc into a temporary
-directory (the checkout is not touched) and loaded in place of the
-library; the unedited sources run first as the control. Each runs every
-bf16 row of ``chip_smoke.SKETCH_UPDATE_CASES`` against the plain version
-and prints one JSON line a (mutant, case): the largest share of the
-allowance (rtol ``TOL``, atol ``TOL`` * max|plain|) any output uses, and
-whether chip_smoke.py's check fails (a NaN fails it). Exits 1 if the
-control fails or a mutant passes every case. Needs a CUDA device and
-nvcc.
+(so P is carried as bf16(P) alone), the last T split dropped from the
+ordered sum of the splits, and three faults of the stacked launch (one
+launch over E experts' triples): every expert writing expert 0's
+outputs, the last expert's blocks not launched, psi read from expert 0.
+Each is built by nvcc into a temporary directory (the checkout is not
+touched) and loaded in place of the library; the unedited sources run
+first as the control. Each runs every bf16 row of
+``chip_smoke.SKETCH_UPDATE_CASES`` and every row of
+``chip_smoke.STACKED_CASES`` against the plain version and prints one
+JSON line a (mutant, case): the largest share of the allowance (rtol
+``TOL``, atol ``TOL`` * max|plain|) any output uses, and whether
+chip_smoke.py's check fails (a NaN fails it, and so does a launch the
+card refuses, which chip_smoke.py raises on). Exits 1 if the control
+fails or a mutant passes every case. Needs a CUDA device and nvcc.
 """
 from __future__ import annotations
 
@@ -37,6 +42,15 @@ MUTANTS = [
         ("ema_update.cuh",
          "sp0 + q < splits ? o.ws[(sp0 + q) * 3 * dk + i] : 0.f;",
          "sp0 + q < splits - 1 ? o.ws[(sp0 + q) * 3 * dk + i] : 0.f;")]),
+    ("every_expert_writes_expert_0", [
+        ("ema_update.cuh", "  o.out += e * 3 * dk;\n", "")]),
+    ("skips_the_last_expert", [
+        ("sketch_update.cu", "splits,\n                  experts);",
+         "splits,\n                  experts - 1);"),
+        ("ema_update.cuh", "FMA_TILE_D, splits, experts);",
+         "FMA_TILE_D, splits, experts - 1);")]),
+    ("reads_psi_of_expert_0", [
+        ("ema_update.cuh", "  o.psi += (size_t)e * o.k;\n", "")]),
 ]
 
 
@@ -48,8 +62,11 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels import sketch_update as S
 
-    cases = [c for c in chip_smoke.SKETCH_UPDATE_CASES
+    # (label, experts or None, T, d, k, dtype)
+    cases = [(c[0], None) + tuple(c[1:])
+             for c in chip_smoke.SKETCH_UPDATE_CASES
              if S.uses_tensor_cores(c[1], c[2], getattr(torch, c[4]))]
+    cases += [c[:6] for c in chip_smoke.STACKED_CASES]
     sms = _build.num_sms(torch.device("cuda"))
     caught = {}
     with tempfile.TemporaryDirectory() as tmp:
@@ -61,23 +78,30 @@ def main() -> int:
             with loaded("sketch_update", lib_file, S._bind):
                 caught[name] = False
                 gen = torch.Generator(device="cuda").manual_seed(1)
-                for label, T, d, k, _ in cases:
+                for label, E, T, d, k, dt in cases:
                     rand = lambda *s: torch.randn(
                         s, generator=gen, device="cuda")
-                    args = (rand(T, d).to(torch.bfloat16), rand(d, k),
-                            rand(d, k), rand(d, k), rand(T, k), rand(T, k),
-                            rand(T, k), rand(k))
-                    got = S.sketch_update(*args, beta=0.9)
+                    lead = (E,) if E else ()
+                    args = (rand(*lead, T, d).to(getattr(torch, dt)),
+                            rand(*lead, d, k), rand(*lead, d, k),
+                            rand(*lead, d, k), rand(T, k), rand(T, k),
+                            rand(T, k), rand(*lead, k))
                     want = S.sketch_update_ref(*args, 0.9)
-                    used = max(float(((g - w).abs() / (chip_smoke.TOL * (
-                        w.abs().max() + w.abs()))).nan_to_num(float("inf"))
-                        .max()) for g, w in zip(got, want))
+                    try:
+                        got = S.sketch_update(*args, beta=0.9)
+                        used = max(float(((g - w).abs() / (
+                            chip_smoke.TOL * (w.abs().max() + w.abs())))
+                            .nan_to_num(float("inf")).max())
+                            for g, w in zip(got, want))
+                    except RuntimeError:  # a refused launch fails too
+                        used = float("inf")
                     fails = not used <= 1
                     caught[name] |= fails
+                    tc = S.uses_tensor_cores(T, d, getattr(torch, dt))
                     print(json.dumps(dict(
-                        mutant=name, case=label, T=T, d=d, k=k,
-                        splits=S.launch_plan(T, d, sms, True)[0], used=used,
-                        check_fails=fails)), flush=True)
+                        mutant=name, case=label, experts=E, T=T, d=d, k=k,
+                        splits=S.launch_plan(T, d, sms, tc, E or 1)[0],
+                        used=used, check_fails=fails)), flush=True)
     ok = not caught["control"] and all(
         v for k, v in caught.items() if k != "control")
     print(json.dumps(dict(caught=caught, ok=ok)), flush=True)
