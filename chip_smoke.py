@@ -76,7 +76,7 @@ nvcc and nvidia-smi. Phases, each of which raises on failure:
    with random weights (8 prompts of 128 tokens, 32 new tokens, then one
    refill of a 64-token prompt); tokens must equal the unmonitored
    engine's, sketches and logits must be finite; prefill is timed on both
-   engines, alternating, median of five. Then the same serve with psparse
+   engines, alternating, median of three (PREFILL_SAMPLES). Then the same serve with psparse
    monitor projections (``monitor_proj_kind="psparse"``), tokens equal.
    The same on gemma3-27b at full width cut to one pattern period (6
    layers: 5 local with a 1024-token window, 1 global): 2 prompts of
@@ -86,14 +86,20 @@ nvcc and nvidia-smi. Phases, each of which raises on failure:
    layers: 7 mLSTM, 1 sLSTM; XLSTM_SERVE_LAYERS): 8 prompts of 2048
    tokens (eight chunks), 32 new tokens, a 512-token refill, max_context
    2304, and the sLSTM loop's share of one more prefill. The same on
-   recurrentgemma-2b at full width and all 26 layers (RGEMMA_SERVE): 8
+   recurrentgemma-2b at full width cut to 13 layers (RGEMMA_SERVE): 8
    prompts of 2048 tokens, 32 new tokens (the local layers' 2048-slot
    rings wrap), a 1,100-token refill, max_context 2304, and the RG-LRU
    scans' share of one more prefill. The same on qwen3-moe-30b-a3b at
-   full width and all 48 layers (QWEN_SERVE; 30.5 B parameters drawn in
-   bf16, 61.1 GB): 8 prompts of 2048 tokens, 32 new tokens, a
+   full width cut to 12 of its 48 layers (QWEN_SERVE_LAYERS; weights
+   drawn in bf16, 15.3 GB): 8 prompts of 2048 tokens, 32 new tokens, a
    1,100-token refill, max_context 2304, and the share of routed choices
-   that capacity dropped in one prefill and one decode step;
+   that capacity dropped in one prefill and one decode step. The same on
+   musicgen-large at full width and all 48 layers (MUSICGEN_SERVE: 8
+   prompts of 1024 audio tokens, 32 new tokens, a 512-token refill,
+   max_context 1536) and on internvl2-76b at full width cut to 8 layers
+   (INTERNVL_SERVE_LAYERS; weights drawn in bf16; 8 prompts of 2048
+   tokens, 16 new tokens, a 1,100-token refill, no patch embeddings, as
+   the reference's engine);
 4. the serving engine on reduced tinyllama in f32 on the card and on the
    CPU, from the same weights and monitor state: equal tokens, and logits
    and sketches within rtol 1e-4, atol 1e-4; then reduced xlstm with
@@ -117,8 +123,8 @@ nvcc and nvidia-smi. Phases, each of which raises on failure:
 7. LM training: tinyllama-1.1b at full width (f32 parameters, bf16
    compute), B=8 x S=128 synthetic batches, sketched backprop on both
    FFN matmuls of all 22 layers (k_max 17), AdamW with warmup-cosine,
-   20 steps each of (a) no compression, (b) count-sketch with an fp32
-   table, (c) count-sketch with an int8 table and p2=2, all with
+   20 steps of (a) no compression, 10 each of (b) count-sketch with an
+   fp32 table, (c) count-sketch with an int8 table and p2=2, all with
    Gaussian projections, then 3 steps with psparse projections. Losses
    finite, no skipped step, (a) learns (mean of the last 5 losses below
    the first 5's; (b) and (c) send 256 of 1.1e9 coordinates a step, so
@@ -169,18 +175,19 @@ nvcc and nvidia-smi. Phases, each of which raises on failure:
    with its path (the bf16 rows at xlstm's widths must take the tensor
    cores), timed beside its path's bound (the tensor cores' products at
    the bf16 rate, the FMA kernels' at the f32 rate) and its plain
-   version, no library call; then xlstm-1.3b at full width and all 48
-   layers (XLSTM_TRAIN: f32 parameters, bf16 compute, AdamW without the
-   global-norm clip (XLSTM_GRAD_CLIP), monitor sketches with the
+   version, no library call; then xlstm-1.3b at full width cut to one
+   7:1 period, 8 layers (XLSTM_TRAIN: f32 parameters, bf16 compute,
+   AdamW without the global-norm clip (XLSTM_GRAD_CLIP), monitor
+   sketches with the
    mlstm_c/mlstm_n carry nodes at k_max 9), B 4 x S
    512 for 10 steps with Gaussian projections on one repeated batch
    (profiled: the backward's device share; the sLSTM blocks' share of a
    step; learning: the mean of the last 3 losses XLSTM_LEARN_DROP below
    the first 3's) and 3 with psparse ones on fresh batches,
-   then 2 steps at B 1 x S 2048: losses finite, no skip, peak under 80
-   GB, every sketch entry holding mass (but a carry node's psparse
-   sketch whose matrix has no support row below B, which stays zero in
-   the reference too); then reduced xlstm in f32 at B 2, one train step
+   then 1 step at B 1 x S 2048 (8 layers too): losses finite, no
+   skip, peak under 80 GB, every sketch entry holding mass (but a carry
+   node's psparse sketch whose matrix has no support row below B, which
+   stays zero in the reference too); then reduced xlstm in f32 at B 2, one train step
    on the card and on the CPU from one state at each XLSTM_DVC_STEPS (S
    16 in one chunk, within TOL * max|CPU|; S 64 over four 16-token
    chunks, within 5e-3: the gradient's conditioning there): loss,
@@ -210,10 +217,31 @@ nvcc and nvidia-smi. Phases, each of which raises on failure:
    then reduced qwen3-moe, one f32 step at B 2 x S 64 on the card and on
    the CPU (loss, gradients, tree within TOL * max|CPU|, each layer's
    routing selections equal);
-16. print ``{"kernels": [...]}``, the nvidia-smi line, and last
+16. musicgen-large training (``phase_musicgen_train``): full width and
+   all 48 layers (MUSICGEN_TRAIN: f32 parameters, bf16 compute, AdamW
+   as launch/train.py builds it, sketched FFN backprop at k_max 17), B 4
+   x S 512 for 10 Gaussian steps on one repeated batch (profiled; the
+   last-3 mean loss MUSICGEN_LEARN_DROP below the first 3's) and 3
+   psparse steps: losses finite, no skip, peak under 80 GB;
+17. reduced internvl2-76b, two f32 steps with stand-in patch embeddings
+   spliced over its first 4 positions, on the card and on the CPU
+   (``_lm_steps_vs_cpu``: losses, parameters and trees within TOL);
+18. xlstm-1.3b and recurrentgemma-2b data-parallel
+   (``phase_recurrent_dp``): W 2 workers, the fused layout on the fp32
+   ring, global B 4 x S 512, 3 steps, at full width cut to
+   RECURRENT_DP_LAYERS (8 and 13): losses finite, no skip, peak under
+   80 GB, every carry entry holding mass from each worker's B/W rows,
+   recurrentgemma's step profiled; then a reduced W 2 step of each, card
+   against CPU;
+19. the same two with the fp32 count sketch (5 x 2^23) on one device
+   (``phase_recurrent_cs``), 3 steps at RECURRENT_CS_LAYERS (8 each:
+   flat dimensions under 2**31), then the mass check on one more step;
+   and two reduced compressed steps of each (fp32; the int8 table with
+   p2), card against CPU (the count sketch's {u, v} too);
+20. print ``{"kernels": [...]}``, the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 
-Every run of a path (3, 4, 5, 6's LM step, 7–14) sets the kernels'
+Every run of a path (3, 4, 5, 6's LM step, 7–19) sets the kernels'
 launch counts to 0 just before it and checks them just after: each
 monitored token step or train step launches one update kernel per sketched node,
 the projection kind's; each compressed LM step one insert and one top-k,
@@ -229,7 +257,8 @@ forward and backward and two updates a layer ("attn_o", and one stacked
 launch for the layer's "expert_in" stack), a decode step none, a corange step none, a conv step one a stage. A DP
 step counts these per worker (the overlap layout's increment sweep adds
 a forward), one top-k, and one ring merge (fused) or two (overlap: the
-sketch, then the gradient wire).
+sketch, then the gradient wire). The phases' wall seconds go to
+``phase_s`` in the JSON, and the whole script's to ``total_s``.
 
 Exits non-zero, printing no result, without a CUDA device or without the
 repository's sources beside it. Measurements also go to
@@ -258,7 +287,9 @@ PEAK_BYTES_S = 3.35e12
 PEAK_BF16_FLOP_S = 989e12
 PEAK_F32_FLOP_S = 67e12
 TOL = 1e-4
-PREFILL_SAMPLES = 5
+# prefills timed an engine, alternating monitor on and off (three, for
+# the script's time limit)
+PREFILL_SAMPLES = 3
 
 # (label, T, d, k, A dtype). sketch_update: the serving path's shapes at
 # tinyllama's d=2048 and k=9 (prefill T=B*S0=1024, decode T=B=8, refill
@@ -365,7 +396,10 @@ CS_CASES = [
 # layers at head_dim 256 (10 query heads on one KV head, window 2048):
 # its serving prefill (B 8 x S 2048, every pair inside the window), its
 # train step (B 4 x S 512), a sequence past the window (B 1 x S 4096) and
-# a ragged window (S 300, window 100)
+# a ragged window (S 300, window 100); musicgen-large's serving prefill
+# (B 8 x S 1024, MHA 32/32 at head_dim 64: one query head a KV head) and
+# its whole context (B 1 x S 1536), and internvl2-76b's prefill (B 8 x S
+# 2048, GQA 64/8 at head_dim 128)
 FLASH_CASES = [
     ("train_s128", 8, 32, 4, 128, 64, None, "bfloat16"),
     ("dp_w4_s128", 2, 32, 4, 128, 64, None, "bfloat16"),
@@ -387,6 +421,9 @@ FLASH_CASES = [
     ("rgemma_train", 4, 10, 1, 512, 256, 2048, "bfloat16"),
     ("rgemma_window", 1, 10, 1, 4096, 256, 2048, "bfloat16"),
     ("rgemma_ragged_window", 1, 10, 1, 300, 256, 100, "bfloat16"),
+    ("musicgen_prefill", 8, 32, 32, 1024, 64, None, "bfloat16"),
+    ("musicgen_ctx", 1, 32, 32, 1536, 64, None, "bfloat16"),
+    ("internvl2_prefill", 8, 64, 8, 2048, 128, None, "bfloat16"),
 ]
 
 # mlstm_chunk: (label, B, H, S, Dk, Dv, chunk), each with f32 inputs and
@@ -421,18 +458,19 @@ MLSTM_BWD_CASES = [
 ]
 # the MLSTM_BWD_CASES rows that must take the tensor cores
 MLSTM_BWD_TC = ("train_bf16", "ctx_bf16", "narrow_tc", "narrow_tc_floor")
-# xlstm-1.3b trained at full width and all 48 layers (f32 parameters,
-# bf16 compute, AdamW with warmup-cosine, monitor sketches with the
-# mlstm_c/mlstm_n carry nodes): B 4 x S 512 (two mLSTM chunks), STEPS
-# with Gaussian projections and PSPARSE_STEPS with psparse ones, then
-# CTX_STEPS at B 1 x S 2048, the model's context (eight chunks), cut to
-# CTX_LAYERS (two 7:1 periods; 25.4 s a step at 48) to keep the script
-# inside its time limit with qwen3-moe's phases. k_max 9
+# xlstm-1.3b trained at full width (f32 parameters, bf16 compute, AdamW
+# with warmup-cosine, monitor sketches with the mlstm_c/mlstm_n carry
+# nodes): B 4 x S 512 (two mLSTM chunks), STEPS with Gaussian
+# projections and PSPARSE_STEPS with psparse ones, then CTX_STEPS at B 1
+# x S 2048, the model's context (eight chunks); all cut in depth to one
+# 7:1 period (LAYERS, CTX_LAYERS: 8) to keep the script inside its time
+# limit (7.04 s a step at 48 layers on an H100, mostly the sLSTM
+# loop). k_max 9
 # is the reference's own xlstm tests' (tests/test_node_families.py): one
 # copy of the 42 mlstm_c triples takes 3 x 42 x 2,097,152 x k_max x 4 B,
 # 9.5 GB at 9 and 34.9 GB at the default 33, and the step holds two
-XLSTM_TRAIN = dict(batch=4, seq=512, steps=10, psparse_steps=3,
-                   ctx_batch=1, ctx_seq=2048, ctx_steps=2, ctx_layers=16,
+XLSTM_TRAIN = dict(layers=8, batch=4, seq=512, steps=10, psparse_steps=3,
+                   ctx_batch=1, ctx_seq=2048, ctx_steps=1, ctx_layers=8,
                    k_max=9)
 # the Gaussian xlstm run trains on its first batch again and again and
 # must end with its last-3 mean loss this fraction below its first-3
@@ -466,8 +504,7 @@ XLSTM_DVC_STEPS = [(16, 256, TOL), (64, 16, 5e-3)]
 # xlstm-1.3b served at full width: 2048-token prompts (eight chunks), 32
 # new tokens, a 512-token refill (two chunks, one request); cut in depth
 # to one 7:1 pattern period (8 layers; 16 before recurrentgemma-2b's
-# phases came) to keep the script inside its time limit (phase 13
-# trains all 48)
+# phases came) to keep the script inside its time limit
 XLSTM_SERVE = dict(batch=8, prompt_len=2048, new_tokens=32, refill_len=512,
                    max_context=2304)
 XLSTM_SERVE_LAYERS = 8
@@ -478,11 +515,14 @@ XLSTM_SERVE_LAYERS = 8
 # so the card is held to the CPU there at 1e-3 of max
 XLSTM_DVC_TOL = 1e-3
 
-# recurrentgemma-2b served at full width and all 26 layers: 8 prompts of
-# 2048 tokens (the local layers' window: their 2048-slot rings fill at
-# prefill and wrap while decoding), 32 new tokens, a 1,100-token refill
+# recurrentgemma-2b served at full width: 8 prompts of 2048 tokens (the
+# local layers' window: their 2048-slot rings fill at prefill and wrap
+# while decoding), 32 new tokens, a 1,100-token refill; cut in depth to
+# 13 of its 26 layers (four (rglru, rglru, local) periods and an rglru)
+# for the time limit (its training keeps all 26)
 RGEMMA_SERVE = dict(batch=8, prompt_len=2048, new_tokens=32,
                     refill_len=1100, max_context=2304)
+RGEMMA_SERVE_LAYERS = 13
 # and trained at full width and all 26 layers (f32 parameters, bf16
 # compute, AdamW as launch/train.py builds it: lr 3e-4, the global-norm
 # clip at 1; sketched FFN backprop and the rglru_h carry node at the LM
@@ -498,12 +538,15 @@ RGEMMA_LEARN_DROP = 0.02
 # one f32 train step at B 2 x S 64 on the card and on the CPU
 RGEMMA_DVC = dict(layers=5, batch=2, seq=64, k_max=9)
 
-# qwen3-moe-30b-a3b served at full width and all 48 layers (30.5 B
-# parameters, 61.1 GB drawn in bf16): 8 prompts of 2048 tokens
+# qwen3-moe-30b-a3b served at full width (30.5 B parameters at all 48
+# layers, 61.1 GB drawn in bf16): 8 prompts of 2048 tokens
 # (capacity 1,280 slots an expert), 32 new tokens (capacity 4 at B 8),
 # a 1,100-token refill (capacity 88), both monitors
 QWEN_SERVE = dict(batch=8, prompt_len=2048, new_tokens=32,
                   refill_len=1100, max_context=2304)
+# cut in depth to a quarter of its 48 layers (15.3 GB of bf16 weights)
+# to keep the script inside its time limit (36 s for the phase at 48)
+QWEN_SERVE_LAYERS = 12
 # and trained at full width cut to 3 layers (2.49 B parameters: 39.9 GB
 # of f32 parameters, gradients and AdamW moments; AdamW's functional
 # update holds the old and the new parameters and moments at its end, so
@@ -521,8 +564,61 @@ QWEN_LEARN_DROP = 0.02
 # 64 on the card and on the CPU
 QWEN_DVC = dict(batch=2, seq=64, k_max=9)
 
+# musicgen-large served at full width and all 48 layers: 8 prompts of
+# 1024 EnCodec tokens, 32 new tokens, a 512-token refill, a 1536-token
+# context (MusicGen's 30 s of 50 Hz codes)
+MUSICGEN_SERVE = dict(batch=8, prompt_len=1024, new_tokens=32,
+                      refill_len=512, max_context=1536)
+# and trained at full width and all 48 layers (2.42 B parameters: 38.8
+# GB of f32 parameters, gradients and AdamW moments), bf16 compute, AdamW
+# as launch/train.py builds it (lr 3e-4, clip 1), sketched FFN backprop
+# at k_max 17: B 4 x S 512, STEPS Gaussian steps on one repeated batch,
+# which must end with the last-3 mean loss LEARN_DROP below the first
+# 3's, and PSPARSE_STEPS psparse ones on fresh batches
+MUSICGEN_TRAIN = dict(batch=4, seq=512, steps=10, psparse_steps=3,
+                      k_max=17)
+MUSICGEN_LEARN_DROP = 0.02
+# internvl2-76b served at full width cut to 8 of its 80 layers (1.71 GB
+# of bf16 weights a layer and 4.2 GB of embeddings, drawn in bf16; one
+# layer's training state is 13.7 GB, 80 layers' far past one card, which
+# waits for ROADMAP A14): 8 prompts of 2048 tokens, 16 new tokens, a
+# 1,100-token refill. The engine takes no patch embeddings, as the
+# reference's
+INTERNVL_SERVE = dict(batch=8, prompt_len=2048, new_tokens=16,
+                      refill_len=1100, max_context=2304)
+INTERNVL_SERVE_LAYERS = 8
+# data-parallel training of the recurrent archs: W 2 workers in one
+# process, the fused layout on the fp32 ring, global B 4 x S 512, STEPS
+# steps, at full width cut in depth so that the f32 state, the W wire
+# rows and one worker's activations fit the card (recurrentgemma 1.77e9
+# coordinates at 13 layers), xlstm at one 7:1 period (8 layers) as its
+# own training (each worker runs the sLSTM loop: 5.0 s a step at 16);
+# k_max as each arch's own training run
+RECURRENT_DP = dict(workers=2, batch=4, seq=512, steps=3)
+RECURRENT_DP_LAYERS = {"xlstm-1.3b": 8, "recurrentgemma-2b": 13}
+# and with the fp32 count sketch (5 x 2^23 counters) on one device, 3
+# steps, at a depth whose flat dimension stays under 2**31 (the
+# reference's int32 indices) and whose state, u, v_pre and the update
+# fit: recurrentgemma 8 layers (1.35e9), xlstm one 7:1 period (8) as its
+# other training runs
+RECURRENT_CS = dict(batch=4, seq=512, steps=3,
+                    compression=dict(mode="countsketch", cs_cols=2**23))
+RECURRENT_CS_LAYERS = {"xlstm-1.3b": 8, "recurrentgemma-2b": 8}
+# reduced steps on the card against the CPU (f32, Gaussian, k_max 9):
+# internvl2 with patch embeddings, the recurrent archs W 2 fused and with
+# the count sketch (c 512, k 64); xlstm at S 16, one mLSTM chunk, as
+# XLSTM_DVC_STEPS holds it at TOL (its gradient's conditioning: at S 64
+# the count sketch's momentum u, the gradient itself, read 1.03e-3 of
+# its max against the CPU on an H100)
+REDUCED_DVC = dict(batch=4, seq=64, k_max=9)
+REDUCED_DVC_SEQ = {"xlstm-1.3b": 16}
+
 # the LM trainer: tinyllama-1.1b at full width, as launch/train.py runs it
 LM_BATCH, LM_SEQ, LM_STEPS, LM_PSPARSE_STEPS = 8, 128, 20, 3
+# the compressed runs, which are not asked to learn (256 of 1.1e9
+# coordinates a step), cut from 20 steps to keep the script inside its
+# time limit
+LM_CS_STEPS = 10
 # and at its own context (arXiv:2401.02385 trains at 2048 tokens)
 LM_CTX_BATCH, LM_CTX_SEQ, LM_CTX_STEPS = 4, 2048, 3
 PEAK_LIMIT_BYTES = 80e9
@@ -2371,14 +2467,16 @@ def lm_run(dev, cfg, mode: str, proj_kind: str, steps: int,
 
 def phase_lm_train(dev) -> dict:
     """tinyllama-1.1b at full width: the three LM_MODES with Gaussian
-    projections for LM_STEPS steps each, then LM_PSPARSE_STEPS steps with
+    projections for LM_STEPS steps (the compressed ones LM_CS_STEPS),
+    then LM_PSPARSE_STEPS steps with
     psparse projections, then LM_CTX_STEPS steps without compression at
     B LM_CTX_BATCH x S LM_CTX_SEQ, whose peak must stay under 80 GB.
     Without compression the loss must fall at S LM_SEQ."""
     from repro_torch.configs import get_arch
     cfg = get_arch("tinyllama-1.1b")
-    out = {f"{mode}/gaussian": lm_run(dev, cfg, mode, "gaussian", LM_STEPS)
-           for mode in LM_MODES}
+    out = {f"{mode}/gaussian": lm_run(
+        dev, cfg, mode, "gaussian", LM_STEPS if mode == "none" else
+        LM_CS_STEPS) for mode in LM_MODES}
     base = out["none/gaussian"]
     if not base["loss_last5"] < base["loss_first5"]:
         raise AssertionError(
@@ -3520,19 +3618,33 @@ def phase_mlstm_bwd(dev) -> list[dict]:
     return rows
 
 
-def _xlstm_run_config(proj_kind: str, steps: int, batch: int, seq: int):
+def _launcher_run_config(proj_kind: str, steps: int, batch: int, seq: int,
+                         k_max: int, grad_clip: float = 1.0,
+                         compression: dict | None = None, **dp):
+    """A run as launch/train.py builds it (lr 3e-4, the global-norm clip
+    at ``grad_clip``, warmup min(20, steps // 5 + 1)) at ``k_max``;
+    ``compression`` holds CompressionConfig's keywords, ``dp`` the
+    data-parallel fields."""
     from repro_torch.models.transformer import SketchSettings
     from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.optim.compression import CompressionConfig
     from repro_torch.train.state import RunConfig
-    # as launch/train.py builds it (lr 3e-4, warmup min(20, steps // 5 +
-    # 1)), at XLSTM_TRAIN's k_max, with the global-norm clip off
-    # (XLSTM_GRAD_CLIP)
     return RunConfig(
         seq_len=seq, global_batch=batch,
-        optimizer=AdamWConfig(lr=3e-4, grad_clip=XLSTM_GRAD_CLIP),
+        optimizer=AdamWConfig(lr=3e-4, grad_clip=grad_clip),
         warmup_steps=min(20, steps // 5 + 1), total_steps=steps,
-        sketch=SketchSettings(enabled=True, k_max=XLSTM_TRAIN["k_max"],
-                              proj_kind=proj_kind))
+        sketch=SketchSettings(enabled=True, k_max=k_max,
+                              proj_kind=proj_kind),
+        compression=CompressionConfig(**compression) if compression
+        else None, **dp)
+
+
+def _xlstm_run_config(proj_kind: str, steps: int, batch: int, seq: int):
+    # at XLSTM_TRAIN's k_max, with the global-norm clip off
+    # (XLSTM_GRAD_CLIP)
+    return _launcher_run_config(proj_kind, steps, batch, seq,
+                                XLSTM_TRAIN["k_max"],
+                                grad_clip=XLSTM_GRAD_CLIP)
 
 
 def _carry_mass(tree, batch: int) -> dict:
@@ -3597,31 +3709,61 @@ def _slstm_ms(state, cfg, batch: int, seq: int) -> float:
     return total * 1e3
 
 
+def _train_counts(cfg, run, steps: int) -> dict:
+    """Launches of ``steps`` train steps of a dense-FFN or recurrent arch
+    under ``run``, each step and worker: one flash forward and one flash
+    backward an attention layer, one mlstm_chunk and one mlstm_chunk_bwd
+    an mLSTM layer, one update kernel per node entry ("res" or "ffn_in"
+    and "ffn_h" on every layer, the carry nodes on the layers of their
+    kind); a data-parallel step in the fused layout merges once, through
+    the ring with ``run.ring_wire``; the count sketch inserts each
+    worker's table and takes one top-k, and quantises the table on its
+    int8 wire."""
+    from repro_torch.models.transformer import (
+        ATTN_KINDS, node_layer_count, sketch_groups,
+    )
+    kinds = cfg.layer_types
+    n_m, n_a = kinds.count("mlstm"), sum(k in ATTN_KINDS for k in kinds)
+    kernel = "psparse_update" if run.sketch.proj_kind == "psparse" \
+        else "sketch_update"
+    entries = sum(node_layer_count(cfg, n) for n in sketch_groups(cfg))
+    W = run.dp_workers if run.dp_axis_name else 1
+    if W > 1 and run.dp_collective != "fused":
+        raise ValueError("_train_counts counts the fused layout's only")
+    want = {kernel: entries * W * steps,
+            "flash_attention": n_a * W * steps,
+            "flash_attention_bwd": n_a * W * steps,
+            "mlstm_chunk": n_m * W * steps,
+            "mlstm_chunk_bwd": n_m * W * steps,
+            "ring_allreduce": steps if W > 1 and run.ring_wire else 0}
+    if run.compression is not None:
+        want.update(csvec_insert=W * steps, csvec_topk=steps)
+        if run.compression.wire_dtype == "int8":
+            want["csvec_quant"] = W * steps
+    return want
+
+
 def recurrent_run(dev, cfg, run, *, repeat_batch: bool = False,
                   profile_groups=None, profile_extra=None) -> dict:
     """One counted, timed run of ``run.total_steps`` train steps of
     (``run.global_batch``, ``run.seq_len``) from a fresh state (each step
     on the pipeline's next batch, or with ``repeat_batch`` on its first):
-    losses finite and no skip, launches (each step: one flash forward and
-    one flash backward an attention layer, one mlstm_chunk and one
-    mlstm_chunk_bwd an mLSTM layer, one update kernel per node entry:
-    "res" or "ffn_in" and "ffn_h" on every layer, the carry nodes on the
-    layers of their kind), peak memory under 80 GB, every sketch's mass
-    (``_carry_mass``); with ``profile_groups`` one more step under
+    losses finite and no skip, launches (``_train_counts``), peak memory
+    under 80 GB, every sketch's mass (``_carry_mass``, a worker's
+    B/W carry rows); with ``profile_groups`` one more step under
     torch.profiler (device ms and shares of the kernels each regex
     names, and the idle share), and ``profile_extra(state)``'s entries
-    beside it."""
+    beside it; with compression on one device, the mass check
+    (``_mass_check``) on one more step."""
     import gc
     import torch
     from repro_torch.data.pipeline import PipelineConfig, host_batch
-    from repro_torch.models.transformer import (
-        ATTN_KINDS, node_layer_count, sketch_groups,
-    )
     from repro_torch.train.state import init_train_state
     from repro_torch.train.step import make_train_step
 
     gc.collect()
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
     left_mib = torch.cuda.memory_allocated() / 2**20
     steps, batch, seq = run.total_steps, run.global_batch, run.seq_len
     proj_kind = run.sketch.proj_kind
@@ -3643,15 +3785,10 @@ def recurrent_run(dev, cfg, run, *, repeat_batch: bool = False,
     launches = read_counts()
     peak = torch.cuda.max_memory_allocated() / 2**20
     what = f"{cfg.name} {proj_kind} B={batch} S={seq}"
-    kinds = cfg.layer_types
-    n_m, n_a = kinds.count("mlstm"), sum(k in ATTN_KINDS for k in kinds)
-    kernel = "psparse_update" if proj_kind == "psparse" else "sketch_update"
-    entries = sum(node_layer_count(cfg, n) for n in sketch_groups(cfg))
-    check_counts(what, launches,
-                 {kernel: entries * steps,
-                  "flash_attention": n_a * steps,
-                  "flash_attention_bwd": n_a * steps,
-                  "mlstm_chunk": n_m * steps, "mlstm_chunk_bwd": n_m * steps})
+    W = run.dp_workers if run.dp_axis_name else 1
+    if W > 1:
+        what += f" W={W} {run.dp_collective}"
+    check_counts(what, launches, _train_counts(cfg, run, steps))
     if not all(math.isfinite(v) for v in losses) or skipped[-1]:
         raise AssertionError(f"{what}: losses {losses}, skipped {skipped[-1]}")
     if peak * 2**20 >= PEAK_LIMIT_BYTES:
@@ -3663,8 +3800,8 @@ def recurrent_run(dev, cfg, run, *, repeat_batch: bool = False,
                step_ms=statistics.median(step_ms[1:] or step_ms),
                step_ms_samples=step_ms, peak_mem_mib=peak,
                allocated_before_mib=left_mib, launches=launches,
-               losses=losses, skipped=skipped[-1],
-               mass=_carry_mass(state.sketch, batch))
+               losses=losses, skipped=skipped[-1], workers=W,
+               mass=_carry_mass(state.sketch, batch // W))
     if profile_groups is not None:
         tokens, labels = host_batch(pipe, steps, device=dev)
         state, out["profile"] = _profile_step(
@@ -3674,6 +3811,11 @@ def recurrent_run(dev, cfg, run, *, repeat_batch: bool = False,
             0.0, 1 - out["profile"]["device_ms"] / out["step_ms"])
         if profile_extra is not None:
             out.update(profile_extra(state, out))
+    if run.compression is not None and W == 1:
+        tokens, labels = host_batch(pipe, steps + 1, device=dev)
+        out["mass_check"] = _mass_check(
+            dev, cfg, run, state, step, {"tokens": tokens, "labels": labels})
+    out["seconds"] = time.perf_counter() - t0
     log(f"{what}: " + json.dumps({k: v for k, v in out.items()
                                   if k not in ("step_ms_samples",)}))
     del state, step
@@ -3765,15 +3907,15 @@ def _xlstm_step_vs_cpu(dev, S: int, chunk: int, tol: float) -> dict:
 
 def phase_xlstm_train(dev) -> dict:
     """xlstm-1.3b training: (a) the backward kernels at MLSTM_BWD_CASES
-    (``phase_mlstm_bwd``); (b) full width and all 48 layers at B 4 x S
-    512, Gaussian then psparse projections (XLSTM_TRAIN), the Gaussian
-    run profiled and, on one repeated batch, required to learn (the mean
-    of its last 3 losses XLSTM_LEARN_DROP below its first 3's); (c) B 1
-    x S 2048 at 16 layers (``ctx_layers``); (d) reduced xlstm, one step
-    on the card against the CPU at each of XLSTM_DVC_STEPS."""
+    (``phase_mlstm_bwd``); (b) full width at ``layers`` at B 4 x S 512,
+    Gaussian then psparse projections (XLSTM_TRAIN), the Gaussian run
+    profiled and, on one repeated batch, required to learn (the mean of
+    its last 3 losses XLSTM_LEARN_DROP below its first 3's); (c) B 1 x S
+    2048 at ``ctx_layers``; (d) reduced xlstm, one step on the card
+    against the CPU at each of XLSTM_DVC_STEPS."""
     from repro_torch.configs import get_arch
-    cfg = get_arch("xlstm-1.3b")
     x = XLSTM_TRAIN
+    cfg = dataclasses.replace(get_arch("xlstm-1.3b"), num_layers=x["layers"])
     out = {"kernel_rows": phase_mlstm_bwd(dev)}
     out["gaussian"] = xlstm_run(dev, cfg, "gaussian", x["steps"], x["batch"],
                                 x["seq"], profile=True, repeat_batch=True)
@@ -3790,20 +3932,6 @@ def phase_xlstm_train(dev) -> dict:
     for S, chunk, tol in XLSTM_DVC_STEPS:
         out[f"vs_cpu_s{S}_w{chunk}"] = _xlstm_step_vs_cpu(dev, S, chunk, tol)
     return out
-
-
-def _rgemma_run_config(proj_kind: str, steps: int, batch: int, seq: int,
-                       k_max: int = RGEMMA_TRAIN["k_max"]):
-    from repro_torch.models.transformer import SketchSettings
-    from repro_torch.optim.adamw import AdamWConfig
-    from repro_torch.train.state import RunConfig
-    # as launch/train.py builds it: lr 3e-4, the global-norm clip at 1,
-    # warmup min(20, steps // 5 + 1)
-    return RunConfig(
-        seq_len=seq, global_batch=batch, optimizer=AdamWConfig(lr=3e-4),
-        warmup_steps=min(20, steps // 5 + 1), total_steps=steps,
-        sketch=SketchSettings(enabled=True, k_max=k_max,
-                              proj_kind=proj_kind))
 
 
 def _rglru_scan_ms(dev, cfg, batch: int, seq: int) -> dict:
@@ -3850,8 +3978,8 @@ def _rgemma_step_vs_cpu(dev) -> dict:
     c = RGEMMA_DVC
     cfg = dataclasses.replace(reduced(get_arch("recurrentgemma-2b")),
                               num_layers=c["layers"])
-    run = _rgemma_run_config("gaussian", 1, c["batch"], c["seq"],
-                             k_max=c["k_max"])
+    run = _launcher_run_config("gaussian", 1, c["batch"], c["seq"],
+                               c["k_max"])
     pipe = PipelineConfig(seed=3, global_batch=c["batch"], seq_len=c["seq"],
                           vocab=cfg.vocab_size)
     tokens, labels = host_batch(pipe, 0)
@@ -3911,8 +4039,8 @@ def phase_rgemma_train(dev) -> dict:
         return dict(rglru_scan=sc)
 
     out = {"gaussian": recurrent_run(
-        dev, cfg, _rgemma_run_config("gaussian", x["steps"], x["batch"],
-                                     x["seq"]),
+        dev, cfg, _launcher_run_config("gaussian", x["steps"], x["batch"],
+                                       x["seq"], x["k_max"]),
         repeat_batch=True, profile_extra=scan,
         profile_groups={"flash_fwd": r"flash_fwd", "flash_bwd":
                         r"flash_bwd_(delta|dq|dkdv|sum)"})}
@@ -3922,27 +4050,14 @@ def phase_rgemma_train(dev) -> dict:
         raise AssertionError(f"recurrentgemma did not learn its repeated "
                              f"batch: mean loss {first:.4f} -> {last:.4f}")
     out["psparse"] = recurrent_run(
-        dev, cfg, _rgemma_run_config("psparse", x["psparse_steps"],
-                                     x["batch"], x["seq"]))
+        dev, cfg, _launcher_run_config("psparse", x["psparse_steps"],
+                                       x["batch"], x["seq"], x["k_max"]))
     out["ctx"] = recurrent_run(
-        dev, cfg, _rgemma_run_config("gaussian", x["ctx_steps"],
-                                     x["ctx_batch"], x["ctx_seq"]))
+        dev, cfg, _launcher_run_config("gaussian", x["ctx_steps"],
+                                       x["ctx_batch"], x["ctx_seq"],
+                                       x["k_max"]))
     out["vs_cpu"] = _rgemma_step_vs_cpu(dev)
     return out
-
-
-def _qwen_run_config(proj_kind: str, steps: int, batch: int, seq: int,
-                     k_max: int = QWEN_TRAIN["k_max"]):
-    from repro_torch.models.transformer import SketchSettings
-    from repro_torch.optim.adamw import AdamWConfig
-    from repro_torch.train.state import RunConfig
-    # as launch/train.py builds it: lr 3e-4, the global-norm clip at 1,
-    # warmup min(20, steps // 5 + 1)
-    return RunConfig(
-        seq_len=seq, global_batch=batch, optimizer=AdamWConfig(lr=3e-4),
-        warmup_steps=min(20, steps // 5 + 1), total_steps=steps,
-        sketch=SketchSettings(enabled=True, k_max=k_max,
-                              proj_kind=proj_kind))
 
 
 def _moe_layer_ms(dev, state, cfg, batch: int, seq: int) -> dict:
@@ -3972,7 +4087,8 @@ def _moe_layer_ms(dev, state, cfg, batch: int, seq: int) -> dict:
     tree = state.sketch
     node = tree.nodes["expert_in"]
     one = type(node)(x=node.x[0], y=node.y[0], z=node.z[0], psi=node.psi[0])
-    st = _qwen_run_config("gaussian", 1, batch, seq).sketch
+    st = _launcher_run_config("gaussian", 1, batch, seq,
+                              QWEN_TRAIN["k_max"]).sketch
     upd_ms, upd_call_ms = time_ms(lambda: _update_expert_triple(
         one, xg, tree.proj, tree.k_active, st), 50, 5)
     res = dict(experts=E, capacity=C, ffn_fwd_ms=fwd_ms, ffn_bwd_ms=bwd_ms,
@@ -4000,8 +4116,8 @@ def _moe_step_vs_cpu(dev) -> dict:
 
     c = QWEN_DVC
     cfg = reduced(get_arch("qwen3-moe-30b-a3b"))
-    run = _qwen_run_config("gaussian", 1, c["batch"], c["seq"],
-                           k_max=c["k_max"])
+    run = _launcher_run_config("gaussian", 1, c["batch"], c["seq"],
+                               c["k_max"])
     pipe = PipelineConfig(seed=3, global_batch=c["batch"], seq_len=c["seq"],
                           vocab=cfg.vocab_size)
     tokens, labels = host_batch(pipe, 0)
@@ -4082,8 +4198,8 @@ def phase_qwen3_moe_train(dev) -> dict:
         return dict(moe_layer=ms)
 
     out = {"gaussian": recurrent_run(
-        dev, cfg, _qwen_run_config("gaussian", x["steps"], x["batch"],
-                                   x["seq"]),
+        dev, cfg, _launcher_run_config("gaussian", x["steps"], x["batch"],
+                                       x["seq"], x["k_max"]),
         repeat_batch=True, profile_extra=layer,
         profile_groups={"flash_fwd": r"flash_fwd", "flash_bwd":
                         r"flash_bwd_(delta|dq|dkdv|sum)"})}
@@ -4093,9 +4209,190 @@ def phase_qwen3_moe_train(dev) -> dict:
         raise AssertionError(f"qwen3-moe did not learn its repeated batch: "
                              f"mean loss {first:.4f} -> {last:.4f}")
     out["psparse"] = recurrent_run(
-        dev, cfg, _qwen_run_config("psparse", x["psparse_steps"],
-                                   x["batch"], x["seq"]))
+        dev, cfg, _launcher_run_config("psparse", x["psparse_steps"],
+                                       x["batch"], x["seq"], x["k_max"]))
     out["vs_cpu"] = _moe_step_vs_cpu(dev)
+    return out
+
+
+def _lm_steps_vs_cpu(dev, what: str, cfg, run, *, steps: int = 1,
+                     patch: bool = False) -> dict:
+    """``steps`` train steps of the reduced ``cfg`` under ``run`` (one
+    device or W workers) on the card and on the CPU, from one state and
+    the same batches (with ``patch`` stand-in patch embeddings in each,
+    ``models.frontends.fake_patch_embeds``): losses within rtol TOL, the
+    parameters, every sketch triple and the count sketch's {u, v} within
+    TOL * max|CPU|; the card's launches counted (``_train_counts``)."""
+    import torch
+    from repro_torch.data.pipeline import PipelineConfig, host_batch
+    from repro_torch.models.frontends import fake_patch_embeds
+    from repro_torch.optim.flat import FlatLayout
+    from repro_torch.train.state import init_train_state
+    from repro_torch.train.step import make_train_step
+
+    t0 = time.perf_counter()
+    B, S = run.global_batch, run.seq_len
+    pipe = PipelineConfig(seed=3, global_batch=B, seq_len=S,
+                          vocab=cfg.vocab_size)
+    gen = torch.Generator().manual_seed(3)
+    batches = []
+    for s in range(steps):
+        tokens, labels = host_batch(pipe, s)
+        batches.append({"tokens": tokens, "labels": labels})
+        if patch:
+            batches[-1]["patch_embeds"] = fake_patch_embeds(
+                gen, B, cfg.num_frontend_tokens, cfg.d_model, cfg.dtype)
+    cpu0 = init_train_state(0, cfg, run, device="cpu")
+
+    def drive(where):
+        state = init_train_state(0, cfg, run, device=where,
+                                 params=cpu0.params, sketch=cpu0.sketch)
+        step = make_train_step(cfg, run)
+        reset_counts()
+        losses = []
+        for b in batches:
+            state, m = step(state, {k: v.to(where) for k, v in b.items()})
+            losses.append(float(m["loss"]))
+        if where != "cpu":
+            torch.cuda.synchronize()
+        return state, losses, read_counts()
+
+    got, loss_d, launches = drive(dev)
+    want, loss_c, _ = drive("cpu")
+    check_counts(what, launches, _train_counts(cfg, run, steps))
+    torch.testing.assert_close(torch.tensor(loss_d), torch.tensor(loss_c),
+                               rtol=TOL, atol=0, msg=lambda m: f"{what}: {m}")
+    lay = FlatLayout(want.params)
+    pairs = [("params", lay.ravel(got.params), lay.ravel(want.params))]
+    pairs += [(f"{n}.{a}", getattr(got.sketch.nodes[n], a), getattr(node, a))
+              for n, node in want.sketch.nodes.items() for a in "xyz"]
+    pairs += [(f"err.{k}", got.opt["err"][k], v)
+              for k, v in want.opt.get("err", {}).items()]
+    errs = {}
+    for name, g, w in pairs:
+        g, scale = g.cpu(), float(w.abs().max())
+        torch.testing.assert_close(g, w, rtol=TOL, atol=TOL * scale,
+                                   msg=lambda m: f"{what} {name}: {m}")
+        errs[name] = float((g - w).abs().max()) / max(scale, 1e-30)
+    if got.skipped or want.skipped:
+        raise AssertionError(f"{what}: skipped {got.skipped}/{want.skipped}")
+    out = dict(batch=B, seq=S, steps=steps, workers=run.dp_workers,
+               seconds=time.perf_counter() - t0, tol=TOL,
+               losses_card=loss_d, losses_cpu=loss_c,
+               max_rel_err=max(errs.values()), rel_err=errs,
+               launches=launches)
+    log(f"{what}: " + json.dumps(out))
+    return out
+
+
+def phase_musicgen_train(dev) -> dict:
+    """musicgen-large training at full width and all 48 layers
+    (MUSICGEN_TRAIN): (a) B 4 x S 512, Gaussian projections on one
+    repeated batch, profiled (the flash kernels' device share) and
+    required to learn (the mean of its last 3 losses MUSICGEN_LEARN_DROP
+    below its first 3's); (b) psparse projections on fresh batches."""
+    from repro_torch.configs import get_arch
+    cfg = get_arch("musicgen-large")
+    x = MUSICGEN_TRAIN
+    out = {"gaussian": recurrent_run(
+        dev, cfg, _launcher_run_config("gaussian", x["steps"], x["batch"],
+                                       x["seq"], x["k_max"]),
+        repeat_batch=True,
+        profile_groups={"flash_fwd": r"flash_fwd", "flash_bwd":
+                        r"flash_bwd_(delta|dq|dkdv|sum)"})}
+    first, last = (statistics.mean(out["gaussian"]["losses"][:3]),
+                   statistics.mean(out["gaussian"]["losses"][-3:]))
+    if not last < (1 - MUSICGEN_LEARN_DROP) * first:
+        raise AssertionError(f"musicgen did not learn its repeated batch: "
+                             f"mean loss {first:.4f} -> {last:.4f}")
+    out["psparse"] = recurrent_run(
+        dev, cfg, _launcher_run_config("psparse", x["psparse_steps"],
+                                       x["batch"], x["seq"], x["k_max"]))
+    return out
+
+
+def phase_internvl2_train_vs_cpu(dev) -> dict:
+    """Reduced internvl2-76b (2 layers, 4 patch positions), two train
+    steps with stand-in patch embeddings spliced over the first positions,
+    on the card against the CPU (``_lm_steps_vs_cpu``)."""
+    from repro_torch.configs import get_arch, reduced
+    c = REDUCED_DVC
+    cfg = reduced(get_arch("internvl2-76b"))
+    run = _launcher_run_config("gaussian", 2, c["batch"], c["seq"],
+                               c["k_max"])
+    return _lm_steps_vs_cpu(dev, "internvl2 steps with patch embeddings",
+                            cfg, run, steps=2, patch=True)
+
+
+def _dp_fields(workers: int) -> dict:
+    return dict(dp_axis_name="data", dp_workers=workers,
+                dp_collective="fused", ring_wire=True)
+
+
+def phase_recurrent_dp(dev) -> dict:
+    """xlstm-1.3b and recurrentgemma-2b trained data-parallel
+    (RECURRENT_DP: W 2 workers on the fp32 ring, the fused layout) at
+    full width cut to RECURRENT_DP_LAYERS, each worker's carry rows
+    against its own projections; then a reduced W 2 step of each on the
+    card against the CPU."""
+    from repro_torch.configs import get_arch, reduced
+    x, c = RECURRENT_DP, REDUCED_DVC
+    k_max = {"xlstm-1.3b": XLSTM_TRAIN["k_max"],
+             "recurrentgemma-2b": RGEMMA_TRAIN["k_max"]}
+    clip = {"xlstm-1.3b": XLSTM_GRAD_CLIP, "recurrentgemma-2b": 1.0}
+    out = {}
+    for arch, layers in RECURRENT_DP_LAYERS.items():
+        cfg = dataclasses.replace(get_arch(arch), num_layers=layers)
+        run = _launcher_run_config(
+            "gaussian", x["steps"], x["batch"], x["seq"], k_max[arch],
+            grad_clip=clip[arch], **_dp_fields(x["workers"]))
+        # xlstm's step is its workers' sLSTM loops on the host (88% idle
+        # at 16 layers on an H100): profiling its 20,000 launches would
+        # cost more than the run
+        out[arch] = recurrent_run(
+            dev, cfg, run, profile_groups=None if arch == "xlstm-1.3b"
+            else {})
+    for arch in RECURRENT_DP_LAYERS:
+        cfg = reduced(get_arch(arch))
+        run = _launcher_run_config(
+            "gaussian", 1, c["batch"], REDUCED_DVC_SEQ.get(arch, c["seq"]),
+            c["k_max"], **_dp_fields(x["workers"]))
+        out[f"{arch}/vs_cpu"] = _lm_steps_vs_cpu(
+            dev, f"{arch} W {x['workers']} step", cfg, run)
+    return out
+
+
+def phase_recurrent_cs(dev) -> dict:
+    """xlstm-1.3b and recurrentgemma-2b trained with the fp32 count
+    sketch (RECURRENT_CS) on one device at full width cut to
+    RECURRENT_CS_LAYERS: no skip, and the mass check on one more step
+    (v_new + update = v_pre away from the sent coordinates); then a
+    reduced compressed step of each on the card against the CPU, fp32
+    and the int8 table with p2."""
+    from repro_torch.configs import get_arch, reduced
+    x, c = RECURRENT_CS, REDUCED_DVC
+    out = {}
+    for arch, layers in RECURRENT_CS_LAYERS.items():
+        cfg = dataclasses.replace(get_arch(arch), num_layers=layers)
+        clip = XLSTM_GRAD_CLIP if arch == "xlstm-1.3b" else 1.0
+        k_max = XLSTM_TRAIN["k_max"] if arch == "xlstm-1.3b" \
+            else RGEMMA_TRAIN["k_max"]
+        run = _launcher_run_config("gaussian", x["steps"], x["batch"],
+                                   x["seq"], k_max, grad_clip=clip,
+                                   compression=x["compression"])
+        out[arch] = recurrent_run(dev, cfg, run)
+    small = dict(mode="countsketch", cs_cols=512, cs_k=64)
+    for arch in RECURRENT_CS_LAYERS:
+        cfg = reduced(get_arch(arch))
+        for label, comp in (("fp32", small),
+                            ("int8_p2", dict(small, wire_dtype="int8",
+                                             cs_p2=2))):
+            run = _launcher_run_config(
+                "gaussian", 2, c["batch"] // 2,
+                REDUCED_DVC_SEQ.get(arch, c["seq"]), c["k_max"],
+                compression=comp)
+            out[f"{arch}/vs_cpu_{label}"] = _lm_steps_vs_cpu(
+                dev, f"{arch} compressed ({label}) steps", cfg, run, steps=2)
     return out
 
 
@@ -4116,7 +4413,7 @@ def main() -> int:
     from repro_torch.kernels import _build
 
     # one nvcc per source, all started together
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(KERNELS)) as pool:
         logs = dict(zip(KERNELS, pool.map(_build.build, KERNELS)))
     build_s = time.perf_counter() - t0
@@ -4158,14 +4455,26 @@ def main() -> int:
                         dataclasses.replace(get_arch("xlstm-1.3b"),
                                             num_layers=XLSTM_SERVE_LAYERS),
                         **XLSTM_SERVE)
-    # recurrentgemma-2b at full width and depth, random bf16 weights
+    # recurrentgemma-2b at full width cut in depth, random bf16 weights
     serve_rgemma = timed("serve_recurrentgemma", phase_serve, dev,
-                         get_arch("recurrentgemma-2b"), **RGEMMA_SERVE)
-    # qwen3-moe-30b-a3b at full width and depth, random weights drawn in
-    # bf16
+                         dataclasses.replace(get_arch("recurrentgemma-2b"),
+                                             num_layers=RGEMMA_SERVE_LAYERS),
+                         **RGEMMA_SERVE)
+    # qwen3-moe-30b-a3b at full width cut in depth, random weights drawn
+    # in bf16
     serve_qwen = timed("serve_qwen3_moe", phase_serve, dev,
-                       get_arch("qwen3-moe-30b-a3b"), **QWEN_SERVE,
-                       draw_in_dtype=True)
+                       dataclasses.replace(get_arch("qwen3-moe-30b-a3b"),
+                                           num_layers=QWEN_SERVE_LAYERS),
+                       **QWEN_SERVE, draw_in_dtype=True)
+    # musicgen-large at full width and depth; internvl2-76b at full width
+    # cut in depth, its weights drawn in bf16
+    serve_musicgen = timed("serve_musicgen", phase_serve, dev,
+                           get_arch("musicgen-large"), **MUSICGEN_SERVE)
+    serve_internvl = timed(
+        "serve_internvl2", phase_serve, dev,
+        dataclasses.replace(get_arch("internvl2-76b"),
+                            num_layers=INTERNVL_SERVE_LAYERS),
+        **INTERNVL_SERVE, draw_in_dtype=True)
     dvc = timed("device_vs_cpu", phase_device_vs_cpu, dev)
     # reduced xlstm, two 256-token chunks a prompt
     dvc_xlstm = timed("device_vs_cpu_xlstm", phase_device_vs_cpu, dev,
@@ -4186,6 +4495,11 @@ def main() -> int:
     kernel_rows["mlstm_chunk_bwd"] = xlstm.pop("kernel_rows")
     rgemma = timed("recurrentgemma_train", phase_rgemma_train, dev)
     qwen = timed("qwen3_moe_train", phase_qwen3_moe_train, dev)
+    musicgen = timed("musicgen_train", phase_musicgen_train, dev)
+    internvl = timed("internvl2_train_vs_cpu", phase_internvl2_train_vs_cpu,
+                     dev)
+    rec_dp = timed("recurrent_dp", phase_recurrent_dp, dev)
+    rec_cs = timed("recurrent_cs", phase_recurrent_cs, dev)
     dp_phases_s = sum(phase_s[k] for k in
                       ("dp_train", "dp_device_vs_cpu", "dp_launcher"))
     log(f"data-parallel phases: {dp_phases_s:.1f} s")
@@ -4220,7 +4534,18 @@ def main() -> int:
                **{f"recurrentgemma_train/{k}": v["launches"]
                   for k, v in rgemma.items()},
                **{f"qwen3_moe_train/{k}": v["launches"]
-                  for k, v in qwen.items()}}
+                  for k, v in qwen.items()},
+               "serve_musicgen/gaussian": serve_musicgen["launches"],
+               "serve_musicgen/psparse": serve_musicgen["psparse_launches"],
+               "serve_internvl2/gaussian": serve_internvl["launches"],
+               "serve_internvl2/psparse": serve_internvl["psparse_launches"],
+               **{f"musicgen_train/{k}": v["launches"]
+                  for k, v in musicgen.items()},
+               "internvl2_vs_cpu": internvl["launches"],
+               **{f"recurrent_dp/{k}": v["launches"]
+                  for k, v in rec_dp.items()},
+               **{f"recurrent_cs/{k}": v["launches"]
+                  for k, v in rec_cs.items()}}
     sources = {"sketch_update": ("src/repro_torch/csrc/sketch_update.cu",
                                  "src/repro/kernels/sketch_update.py:60",
                                  "prefill"),
@@ -4286,7 +4611,11 @@ def main() -> int:
         dp_device_vs_cpu=dp_dvc, dp_launcher=dp_launcher,
         dp_phases_s=dp_phases_s, paper_experiments=paper,
         xlstm_train=xlstm, recurrentgemma_train=rgemma,
-        qwen3_moe_train=qwen, phase_s=phase_s),
+        qwen3_moe_train=qwen, serve_musicgen=serve_musicgen,
+        serve_internvl2=serve_internvl, musicgen_train=musicgen,
+        internvl2_train_vs_cpu=internvl, recurrent_dp=rec_dp,
+        recurrent_cs=rec_cs, phase_s=phase_s, total_s=time.perf_counter()
+        - t_start),
         indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

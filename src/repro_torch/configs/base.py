@@ -35,6 +35,11 @@ class ArchConfig:
     num_experts: int = 0
     experts_per_token: int = 0
     capacity_factor: float = 1.25
+    # modality frontend: "audio" is the identity on the token stream,
+    # "vision" splices num_frontend_tokens patch embeddings over the
+    # first positions (models/frontends.py)
+    frontend: str = "none"           # none | audio | vision
+    num_frontend_tokens: int = 0
     mlp_type: str = "swiglu"         # swiglu | gelu | none
     rope_theta: float = 10000.0
     norm_eps: float = 1e-6
@@ -97,6 +102,7 @@ def reduced(arch: ArchConfig, *, layers_per_pattern: int = 1) -> ArchConfig:
         window_size=min(arch.window_size, 32),
         num_experts=min(arch.num_experts, 4) if arch.is_moe else 0,
         experts_per_token=min(arch.experts_per_token, 2) if arch.is_moe else 0,
+        num_frontend_tokens=min(arch.num_frontend_tokens, 4),
         lru_width=0,
         dtype=torch.float32,
         param_dtype=torch.float32,

@@ -6,6 +6,11 @@
         --arch xlstm-1.3b --reduced --device cpu --prompt-len 16
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch recurrentgemma-2b --reduced --device cpu --prompt-len 40
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch musicgen-large --reduced --device cpu --monitor
+
+Every registered arch serves, internvl2-76b on its tokens alone (the
+engine takes no patch embeddings, as the reference's).
 
 An arch with mLSTM blocks (xlstm-1.3b) takes prompts of at most 256
 tokens or a multiple of 256.

@@ -8,17 +8,22 @@
     PYTHONPATH=src python -m repro_torch.launch.train --reduced \\
         --dp 4 --dp-collective overlap --sketch-wire-dtype int8 \\
         --ring-wire --compress countsketch --cs-p2 2 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train \\
+        --arch recurrentgemma-2b --reduced --dp 2 --batch 4 --device cpu
 
 Runs on the CUDA device unless ``--device`` names another: sketched
 backprop on the FFN (``--no-sketch`` for exact backprop), AdamW with
 warmup-cosine, the NaN guard, checkpoints every ``--ckpt-every`` steps,
 and optional count-sketch (or top-k) gradient compression. ``--dp W``
-runs the data-parallel step with W workers in this process, in the
-``--dp-collective`` layout, with the sketch increments on an fp32 or
-int8 wire (``--sketch-wire-dtype``; ``--wire-dtype`` is the count-sketch
-table's) and, with ``--ring-wire``, merged through the ring kernel. The
+runs the data-parallel step with W workers in this process (every arch
+but the MoE ones, ROADMAP A17), in the ``--dp-collective`` layout, with
+the sketch increments on an fp32 or int8 wire (``--sketch-wire-dtype``;
+``--wire-dtype`` is the count-sketch table's) and, with ``--ring-wire``,
+merged through the ring kernel. The
 reference's mesh flags (``--dp-pods``, ``--dp-merge reduce_scatter``,
-``--debug-mesh``, ``--multi-pod``) raise, naming ROADMAP A14.
+``--debug-mesh``, ``--multi-pod``) raise, naming ROADMAP A14. Like the
+reference's, the launcher builds no patch embeddings for internvl2-76b:
+its batches are tokens alone.
 """
 from __future__ import annotations
 

@@ -1,7 +1,7 @@
 """Decoder stack for the dense-attention architectures, xlstm's
-mLSTM/sLSTM blocks, recurrentgemma's RG-LRU blocks and the MoE FFNs of
-qwen3-moe and mixtral (counterpart of that subset of
-``repro.models.transformer``).
+mLSTM/sLSTM blocks, recurrentgemma's RG-LRU blocks, the MoE FFNs of
+qwen3-moe and mixtral, and internvl2's spliced patch embeddings
+(counterpart of ``repro.models.transformer``).
 
 Parameters are ``{"embed", "final_norm", "layers": [block, ...]}`` with
 one dict per layer, in layer order; the reference's scanned layout
@@ -217,9 +217,10 @@ def _check_ported(cfg: ArchConfig) -> None:
     kinds = set(cfg.pattern)
     if not kinds <= set(ATTN_KINDS + RECURRENT_KINDS):
         raise NotImplementedError(
-            f"{cfg.name}: only attention, mLSTM, sLSTM and RG-LRU blocks "
-            f"are ported (pattern {cfg.pattern}); the others are ROADMAP "
-            f"A13")
+            f"{cfg.name}: the port runs attention, mLSTM, sLSTM and "
+            f"RG-LRU blocks (pattern {cfg.pattern}); block kinds "
+            f"{sorted(kinds - set(ATTN_KINDS + RECURRENT_KINDS))} have no "
+            f"port")
 
 
 def _block_init(gen, cfg: ArchConfig, kind: str, dtype) -> dict:
@@ -523,6 +524,7 @@ def forward(
     settings: SketchSettings = SketchSettings(),
     logits_only_last: bool = False,
     seq_len_ctx: int | None = None,
+    patch_embeds: Tensor | None = None,
 ) -> dict:
     """Full decoder forward -> dict(logits, cache, aux, sketch_state).
 
@@ -536,7 +538,11 @@ def forward(
     (B*S, d) updates "res" entry l. Whenever nodes update, the returned
     tree has its step advanced; otherwise it comes back as given.
     ``aux`` is the sum of the MoE layers' load-balance losses (0 without
-    MoE).
+    MoE). For a "vision" frontend, ``patch_embeds`` (B, f, d) replaces
+    the scaled embeddings of positions [0, f) when f <= S (cast to
+    ``cfg.dtype``; out of place, so those rows give the embedding no
+    gradient); other frontends and f > S leave the embeddings as they
+    are, as the reference does.
     """
     _check_ported(cfg)
     if settings.dp_axis is not None:
@@ -552,6 +558,10 @@ def forward(
                                  device=tokens.device).expand(B, S)
     x = embed_apply(params["embed"], tokens, dt)
     x = x * torch.tensor(d ** 0.5, dtype=dt, device=x.device)
+    if patch_embeds is not None and cfg.frontend == "vision":
+        f = patch_embeds.shape[1]
+        if f <= S:
+            x = torch.cat([patch_embeds.to(dt), x[:, f:]], dim=1)
     if seq_len_ctx is None:
         seq_len_ctx = S
     nodes = sketch_state.nodes if sketch_state is not None else {}

@@ -77,6 +77,12 @@ class CompressionConfig:
 _MIN_COLS = 128        # below this the table is all collisions
 
 
+#: flat dimensions the count sketch addresses: the reference forms its
+#: coordinate indices in int32 (``countsketch/csvec.py``, the top-k's
+#: (k,) int32 result), and its step does not trace at 2**31 or more
+MAX_FLAT_DIM = 2**31 - 1
+
+
 def resolve_countsketch(cfg: CompressionConfig, dim: int, *,
                         strict: bool = False) -> CompressionConfig:
     """Pin the count-sketch geometry to the flat parameter dimension.
@@ -86,12 +92,18 @@ def resolve_countsketch(cfg: CompressionConfig, dim: int, *,
     gradient bytes, and raises when the model is too small for that.
     ``strict=True`` (``train.state.finalize_run``) also rejects explicit
     geometries that make compression pointless (table >= dense, k >
-    dim)."""
+    dim). A dim past ``MAX_FLAT_DIM`` raises ValueError."""
     if cfg.mode != "countsketch":
         return cfg
     if dim < 1:
         raise ValueError(
             f"countsketch needs a positive flat dim, got {dim}")
+    if dim > MAX_FLAT_DIM:
+        raise ValueError(
+            f"count-sketch compression of a flat gradient of {dim} "
+            f"coordinates: the limit is 2**31 - 1 = {MAX_FLAT_DIM} (the "
+            f"reference indexes coordinates in int32); cut the model's "
+            f"depth or compress without the count sketch")
     cols = cfg.cs_cols
     if cols is None:
         budget = int(dim * cfg.cs_target_ratio) // cfg.cs_rows

@@ -138,7 +138,8 @@ def make_loss_and_grads(cfg: ArchConfig, run: RunConfig) -> Callable:
         live = tree_like(state.params, leaves)
         out = transformer.forward(live, batch["tokens"], cfg=cfg,
                                   mode="train", sketch_state=state.sketch,
-                                  settings=settings or run.sketch)
+                                  settings=settings or run.sketch,
+                                  patch_embeds=batch.get("patch_embeds"))
         ce = cross_entropy(out["logits"], batch["labels"], run.z_weight)
         loss = ce + run.aux_weight * out["aux"]
         grads = tree_like(state.params, torch.autograd.grad(loss, leaves))
@@ -317,7 +318,10 @@ def _reference_layout(cfg: ArchConfig, params) -> tuple[FlatLayout, list]:
 def make_train_step(cfg: ArchConfig, run: RunConfig, *,
                     cs_params=None) -> Callable:
     """``step(state, batch) -> (new_state, metrics)`` for batches
-    {"tokens", "labels"} of (B, S) int64 on the state's device.
+    {"tokens", "labels"} of (B, S) int64 on the state's device, and for a
+    "vision" frontend optionally "patch_embeds" (B, f, d), which every
+    train-mode forward splices in (the data-parallel step splits its rows
+    with the tokens'). The eval step takes none, as the reference's.
 
     Compression sees the gradient as the reference does: count-sketch
     the flat vector in its ``ravel_pytree`` order, top-k each of its
@@ -400,17 +404,12 @@ def _split_batch(batch: dict, workers: int) -> list[dict]:
             for w in range(workers)]
 
 
-RECURRENT_DP = ("data-parallel training of archs with recurrent blocks "
-                "is not ported yet: ROADMAP A15, xlstm and recurrentgemma "
-                "data-parallel training")
 MOE_DP = ("data-parallel training of MoE archs is not ported yet: ROADMAP "
           "A17, MoE data-parallel training (the expert_in stacks' "
           "increments on the wire)")
 
 
 def _make_dp_step(cfg: ArchConfig, run: RunConfig, cs_params) -> Callable:
-    if set(cfg.pattern) & set(transformer.RECURRENT_KINDS):
-        raise NotImplementedError(f"{cfg.name}: {RECURRENT_DP}")
     if cfg.is_moe:
         raise NotImplementedError(f"{cfg.name}: {MOE_DP}")
     W, comp = run.dp_workers, run.compression
@@ -436,7 +435,8 @@ def _make_dp_step(cfg: ArchConfig, run: RunConfig, cs_params) -> Callable:
         with torch.no_grad():
             out = transformer.forward(
                 state.params, batch["tokens"], cfg=cfg, mode="train",
-                sketch_state=state.sketch, settings=defer_st)
+                sketch_state=state.sketch, settings=defer_st,
+                patch_embeds=batch.get("patch_embeds"))
         return out["sketch_state"]
 
     def train_step(state: TrainState, batch: dict):

@@ -414,7 +414,9 @@ def test_collective_trace_matches_the_references(ref, port, name):
 
 
 @pytest.mark.parametrize("arch", ["tinyllama-1.1b", "granite-34b",
-                                  "gemma3-27b", "xlstm-1.3b"])
+                                  "gemma3-27b", "xlstm-1.3b",
+                                  "recurrentgemma-2b", "musicgen-large",
+                                  "internvl2-76b"])
 def test_per_node_plan_counts_the_references_leaves(arch):
     """per_node's collective count at full width (one mean a parameter
     leaf of the reference's stacked tree) equals the reference's plan,

@@ -40,10 +40,15 @@ CASES = [  # (B, Hq, Hkv, S, D, window, dtype)
     (1, 4, 2, 96, 160, None, torch.float32),
     (1, 4, 2, 96, 160, None, torch.bfloat16),
     (1, 4, 2, 300, 160, 100, torch.bfloat16),
+    # internvl2-76b's GQA 8:1 at head_dim 128
+    (1, 16, 2, 300, 128, None, torch.bfloat16),
     # enough KV tiles and heads that the dk/dv pass takes one slice of
     # each group (the cases above split it and sum partials)
     (2, 4, 4, 2100, 16, 300, torch.float32),
     (4, 4, 4, 1100, 64, None, torch.bfloat16),
+    # musicgen-large's MHA (one query head a KV head, so no split) at
+    # head_dim 64, its last tile ragged
+    (2, 8, 8, 1030, 64, None, torch.bfloat16),
     # head_dim 256: the dk/dv pass's split kernel (64 keys a block, a
     # dV and a dK warpgroup), split over query heads and not
     (2, 10, 1, 130, 256, None, torch.bfloat16),

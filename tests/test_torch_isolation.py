@@ -33,6 +33,7 @@ def test_port_loads_without_jax():
         "import repro_torch.train.paper_trainer, repro_torch.sketches.linear\n"
         "import repro_torch.core.reconstruct, repro_torch.core.adaptive\n"
         "import repro_torch.optim.adamw, repro_torch.data.synthetic\n"
+        "import repro_torch.models.frontends\n"
         "import repro_torch.countsketch, repro_torch.kernels.csvec_insert\n"
         "import repro_torch.kernels.csvec_topk, repro_torch.kernels.csvec_quant\n"
         "import repro_torch.optim.compression, repro_torch.optim.sketched_sgd\n"
@@ -136,10 +137,20 @@ def test_configs_match_reference(name):
 
 
 @pytest.mark.parametrize("name", ["musicgen-large", "internvl2-76b"])
-def test_unported_archs_name_their_roadmap_item(name):
-    jax_get_arch(name)                  # exists in the reference
-    with pytest.raises(NotImplementedError, match="ROADMAP A13"):
-        get_arch(name)
+def test_frontend_archs_are_ported(name):
+    """Both frontend archs are registered with the reference's frontend
+    and build parameters at reduced size."""
+    from repro_torch.models.transformer import init_params, num_params
+    from repro_torch.optim.sketched_sgd import flat_dim
+
+    assert name in ARCHS
+    ref = jax_get_arch(name)
+    ours = get_arch(name)
+    assert (ours.frontend, ours.num_frontend_tokens) == (
+        ref.frontend, ref.num_frontend_tokens)
+    small = reduced(ours)
+    params = init_params(torch.Generator().manual_seed(0), small)
+    assert flat_dim(params) == num_params(small)
 
 
 @pytest.mark.parametrize("name", ["mixtral-8x22b", "qwen3-moe-30b-a3b"])

@@ -325,13 +325,3 @@ def test_dp_step_refuses_moe_naming_its_roadmap_item():
     with pytest.raises(NotImplementedError,
                        match="ROADMAP A17, MoE data-parallel"):
         make_dp_train_step(cfg, run)
-
-
-def test_recurrent_dp_refusal_names_both_recurrent_archs():
-    from repro_torch.train.step import RECURRENT_DP
-    assert "xlstm" in RECURRENT_DP and "recurrentgemma" in RECURRENT_DP
-    for arch in ("xlstm-1.3b", "recurrentgemma-2b"):
-        run = RunConfig(seq_len=16, global_batch=2, dp_axis_name="data",
-                        dp_workers=2)
-        with pytest.raises(NotImplementedError, match="ROADMAP A15"):
-            make_dp_train_step(reduced(get_arch(arch)), run)

@@ -58,7 +58,7 @@ from repro_torch.kernels import flash_attention as FA
 from repro_torch.models import transformer
 from repro_torch.serve import ServeEngine
 from repro_torch.train.state import RunConfig, init_train_state
-from repro_torch.train.step import make_dp_train_step, make_train_step
+from repro_torch.train.step import make_train_step
 
 ARCH = "recurrentgemma-2b"
 LAYERS = 5
@@ -244,14 +244,6 @@ def test_train_steps_match_reference(proj):
             _close(getattr(ts.sketch.nodes[name], a), getattr(node, a),
                    rtol=TOL, atol_rel=TOL)
     assert ts.sketch.step == int(js.sketch.step)
-
-
-def test_dp_step_raises_for_recurrentgemma():
-    _, cfg = _cfgs()
-    run = RunConfig(seq_len=16, global_batch=B, dp_axis_name="data",
-                    dp_workers=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP A15"):
-        make_dp_train_step(cfg, run)
 
 
 # ---------------------------------------------------------------------------

@@ -52,7 +52,7 @@ from repro_torch.launch import train as train_launcher
 from repro_torch.models import transformer
 from repro_torch.sketches import node_paths
 from repro_torch.train.state import RunConfig, init_train_state
-from repro_torch.train.step import make_dp_train_step, make_train_step
+from repro_torch.train.step import make_train_step
 
 TOL = 1e-5
 SPREAD_TOL = 1e-3        # the reference's own chunk spread at S 512
@@ -384,14 +384,6 @@ def test_carry_live_slots_are_the_support_rows_below_b():
     full = P.psparse_update_ref(padded, *xyz, params, psi, beta=0.9, m=m)
     for g, w in zip(got, full):
         _close(g, w, tol=1e-6)
-
-
-def test_dp_step_raises_for_xlstm():
-    _, cfg = _cfgs()
-    run = RunConfig(seq_len=S, global_batch=B, dp_axis_name="data",
-                    dp_workers=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP A15"):
-        make_dp_train_step(cfg, run)
 
 
 def test_launcher_trains_and_resumes_reduced_xlstm(tmp_path):

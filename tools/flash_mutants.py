@@ -18,9 +18,13 @@ case): for o, dq, dk and dv (the backward given the plain forward's o
 and lse) the gap over each row's scale and the largest share of the
 allowance used (``flash_attention.bf16_gaps``), that share against an
 allowance scaled by the tensor's largest value instead of the row's,
-and whether the ``BF16_TOL`` check fails (a NaN fails it). Exits 1 if the control fails,
-a mutant passes every case, or a mutant of the head_dim 256 dk/dv
-kernel passes every head_dim 256 case. Needs a CUDA device and nvcc.
+and whether the ``BF16_TOL`` check fails (a NaN fails it). Exits 1 if
+the control fails, a mutant passes every case, a mutant of the head_dim
+256 dk/dv kernel passes every head_dim 256 case, or any other mutant
+passes the one-query-head-a-KV-head cases (``G1_CASES``, musicgen-large's
+MHA at head_dim 64: its serving prefill, its whole 1536-token context,
+which the mutants of rows and keys past 1024 need, and a ragged window,
+which the window mutants need). Needs a CUDA device and nvcc.
 """
 from __future__ import annotations
 
@@ -31,6 +35,12 @@ import tempfile
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
+
+# the cases with one query head a KV head (G 1), at one of which every
+# mutant but the head_dim 256 kernel's must fail: FLASH_CASES' two
+# musicgen rows, and here a ragged window, which the window mutants need
+G1_WINDOW = ("g1_window", 1, 8, 8, 300, 64, 100, "bfloat16")
+G1_CASES = ("musicgen_prefill", "musicgen_ctx", G1_WINDOW[0])
 
 # (name, the source's text, its replacement, the occurrence to edit)
 MUTANTS = [
@@ -84,7 +94,8 @@ def main() -> int:
     from repro_torch.kernels import flash_attention as FA
 
     cases = [c for c in chip_smoke.FLASH_CASES if c[7] == "bfloat16"]
-    caught, caught_256 = {}, {}
+    cases.append(G1_WINDOW)
+    caught, caught_256, caught_g1 = {}, {}, {}
     with tempfile.TemporaryDirectory() as tmp:
         with concurrent.futures.ThreadPoolExecutor(len(MUTANTS)) as pool:
             libs = dict(zip([m[0] for m in MUTANTS], pool.map(
@@ -93,7 +104,7 @@ def main() -> int:
                 MUTANTS)))
         for name, lib_file in libs.items():
             with loaded("flash_attention", lib_file, FA._bind):
-                caught[name] = caught_256[name] = False
+                caught[name] = caught_256[name] = caught_g1[name] = False
                 gen = torch.Generator(device="cuda").manual_seed(3)
                 for label, B, Hq, Hkv, S, D, window, _ in cases:
                     q, k, v, do = (torch.randn(
@@ -121,6 +132,7 @@ def main() -> int:
                     fails = not all(u <= 1 for u in used.values())
                     caught[name] |= fails
                     caught_256[name] |= fails and D == 256
+                    caught_g1[name] |= fails and label in G1_CASES
                     print(json.dumps(dict(mutant=name, case=label, gaps=gaps,
                                           used=used, used_of_max=used_of_max,
                                           check_fails=fails)), flush=True)
@@ -130,8 +142,11 @@ def main() -> int:
         v for k, v in caught.items() if k != "control")
     # the split kernel's mutants must fail at head_dim 256 itself
     ok &= all(caught_256[k] for k in caught_256 if k.startswith("split_"))
-    print(json.dumps(dict(caught=caught, caught_at_256=caught_256, ok=ok)),
-          flush=True)
+    # and the others at G 1
+    ok &= all(caught_g1[k] for k in caught_g1
+              if k != "control" and not k.startswith("split_"))
+    print(json.dumps(dict(caught=caught, caught_at_256=caught_256,
+                          caught_at_g1=caught_g1, ok=ok)), flush=True)
     return 0 if ok else 1
 
 
